@@ -1,0 +1,79 @@
+"""Carry the reference's weights and state across, as numpy arrays.
+
+The two packages cannot draw the same random numbers (``jax.random`` and
+``torch.Generator`` differ by design), so parity runs start from the SAME
+arrays instead: the reference's params, adaptation tables and delayed ring,
+exported as numpy, become the port's tensors here.
+
+* :func:`params_from_jax` takes the reference's params as a dict keyed by
+  their key-path names — the names of the reference checkpoint's npz arrays,
+  ``['embed']['embedding']`` and so on — and packs them, in leaf order, into
+  the port's flat ``(N,)`` buffer.  Shapes are checked against the port's own
+  template; a missing or extra name raises.
+* :func:`adapt_from_jax` and :func:`delayed_from_jax` do the same for an
+  ``AdaptState``'s tables and histogram and for a flat delayed ring (a bf16
+  ring arrives as numpy's ``bfloat16`` extension type and keeps its bits).
+
+Nothing here imports the JAX package: the caller does the export.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.async_engine.delayed import DelayedGradients
+from repro_torch.training.adapt import AdaptState
+from repro_torch.training.steps import param_template
+from repro_torch.tree import keystr, tree_paths
+
+__all__ = ["params_from_jax", "params_to_numpy", "adapt_from_jax", "delayed_from_jax", "to_torch"]
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """numpy -> torch, keeping bf16 bit patterns (numpy cannot cast them)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def params_from_jax(np_tree: dict, cfg, device="cpu") -> tuple[torch.Tensor, dict]:
+    """The reference's params -> ``(flat (N,) f32 buffer, template)``."""
+    template = param_template(cfg)
+    names = {keystr(path): spec for path, spec in tree_paths(template)}
+    missing = sorted(set(names) - set(np_tree))
+    extra = sorted(set(np_tree) - set(names))
+    if missing or extra:
+        raise ValueError(f"param names disagree: missing {missing}, unexpected {extra}")
+    parts = []
+    for path, (shape, dtype) in tree_paths(template):
+        a = np_tree[keystr(path)]
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{keystr(path)}: shape {a.shape} != template {shape}")
+        parts.append(to_torch(a).to(dtype).reshape(-1))
+    return torch.cat(parts).to(device), template
+
+
+def params_to_numpy(params, cfg) -> dict:
+    """The port's params (flat or tree) -> numpy dict keyed by key-path name."""
+    from repro_torch.training.steps import param_view
+
+    return {keystr(path): leaf.detach().cpu().numpy()
+            for path, leaf in tree_paths(param_view(params, cfg))}
+
+
+def adapt_from_jax(alpha_table, tau_cdf, hist, device="cpu") -> AdaptState:
+    """An AdaptState from the reference's three arrays (dtypes kept: f32,
+    f32, int32)."""
+    return AdaptState(
+        alpha_table=to_torch(np.asarray(alpha_table, np.float32), device),
+        tau_cdf=to_torch(np.asarray(tau_cdf, np.float32), device),
+        hist=to_torch(np.asarray(hist, np.int32), device),
+    )
+
+
+def delayed_from_jax(ring, step, device="cpu") -> DelayedGradients:
+    """A flat ``(K, N)`` delayed ring and its step counter."""
+    return DelayedGradients(ring=to_torch(ring, device),
+                            step=torch.tensor(int(step), dtype=torch.int32, device=device))

@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels of the port, one family per subpackage.
+
+Each family has a plain PyTorch ``ref.py`` (the CPU path and the oracle the
+kernels are held to on the card) and a ``cuda.py`` of wrappers that build,
+bind and launch the CUDA C++ sources under ``csrc/``.
+"""

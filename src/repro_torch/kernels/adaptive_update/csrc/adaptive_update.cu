@@ -1,0 +1,511 @@
+// Hopper (sm_90a) kernels of the adaptive_update family: the MindTheStep
+// server update, hand-written in CUDA C++ and bound through a plain C
+// interface (ctypes, see ../cuda.py).
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/adaptive_update/:
+//   au_fused_tick    <- fused.py:301 fused_tick_call
+//                       (_sgd/_momentum/_adam_tick_kernel :234/:244/:256,
+//                        _tick_combine :223)
+//   au_fused_chain   <- fused.py:137 fused_chain_call
+//                       (_sgd/_momentum/_adam_kernel :73/:79/:89, _prefix :66)
+//   au_fused_combine <- fused.py:349 fused_combine_call (_combine_kernel :344)
+//   au_fused_update  <- kernel.py:46 fused_update_call (_update_kernel :34)
+//
+// What bounds them: bytes.  Each is an elementwise pass over flat f32 buffers
+// of N elements (and, for the tick and the combine, a (K, N) ring), with a
+// handful of flops per byte, far below the H100's ~295 flop/byte ridge.  The
+// least time is the bytes each must move over 3.35 TB/s.  With a momentum
+// body and a K = 8 bf16 ring:
+//   tick    p r/w 8N + g 4N + v r/w 8N + ring read 2N per live slot other
+//           than the pushed one + slot write 2N   (<= 34N; this simple kernel
+//           reads all K - 1 other slots, live or not: 36N)
+//   chain   p r/w 8N + g 4N + v r/w 8N                       = 20N
+//   combine g 4N + ring reads (<= 14N) + slot write 2N + g_eff 4N (<= 24N)
+//   update  p r/w 8N + g 4N + v r/w 8N                       = 20N
+// (adam adds 8N for its second moment).
+//
+// Design, from what the tick computes rather than from the TPU blocks:
+//  * one thread block owns one contiguous range of N; its threads stride
+//    through it eight elements at a time, with 16-byte loads and stores
+//    (two float4 per f32 buffer, one uint4 per bf16 ring row);
+//  * each block folds the per-worker weights onto ring slots itself, from
+//    device pointers to step, taus[W] and weights[W], into shared memory:
+//    no host sync, nothing precomputed on the host;
+//  * the fresh gradient, rounded to the ring's type, takes the place of slot
+//    step % K in the combine and is written to that slot, the ONLY slot the
+//    kernel writes (the TPU kernel rewrote all K slots of its block, an
+//    artefact of its BlockSpec);
+//  * the scalar factors apply one at a time in link order (never
+//    pre-multiplied), then the family body, with __fmul_rn/__fadd_rn so
+//    nvcc cannot contract them into FMAs: the chain and update kernels are
+//    then bitwise equal to their plain PyTorch versions.  The tick and the
+//    combine fold same-slot workers before multiplying, so they agree with
+//    the worker-by-worker plain sum to f32 round-off only;
+//  * p, the optimizer state and the ring are updated in place.
+// Simple first: cp.async/TMA staging and skipping slots whose weight is 0 are
+// later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxK = 64;
+constexpr int kThreads = 256;
+constexpr int kVec = 8;
+
+enum Family { kSgd = 0, kMomentum = 1, kAdam = 2 };
+
+template <int FAM>
+struct NumScalars;
+template <>
+struct NumScalars<kSgd> {
+  static constexpr int value = 4;
+};
+template <>
+struct NumScalars<kMomentum> {
+  static constexpr int value = 5;
+};
+template <>
+struct NumScalars<kAdam> {
+  static constexpr int value = 11;
+};
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+
+// ---- loads and stores: 8 consecutive elements, or one ----------------------
+
+__device__ __forceinline__ void load8(const float* ptr, float (&x)[kVec]) {
+  const float4 a = reinterpret_cast<const float4*>(ptr)[0];
+  const float4 b = reinterpret_cast<const float4*>(ptr)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(float* ptr, const float (&x)[kVec]) {
+  reinterpret_cast<float4*>(ptr)[0] = make_float4(x[0], x[1], x[2], x[3]);
+  reinterpret_cast<float4*>(ptr)[1] = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* ptr, float (&x)[kVec]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(ptr);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < kVec / 2; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    x[2 * j] = f.x;
+    x[2 * j + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* ptr, const float (&x)[kVec]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < kVec / 2; ++j) h[j] = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+  *reinterpret_cast<uint4*>(ptr) = raw;
+}
+
+__device__ __forceinline__ float load1(const float* ptr) { return *ptr; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* ptr) { return __bfloat162float(*ptr); }
+__device__ __forceinline__ void store1(float* ptr, float x) { *ptr = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* ptr, float x) { *ptr = __float2bfloat16_rn(x); }
+
+// Round an f32 value to the ring's storage type and back.
+__device__ __forceinline__ float to_ring(float x, const float*) { return x; }
+__device__ __forceinline__ float to_ring(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// ---- per-block prologue: slot-folded combine weights ------------------------
+
+// w_slot[k] = sum over workers w whose source slot (step - tau_w) mod K is k
+// of weights[w] * live[w], in worker order; push = step mod K.
+__device__ __forceinline__ void fold_slots(const int* step, const int* taus, const float* weights,
+                                           int W, int K, float* w_slot, int* push) {
+  if (threadIdx.x == 0) {
+    const int t = *step;
+    for (int k = 0; k < K; ++k) w_slot[k] = 0.f;
+    for (int w = 0; w < W; ++w) {
+      const int tau = taus[w];
+      const int src = t - tau;
+      const float live = (src >= 0 && tau < K) ? 1.f : 0.f;
+      const int slot = ((src % K) + K) % K;
+      w_slot[slot] = add(w_slot[slot], mul(weights[w], live));
+    }
+    *push = ((t % K) + K) % K;
+  }
+  __syncthreads();
+}
+
+// ---- the optimizer bodies ---------------------------------------------------
+
+// u: the (combined) gradient.  s: scalar bundle in SCALAR_ORDER.  a/b: the
+// family state (momentum: a = v; adam: a = m, b = v).
+template <int FAM>
+__device__ __forceinline__ void body(float u, const float* s, float& p, float& a, float& b) {
+  u = mul(s[0], u);  // scale_by_staleness: f_stale * u
+  u = mul(u, s[1]);  // drop_stale: u * f_keep
+  u = mul(u, s[2]);  // clip_by_global_norm: u * f_clip
+  if (FAM == kSgd) {
+    p = add(p, mul(s[3], u));
+  } else if (FAM == kMomentum) {
+    a = add(mul(s[4], a), mul(s[3], u));  // trace(mu) after scale(-lr)
+    p = add(p, a);
+  } else {
+    const float m = add(mul(s[4], a), mul(s[5], u));
+    const float v = add(mul(s[6], b), mul(s[7], mul(u, u)));
+    const float out = __fdiv_rn(mul(m, s[9]), add(__fsqrt_rn(mul(v, s[10])), s[8]));
+    p = add(p, mul(s[3], out));
+    a = m;
+    b = v;
+  }
+}
+
+// Contiguous share of `units` owned by this block.
+__device__ __forceinline__ void block_range(long long units, long long& lo, long long& hi) {
+  const long long per = (units + gridDim.x - 1) / gridDim.x;
+  lo = per * blockIdx.x;
+  hi = lo + per < units ? lo + per : units;
+}
+
+// ---- fused tick: push + slot-folded combine + scalars + body + apply -------
+
+template <int FAM, typename RT, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+tick_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ s0,
+            float* __restrict__ s1, RT* __restrict__ ring, int K, long long n,
+            const int* __restrict__ step, const int* __restrict__ taus,
+            const float* __restrict__ weights, int W, const float* __restrict__ scalars) {
+  __shared__ float w_slot[kMaxK];
+  __shared__ int push_slot;
+  fold_slots(step, taus, weights, W, K, w_slot, &push_slot);
+  constexpr int NS = NumScalars<FAM>::value;
+  float s[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = scalars[i];
+  const int push = push_slot;
+  long long lo, hi;
+  if (VEC) {
+    block_range(n / kVec, lo, hi);
+    for (long long u = lo + threadIdx.x; u < hi; u += blockDim.x) {
+      const long long i = u * kVec;
+      float gq[kVec], acc[kVec], pv[kVec], av[kVec], bv[kVec];
+      load8(g + i, gq);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        gq[j] = to_ring(gq[j], ring);
+        acc[j] = 0.f;
+      }
+      for (int k = 0; k < K; ++k) {
+        float r[kVec];
+        if (k == push) {
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) r[j] = gq[j];
+        } else {
+          load8(ring + (long long)k * n + i, r);
+        }
+        const float wk = w_slot[k];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[j] = add(acc[j], mul(wk, r[j]));
+      }
+      store8(ring + (long long)push * n + i, gq);
+      load8(p + i, pv);
+      if (FAM != kSgd) load8(s0 + i, av);
+      if (FAM == kAdam) load8(s1 + i, bv);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) body<FAM>(acc[j], s, pv[j], av[j], bv[j]);
+      store8(p + i, pv);
+      if (FAM != kSgd) store8(s0 + i, av);
+      if (FAM == kAdam) store8(s1 + i, bv);
+    }
+  } else {
+    block_range(n, lo, hi);
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+      const float gq = to_ring(g[i], ring);
+      float acc = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float r = k == push ? gq : load1(ring + (long long)k * n + i);
+        acc = add(acc, mul(w_slot[k], r));
+      }
+      store1(ring + (long long)push * n + i, gq);
+      float pv = p[i], av = 0.f, bv = 0.f;
+      if (FAM != kSgd) av = s0[i];
+      if (FAM == kAdam) bv = s1[i];
+      body<FAM>(acc, s, pv, av, bv);
+      p[i] = pv;
+      if (FAM != kSgd) s0[i] = av;
+      if (FAM == kAdam) s1[i] = bv;
+    }
+  }
+}
+
+// ---- combine only: push + slot-folded combine -> g_eff ----------------------
+
+template <typename RT, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const float* __restrict__ g, RT* __restrict__ ring, float* __restrict__ g_eff,
+               int K, long long n, const int* __restrict__ step, const int* __restrict__ taus,
+               const float* __restrict__ weights, int W) {
+  __shared__ float w_slot[kMaxK];
+  __shared__ int push_slot;
+  fold_slots(step, taus, weights, W, K, w_slot, &push_slot);
+  const int push = push_slot;
+  long long lo, hi;
+  if (VEC) {
+    block_range(n / kVec, lo, hi);
+    for (long long u = lo + threadIdx.x; u < hi; u += blockDim.x) {
+      const long long i = u * kVec;
+      float gq[kVec], acc[kVec];
+      load8(g + i, gq);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        gq[j] = to_ring(gq[j], ring);
+        acc[j] = 0.f;
+      }
+      for (int k = 0; k < K; ++k) {
+        float r[kVec];
+        if (k == push) {
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) r[j] = gq[j];
+        } else {
+          load8(ring + (long long)k * n + i, r);
+        }
+        const float wk = w_slot[k];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[j] = add(acc[j], mul(wk, r[j]));
+      }
+      store8(ring + (long long)push * n + i, gq);
+      store8(g_eff + i, acc);
+    }
+  } else {
+    block_range(n, lo, hi);
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+      const float gq = to_ring(g[i], ring);
+      float acc = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float r = k == push ? gq : load1(ring + (long long)k * n + i);
+        acc = add(acc, mul(w_slot[k], r));
+      }
+      store1(ring + (long long)push * n + i, gq);
+      g_eff[i] = acc;
+    }
+  }
+}
+
+// ---- fused chain: scalars + body + apply on a given gradient ----------------
+
+template <int FAM, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+chain_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ s0,
+             float* __restrict__ s1, long long n, const float* __restrict__ scalars) {
+  constexpr int NS = NumScalars<FAM>::value;
+  float s[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = scalars[i];
+  long long lo, hi;
+  if (VEC) {
+    block_range(n / kVec, lo, hi);
+    for (long long u = lo + threadIdx.x; u < hi; u += blockDim.x) {
+      const long long i = u * kVec;
+      float gv[kVec], pv[kVec], av[kVec], bv[kVec];
+      load8(g + i, gv);
+      load8(p + i, pv);
+      if (FAM != kSgd) load8(s0 + i, av);
+      if (FAM == kAdam) load8(s1 + i, bv);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) body<FAM>(gv[j], s, pv[j], av[j], bv[j]);
+      store8(p + i, pv);
+      if (FAM != kSgd) store8(s0 + i, av);
+      if (FAM == kAdam) store8(s1 + i, bv);
+    }
+  } else {
+    block_range(n, lo, hi);
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+      float pv = p[i], av = 0.f, bv = 0.f;
+      if (FAM != kSgd) av = s0[i];
+      if (FAM == kAdam) bv = s1[i];
+      body<FAM>(g[i], s, pv, av, bv);
+      p[i] = pv;
+      if (FAM != kSgd) s0[i] = av;
+      if (FAM == kAdam) s1[i] = bv;
+    }
+  }
+}
+
+// ---- fused_apply: v' = mu v - alpha g; p' = p + v' ---------------------------
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+update_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ v,
+              long long n, const float* __restrict__ alpha_ptr, const float* __restrict__ mu_ptr) {
+  const float alpha = *alpha_ptr, mu = *mu_ptr;
+  long long lo, hi;
+  if (VEC) {
+    block_range(n / kVec, lo, hi);
+    for (long long u = lo + threadIdx.x; u < hi; u += blockDim.x) {
+      const long long i = u * kVec;
+      float gv[kVec], pv[kVec], vv[kVec];
+      load8(g + i, gv);
+      load8(p + i, pv);
+      load8(v + i, vv);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        vv[j] = __fsub_rn(mul(mu, vv[j]), mul(alpha, gv[j]));
+        pv[j] = add(pv[j], vv[j]);
+      }
+      store8(p + i, pv);
+      store8(v + i, vv);
+    }
+  } else {
+    block_range(n, lo, hi);
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+      const float vn = __fsub_rn(mul(mu, v[i]), mul(alpha, g[i]));
+      v[i] = vn;
+      p[i] = add(p[i], vn);
+    }
+  }
+}
+
+// One full wave of resident blocks (or fewer when N is small).
+template <typename Kernel>
+int grid_for(Kernel kernel, long long units) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long needed = (units + kThreads - 1) / kThreads;
+  if (needed < blocks) blocks = needed;
+  return blocks < 1 ? 1 : (int)blocks;
+}
+
+template <int FAM, typename RT, bool VEC>
+int launch_tick(float* p, const float* g, float* s0, float* s1, void* ring, int K, long long n,
+                const int* step, const int* taus, const float* weights, int W,
+                const float* scalars, cudaStream_t stream) {
+  auto kernel = tick_kernel<FAM, RT, VEC>;
+  const int grid = grid_for(kernel, VEC ? n / kVec : n);
+  kernel<<<grid, kThreads, 0, stream>>>(p, g, s0, s1, static_cast<RT*>(ring), K, n, step, taus,
+                                        weights, W, scalars);
+  return (int)cudaGetLastError();
+}
+
+template <int FAM, typename RT>
+int dispatch_tick_vec(int vec, float* p, const float* g, float* s0, float* s1, void* ring, int K,
+                      long long n, const int* step, const int* taus, const float* weights, int W,
+                      const float* scalars, cudaStream_t stream) {
+  return vec ? launch_tick<FAM, RT, true>(p, g, s0, s1, ring, K, n, step, taus, weights, W,
+                                          scalars, stream)
+             : launch_tick<FAM, RT, false>(p, g, s0, s1, ring, K, n, step, taus, weights, W,
+                                           scalars, stream);
+}
+
+template <int FAM>
+int dispatch_tick_ring(int ring_bf16, int vec, float* p, const float* g, float* s0, float* s1,
+                       void* ring, int K, long long n, const int* step, const int* taus,
+                       const float* weights, int W, const float* scalars, cudaStream_t stream) {
+  return ring_bf16 ? dispatch_tick_vec<FAM, __nv_bfloat16>(vec, p, g, s0, s1, ring, K, n, step,
+                                                           taus, weights, W, scalars, stream)
+                   : dispatch_tick_vec<FAM, float>(vec, p, g, s0, s1, ring, K, n, step, taus,
+                                                   weights, W, scalars, stream);
+}
+
+template <typename RT, bool VEC>
+int launch_combine(const float* g, void* ring, float* g_eff, int K, long long n, const int* step,
+                   const int* taus, const float* weights, int W, cudaStream_t stream) {
+  auto kernel = combine_kernel<RT, VEC>;
+  const int grid = grid_for(kernel, VEC ? n / kVec : n);
+  kernel<<<grid, kThreads, 0, stream>>>(g, static_cast<RT*>(ring), g_eff, K, n, step, taus,
+                                        weights, W);
+  return (int)cudaGetLastError();
+}
+
+template <int FAM, bool VEC>
+int launch_chain(float* p, const float* g, float* s0, float* s1, long long n,
+                 const float* scalars, cudaStream_t stream) {
+  auto kernel = chain_kernel<FAM, VEC>;
+  const int grid = grid_for(kernel, VEC ? n / kVec : n);
+  kernel<<<grid, kThreads, 0, stream>>>(p, g, s0, s1, n, scalars);
+  return (int)cudaGetLastError();
+}
+
+template <int FAM>
+int dispatch_chain(int vec, float* p, const float* g, float* s0, float* s1, long long n,
+                   const float* scalars, cudaStream_t stream) {
+  return vec ? launch_chain<FAM, true>(p, g, s0, s1, n, scalars, stream)
+             : launch_chain<FAM, false>(p, g, s0, s1, n, scalars, stream);
+}
+
+}  // namespace
+
+// ---- C interface (ctypes) -----------------------------------------------------
+// Every entry launches on `stream` and returns cudaGetLastError() as an int
+// (0 = launched).  Invalid arguments are the wrapper's to reject; these only
+// refuse an unknown family or a K above kMaxK (cudaErrorInvalidValue = 1).
+
+extern "C" int au_max_k() { return kMaxK; }
+
+extern "C" int au_fused_tick(int family, int ring_bf16, int vec, float* p, const float* g,
+                             float* s0, float* s1, void* ring, int K, long long n,
+                             const int* step, const int* taus, const float* weights, int W,
+                             const float* scalars, void* stream) {
+  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case kSgd:
+      return dispatch_tick_ring<kSgd>(ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
+                                      weights, W, scalars, st);
+    case kMomentum:
+      return dispatch_tick_ring<kMomentum>(ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
+                                           weights, W, scalars, st);
+    case kAdam:
+      return dispatch_tick_ring<kAdam>(ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
+                                       weights, W, scalars, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int au_fused_combine(int ring_bf16, int vec, const float* g, void* ring, float* g_eff,
+                                int K, long long n, const int* step, const int* taus,
+                                const float* weights, int W, void* stream) {
+  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ring_bf16)
+    return vec ? launch_combine<__nv_bfloat16, true>(g, ring, g_eff, K, n, step, taus, weights, W, st)
+               : launch_combine<__nv_bfloat16, false>(g, ring, g_eff, K, n, step, taus, weights, W, st);
+  return vec ? launch_combine<float, true>(g, ring, g_eff, K, n, step, taus, weights, W, st)
+             : launch_combine<float, false>(g, ring, g_eff, K, n, step, taus, weights, W, st);
+}
+
+extern "C" int au_fused_chain(int family, int vec, float* p, const float* g, float* s0,
+                              float* s1, long long n, const float* scalars, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case kSgd:
+      return dispatch_chain<kSgd>(vec, p, g, s0, s1, n, scalars, st);
+    case kMomentum:
+      return dispatch_chain<kMomentum>(vec, p, g, s0, s1, n, scalars, st);
+    case kAdam:
+      return dispatch_chain<kAdam>(vec, p, g, s0, s1, n, scalars, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int au_fused_update(int vec, float* p, const float* g, float* v, long long n,
+                               const float* alpha, const float* mu, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int grid;
+  if (vec) {
+    grid = grid_for(update_kernel<true>, n / kVec);
+    update_kernel<true><<<grid, kThreads, 0, st>>>(p, g, v, n, alpha, mu);
+  } else {
+    grid = grid_for(update_kernel<false>, n);
+    update_kernel<false><<<grid, kThreads, 0, st>>>(p, g, v, n, alpha, mu);
+  }
+  return (int)cudaGetLastError();
+}

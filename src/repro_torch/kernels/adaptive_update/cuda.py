@@ -1,0 +1,304 @@
+"""Wrappers of the hand-written Hopper kernels of the adaptive_update family.
+
+The kernels live in ``csrc/adaptive_update.cu`` (CUDA C++ for ``sm_90a``):
+``au_fused_tick`` (push + slot-folded combine + scalars + body + apply),
+``au_fused_chain`` (scalars + body + apply), ``au_fused_combine`` (push +
+combine) and ``au_fused_update`` (the ``fused_apply`` link).  They replace the
+Pallas kernels of ``src/repro/kernels/adaptive_update/`` (``fused.py`` and
+``kernel.py``); the source note names each one and its byte bound.
+
+Build and binding: ``nvcc`` compiles the source into
+``build/repro_torch_kernels/libadaptive_update.so`` at the repository root the
+first time a wrapper sees a CUDA tensor (or when :func:`build_library` is called),
+and ``ctypes`` loads it.  Every pointer and the stream pass as
+``c_void_p``; each kernel launches on ``torch.cuda.current_stream()`` and the
+C entry returns ``cudaGetLastError()``, which the wrapper raises on.
+
+Semantics: every wrapper updates its buffers IN PLACE (params, optimizer
+state, ring) — the full-width ring does not fit twice on one card.  On a CPU
+tensor the wrapper runs the plain version from :mod:`.ref` and copies the
+result into the buffers; on a CUDA tensor it launches the kernel or raises.
+There is no other fallback.
+
+Launch counts: :data:`LAUNCHES` holds one plain integer per kernel, raised by
+one where the wrapper launches its kernel and nowhere else (the CPU path
+counts nothing), so a run can show that its main path went through the
+kernels.
+
+Naming: this module is ``cuda.py``, not ``kernel.py`` or ``fused.py``, because
+the repository's lint (reprolint RL004) claims every
+``kernels/<family>/(kernel|fused).py`` as a Pallas module that needs a
+``pallas``-marked parity test.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.async_engine.delayed import slot_live
+from repro_torch.kernels.adaptive_update import ref
+
+__all__ = [
+    "LAUNCHES",
+    "reset_launches",
+    "build_library",
+    "fused_tick",
+    "fused_chain",
+    "fused_combine",
+    "fused_update",
+    "SOURCE",
+    "LIBRARY",
+]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "adaptive_update.cu"
+LIBRARY = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels" / "libadaptive_update.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"fused_tick": 0, "fused_chain": 0, "fused_combine": 0, "fused_update": 0}
+
+_FAMILY = {"sgd": 0, "momentum": 1, "adam": 2}
+_VEC = 8  # elements per thread per step in the kernels' vector path
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found (needed to build the adaptive_update kernels)")
+    return found
+
+
+def build_library(*, force: bool = False, verbose: bool = False) -> Path:
+    """Compile the kernels with nvcc unless an up-to-date library exists.
+
+    Writes to a temporary name and renames, so a half-written library is
+    never loaded.  Returns the library path.
+    """
+    if (not force and LIBRARY.exists()
+            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
+        return LIBRARY
+    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
+    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(SOURCE)]
+    with subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) as proc:
+        out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}{err}")
+    if verbose:
+        print(out + err, end="")
+    os.replace(tmp, LIBRARY)
+    return LIBRARY
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.au_fused_tick.argtypes = [I, I, I, P, P, P, P, P, I, L, P, P, P, I, P, P]
+        lib.au_fused_combine.argtypes = [I, I, P, P, P, I, L, P, P, P, I, P]
+        lib.au_fused_chain.argtypes = [I, I, P, P, P, P, L, P, P]
+        lib.au_fused_update.argtypes = [I, P, P, P, L, P, P, P]
+        for fn in (lib.au_fused_tick, lib.au_fused_combine, lib.au_fused_chain,
+                   lib.au_fused_update):
+            fn.restype = ctypes.c_int
+        lib.au_max_k.argtypes = []
+        lib.au_max_k.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# Argument checks (the kernels take exactly this and nothing else)
+# ---------------------------------------------------------------------------
+
+def _check(t: torch.Tensor, name: str, dtype, device, shape=None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _family_bufs(kind: str, bufs) -> tuple:
+    """The kernel's view of the family state: () / (v,) / (m, v)."""
+    if kind not in _FAMILY:
+        raise ValueError(f"unknown fused-chain kind {kind!r}")
+    if kind == "sgd":
+        return ()
+    if kind == "momentum":
+        return (bufs,)
+    return (bufs["m"], bufs["v"])
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def pack_scalars(scalars: dict, order, device) -> torch.Tensor:
+    """The scalar bundle as one f32 device vector in kernel order, without a
+    host sync: host values go through pinned memory with a non-blocking copy,
+    device values are copied in on the stream."""
+    host = torch.empty(len(order), dtype=torch.float32, pin_memory=True)
+    on_device = []
+    for i, key in enumerate(order):
+        v = scalars[key]
+        if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+            host[i] = 0.0
+            on_device.append((i, v))
+        else:
+            host[i] = v
+    vec = host.to(device, non_blocking=True)
+    for i, v in on_device:
+        vec[i:i + 1].copy_(v.reshape(1))
+    return vec
+
+
+def _tick_operands(p, g, ring, step, taus, weights):
+    dev = p.device
+    n = p.shape[0]
+    _check(p, "p", torch.float32, dev, (n,))
+    _check(g, "g", torch.float32, dev, (n,))
+    if ring.dim() != 2 or ring.shape[1] != n:
+        raise ValueError(f"ring must be (K, {n}), got {tuple(ring.shape)}")
+    _check(ring, "ring", (torch.float32, torch.bfloat16), dev)
+    K, max_k = ring.shape[0], _load().au_max_k()
+    if not 1 <= K <= max_k:
+        raise ValueError(f"ring depth K={K} outside [1, {max_k}]")
+    _check(step, "step", torch.int32, dev, ())
+    if taus.dim() != 1:
+        raise ValueError("taus must be 1-D")
+    _check(taus, "taus", torch.int32, dev)
+    _check(weights, "weights", torch.float32, dev, tuple(taus.shape))
+    return n, K
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def fused_tick(kind: str, p, g, bufs, scalars, ring, step, taus, weights) -> torch.Tensor:
+    """One whole async tick in place: push ``g`` into ring slot ``step % K``,
+    combine the W delayed gradients, apply the scalars and the ``kind`` body
+    to ``p`` and ``bufs``.  Returns the (W,) live mask."""
+    fam = _family_bufs(kind, bufs)
+    if p.device.type == "cpu":
+        p_new, b_new, r_new, live = ref.fused_tick_ref(kind, p, g, bufs, scalars, ring, step, taus, weights)
+        _write_back(kind, p, bufs, p_new, b_new)
+        ring.copy_(r_new)
+        return live
+    n, K = _tick_operands(p, g, ring, step, taus, weights)
+    for i, b in enumerate(fam):
+        _check(b, f"state[{i}]", torch.float32, p.device, (n,))
+    s = pack_scalars(scalars, ref.SCALAR_ORDER[kind], p.device)
+    vec = 1 if n % _VEC == 0 and _aligned(p, g, ring, *fam) else 0
+    s0 = fam[0] if fam else None
+    s1 = fam[1] if len(fam) > 1 else None
+    err = _load().au_fused_tick(
+        _FAMILY[kind], int(ring.dtype == torch.bfloat16), vec, _ptr(p), _ptr(g), _ptr(s0),
+        _ptr(s1), _ptr(ring), K, n, _ptr(step), _ptr(taus), _ptr(weights), taus.shape[0],
+        _ptr(s), _stream(p.device),
+    )
+    _raise_on(err, "au_fused_tick")
+    LAUNCHES["fused_tick"] += 1
+    return slot_live(step, taus, K)[1]
+
+
+def fused_combine(g, ring, step, taus, weights) -> tuple[torch.Tensor, torch.Tensor]:
+    """Push ``g`` into the ring in place and return ``(g_eff, live)``."""
+    if g.device.type == "cpu":
+        g_eff, live, r_new = ref.fused_combine_ref(g, ring, step, taus, weights)
+        ring.copy_(r_new)
+        return g_eff, live
+    n, K = _tick_operands(g, g, ring, step, taus, weights)
+    g_eff = torch.empty_like(g)
+    vec = 1 if n % _VEC == 0 and _aligned(g, ring, g_eff) else 0
+    err = _load().au_fused_combine(
+        int(ring.dtype == torch.bfloat16), vec, _ptr(g), _ptr(ring), _ptr(g_eff), K, n,
+        _ptr(step), _ptr(taus), _ptr(weights), taus.shape[0], _stream(g.device),
+    )
+    _raise_on(err, "au_fused_combine")
+    LAUNCHES["fused_combine"] += 1
+    return g_eff, slot_live(step, taus, K)[1]
+
+
+def fused_chain(kind: str, p, g, bufs, scalars) -> None:
+    """Scalars + ``kind`` body + apply on flat buffers, in place."""
+    fam = _family_bufs(kind, bufs)
+    if p.device.type == "cpu":
+        p_new, b_new = ref.fused_chain_ref(kind, p, g, bufs, scalars)
+        _write_back(kind, p, bufs, p_new, b_new)
+        return
+    n = p.shape[0]
+    _check(p, "p", torch.float32, p.device, (n,))
+    _check(g, "g", torch.float32, p.device, (n,))
+    for i, b in enumerate(fam):
+        _check(b, f"state[{i}]", torch.float32, p.device, (n,))
+    s = pack_scalars(scalars, ref.SCALAR_ORDER[kind], p.device)
+    vec = 1 if n % _VEC == 0 and _aligned(p, g, *fam) else 0
+    s0 = fam[0] if fam else None
+    s1 = fam[1] if len(fam) > 1 else None
+    err = _load().au_fused_chain(
+        _FAMILY[kind], vec, _ptr(p), _ptr(g), _ptr(s0), _ptr(s1), n, _ptr(s), _stream(p.device)
+    )
+    _raise_on(err, "au_fused_chain")
+    LAUNCHES["fused_chain"] += 1
+
+
+def fused_update(p, g, v, alpha, mu) -> None:
+    """``v <- mu v - alpha g; p <- p + v`` on flat f32 buffers, in place."""
+    if p.device.type == "cpu":
+        p_new, v_new = ref.adaptive_update_ref(p, g, v, alpha, mu)
+        p.copy_(p_new)
+        v.copy_(v_new)
+        return
+    n = p.shape[0]
+    for name, t in (("p", p), ("g", g), ("v", v)):
+        _check(t, name, torch.float32, p.device, (n,))
+    s = pack_scalars({"alpha": alpha, "mu": mu}, ("alpha", "mu"), p.device)
+    vec = 1 if n % _VEC == 0 and _aligned(p, g, v) else 0
+    err = _load().au_fused_update(
+        vec, _ptr(p), _ptr(g), _ptr(v), n, _ptr(s[0:1]), _ptr(s[1:2]), _stream(p.device)
+    )
+    _raise_on(err, "au_fused_update")
+    LAUNCHES["fused_update"] += 1
+
+
+def _write_back(kind, p, bufs, p_new, b_new) -> None:
+    p.copy_(p_new)
+    if kind == "momentum":
+        bufs.copy_(b_new)
+    elif kind == "adam":
+        bufs["m"].copy_(b_new["m"])
+        bufs["v"].copy_(b_new["v"])

@@ -1,0 +1,149 @@
+"""Shared building blocks (port of ``src/repro/models/layers.py``).
+
+Parameters are nested dicts of tensors, ``init_*`` builds them from a
+``torch.Generator`` on ``device`` and ``apply_*`` applies them, as in the
+reference.  On the ``meta`` device ``init_*`` only allocates shapes — the
+port's ``jax.eval_shape``.  Activations follow the reference's dtypes: every
+matmul takes the activation-dtype cast of the f32 params.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+f32 = torch.float32
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[name]
+
+
+def truncated_normal(gen, shape, scale, device, dtype=f32) -> torch.Tensor:
+    """``scale * N(0, 1)`` truncated to ``[-2, 2]`` (the reference's
+    initializer; the draws are torch's, not jax's)."""
+    t = torch.empty(shape, dtype=f32, device=device)
+    if t.device.type != "meta":
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        t.mul_(scale)
+    return t.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, device, dtype=f32) -> Params:
+    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def apply_rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(f32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["scale"].to(f32))).to(x.dtype)
+
+
+def init_layernorm(d: int, device, dtype=f32) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def apply_layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(f32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(f32) + p["bias"].to(f32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen, vocab: int, d: int, device, dtype=f32) -> Params:
+    return {"embedding": truncated_normal(gen, (vocab, d), 1.0 / np.sqrt(d), device, dtype)}
+
+
+def apply_embedding(p: Params, tokens: torch.Tensor, *, scale: bool, act_dtype) -> torch.Tensor:
+    emb = p["embedding"].to(act_dtype)
+    x = F.embedding(tokens, emb)
+    if scale:
+        x = x * torch.tensor(np.sqrt(emb.shape[-1]), dtype=act_dtype)
+    return x
+
+
+def apply_unembed(p: Params, x: torch.Tensor, *, softcap: float | None) -> torch.Tensor:
+    logits = x @ p["embedding"].to(x.dtype).t()
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def init_mlp(gen, d: int, f: int, gated: bool, device, dtype=f32) -> Params:
+    p: Params = {
+        "w_up": truncated_normal(gen, (d, f), 1.0 / np.sqrt(d), device, dtype),
+        "w_down": truncated_normal(gen, (f, d), 1.0 / np.sqrt(f), device, dtype),
+    }
+    if gated:
+        p["w_gate"] = truncated_normal(gen, (d, f), 1.0 / np.sqrt(d), device, dtype)
+    return p
+
+
+def apply_mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    dt = x.dtype
+    up = x @ p["w_up"].to(dt)
+    if "w_gate" in p:
+        h = _act(act, x @ p["w_gate"].to(dt)) * up
+    else:
+        h = _act(act, up)
+    return h @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """The reference's float64 frequencies, rounded to f32 — computed on the
+    device itself: a host table copied in per call would wait for the device
+    (a pageable host-to-device copy synchronizes) four times per layer."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float64, device=device) / head_dim
+    return (1.0 / (theta ** exps)).to(f32)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions broadcastable to (..., seq)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)
+    angles = positions[..., :, None].to(f32) * freqs
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(f32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerIO:
+    """What a mixing layer needs to know about the token geometry."""
+
+    positions: torch.Tensor  # (batch, seq) absolute positions
+    causal: bool = True
