@@ -9,15 +9,18 @@ CUDA toolkit.  It imports nothing of JAX or of the JAX package, and fails
 
 Phases, each fatal on failure:
 
-1. build — ``nvcc`` compiles ``csrc/adaptive_update.cu`` for sm_90a.
-2. kernels — every kernel's wrapper against its plain PyTorch version on the
-   card, at the full-width shapes of stablelm-1.6b (N = 1,438,846,976 f32
-   params, K = 8 ring slots, W = 8 workers): the tick for sgd / momentum /
-   adam with f32 and bf16 rings, the chain, the combine and fused_update.
-   Tolerance |kernel - plain| <= 1e-6 + 1e-6 |plain| (1e-5 with a bf16 ring:
-   the slot-folded sum differs from the worker-by-worker one in rounding);
-   the ring's bits and the live mask exactly equal.  Prints each kernel's
-   time, the plain version's, the byte bound at 3.35 TB/s and the errors.
+1. build — ``nvcc`` compiles the three CUDA sources for sm_90a, one process
+   per source, all at once: ``adaptive_update.cu``, ``flash_attention.cu``
+   and ``rg_lru.cu``.
+2. kernels — every adaptive_update kernel's wrapper against its plain
+   PyTorch version on the card, at the full-width shapes of stablelm-1.6b
+   (N = 1,438,846,976 f32 params, K = 8 ring slots, W = 8 workers): the tick
+   for sgd / momentum / adam with f32 and bf16 rings, the chain, the combine
+   and fused_update.  Tolerance |kernel - plain| <= 1e-6 + 1e-6 |plain|
+   (1e-5 with a bf16 ring: the slot-folded sum differs from the
+   worker-by-worker one in rounding); the ring's bits and the live mask
+   exactly equal.  Prints each kernel's time, the plain version's, the byte
+   bound at 3.35 TB/s and the errors.
 3. main path — ``run(RunSpec(mode="async", fuse=True, ...))`` on full-width
    stablelm-1.6b (24 layers, momentum, W = 8, ring 8 in bf16, batch 4 x seq
    512, refresh every 5) for 12 ticks, launch counts zeroed just before and
@@ -28,10 +31,35 @@ Phases, each fatal on failure:
 4. other paths — sync (fused_chain), clip (fused_combine + fused_chain) and
    ``fused_apply`` (fused_update) at full width and 2 layers, each with its
    counts zeroed before and read after.
+5. serving kernels — the flash-attention kernel against its plain version at
+   the recurrentgemma-9b local-layer shape (B 4, S = T = 4096, Nq 16, Nkv 1,
+   H 256, window 2048, causal, bf16, and the same in f32 at B 1), the
+   stablelm-1.6b shape (B 4, S 512, Nq = Nkv = 32, H 64, causal, bf16) and a
+   gemma2-27b-like shape the serving path does not reach (Nq 32, Nkv 16,
+   H 128, window 64, softcap 50, S = 1000, f32, causal and not); the RG-LRU
+   kernel at B 4, S 4096, W 4096.  Tolerance |kernel - plain| <= 3e-5 +
+   3e-5 |plain| in f32, the reference's; in bf16 1e-4 + 1e-2 |plain|, one
+   bf16 rounding of the output (both sides compute in f32 and round once),
+   tighter than the reference's 3e-2, which at S = 4096 is as large as a
+   typical output and would pass a band edge one key tile off.  Prints each
+   time, the plain version's, the bound (the larger of bytes / 3.35 TB/s and
+   the band's QK^T + PV FLOPs over the peak for the input type: 989 TFLOP/s
+   bf16, 67 TFLOP/s f32) and, for attention,
+   ``scaled_dot_product_attention``'s time at the same shape (timed only).
+6. serving — the training state freed, full-width recurrentgemma-9b (38
+   layers, 9.4e9 f32 params) through ``repro_torch.launch.serve``: batch 4,
+   prompt 4096, 32 greedy steps, with the counts zeroed just before and read
+   just after: 12 flash and 26 RG-LRU launches (one per recurrent layer:
+   its output and its cache come from one recurrence), finite logits,
+   ids in range.  Then full-width stablelm-1.6b: batch 4, prompt 512, 32
+   steps, 24 flash launches.  Prints prefill s, decode ms per step, tok/s and
+   peak memory.  Then reduced recurrentgemma served on the card (the
+   kernels) against the plain CPU path, same params: prompt 160, 4 steps,
+   logits within 1e-4, ids equal.
 
-The line before the last is one JSON object with every kernel (launches,
-max_abs_err, ms, plain_ms, bound_ms, ...); the one before it the card's name
-and power limit; the last ``{"ok": true, "device": {...}}``.
+Then one JSON object with every kernel (launches on its path, max_abs_err,
+ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -45,12 +73,22 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FLOPS = {  # H100 SXM peaks by input type (NVIDIA data sheet)
+    "bfloat16": 989e12,  # dense bf16 tensor cores
+    "float32": 67e12,  # f32 outside the tensor cores
+}
 SOURCE = "src/repro_torch/kernels/adaptive_update/csrc/adaptive_update.cu"
+SOURCES = {
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "rg_lru": "src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
+}
 REPLACES = {
     "fused_tick": "src/repro/kernels/adaptive_update/fused.py:301",
     "fused_chain": "src/repro/kernels/adaptive_update/fused.py:137",
     "fused_combine": "src/repro/kernels/adaptive_update/fused.py:349",
     "fused_update": "src/repro/kernels/adaptive_update/kernel.py:46",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
+    "rg_lru": "src/repro/kernels/rg_lru/kernel.py:46",
 }
 K_RING, W_WORKERS, STEP = 8, 8, 11
 TAUS = [0, 2, 5, 2, 9, 1, 3, 7]  # two workers share a slot; tau 9 >= K is dead
@@ -492,6 +530,162 @@ def small_agreement():
     return d
 
 
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: serving
+# ---------------------------------------------------------------------------
+
+def band_pairs(S, T, causal, window):
+    """(query, key) pairs inside the causal / window band — this run's work."""
+    total = 0
+    for q in range(S):
+        lo = max(0, q - window + 1) if window else 0
+        hi = min(T, q + 1) if causal else T
+        total += max(0, hi - lo)
+    return total
+
+
+def band_mask(S, T, causal, window, dev):
+    import torch
+
+    q = torch.arange(S, device=dev)[:, None]
+    k = torch.arange(T, device=dev)[None, :]
+    valid = torch.ones((S, T), dtype=torch.bool, device=dev)
+    if causal:
+        valid &= k <= q
+    if window:
+        valid &= (q - k) < window
+    return valid
+
+
+def check_flash(B, S, T, Nq, Nkv, H, causal, window, softcap, dtype, dev):
+    """Flash kernel vs its plain version; SDPA timed beside it where one call
+    computes the same function (no softcap)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda as FA
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(B, S, Nq, H, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, T, Nkv, H, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, T, Nkv, H, generator=gen, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = FA.flash_attention(q, k, v, **kw)
+    want = FA.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    # f32: the reference's 3e-5; bf16: one rounding of the output (rtol, atol)
+    rtol, atol = (3e-5, 3e-5) if dtype == torch.float32 else (1e-2, 1e-4)
+    tol = f"{atol} + {rtol}|plain|"
+    bad = int(((out.float() - want.float()).abs() > atol + rtol * want.float().abs()).sum())
+    check(bad == 0, f"flash {B, S, T, Nq, Nkv, H, causal, window, softcap, dtype}: "
+                    f"{bad} elements past {tol} (max |d| {err})")
+    del out, want
+    ms = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: FA.attention_ref(q, k, v, **kw), iters=2)
+    library_ms = None
+    if softcap is None:
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window is None:
+            sdpa_kw = dict(is_causal=causal)
+        else:
+            sdpa_kw = dict(attn_mask=band_mask(S, T, causal, window, dev))
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **sdpa_kw))
+    pairs = band_pairs(S, T, causal, window)
+    flops = 4 * H * pairs * B * Nq
+    nbytes = q.element_size() * (2 * B * S * Nq * H + 2 * B * T * Nkv * H)
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
+    by = "operations" if t_ops >= nbytes / HBM_BYTES_PER_S else "bytes"
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=by, flops=flops, bytes=nbytes, tol=tol)
+
+
+def check_rg_lru(B, S, W, dev):
+    import torch
+
+    from repro_torch.kernels.rg_lru import cuda as RG
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    log_a = -torch.nn.functional.softplus(torch.randn(B, S, W, generator=gen, device=dev))
+    x = torch.randn(B, S, W, generator=gen, device=dev)
+    y = RG.rg_lru(log_a, x)
+    want = RG.rg_lru_ref(log_a, x)
+    torch.cuda.synchronize()
+    err = float((y - want).abs().max())
+    check(bool(((y - want).abs() <= 3e-5 + 3e-5 * want.abs()).all()),
+          f"rg_lru past 3e-5 (max |d| {err})")
+    del y, want
+    ms = cuda_ms(lambda: RG.rg_lru(log_a, x), iters=20)
+    plain_ms = cuda_ms(lambda: RG.rg_lru_ref(log_a, x), iters=2)
+    nbytes = 12 * B * S * W
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes)
+
+
+def serve_full(arch, batch, prompt, gen, expect):
+    """Serve ``arch`` at full width through the launcher, counts zeroed just
+    before and read just after; check them against ``expect``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import cuda as FA
+    from repro_torch.kernels.rg_lru import cuda as RG
+    from repro_torch.launch import serve
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    RG.reset_launches()
+    result = serve.main(["--arch", arch, "--batch", str(batch), "--prompt_len", str(prompt),
+                         "--gen", str(gen), "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = {"flash_attention": FA.LAUNCHES["flash_attention"], "rg_lru": RG.LAUNCHES["rg_lru"]}
+    peak = torch.cuda.max_memory_allocated()
+    vocab = get_config(arch).vocab_size
+    check(bool(torch.isfinite(result["prefill_logits"]).all())
+          and bool(torch.isfinite(result["logits"]).all()), f"{arch}: non-finite logits")
+    toks = result["tokens"]
+    check(tuple(toks.shape) == (batch, gen), f"{arch}: generated ids of shape {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < vocab)).all()), f"{arch}: generated ids out of range")
+    check(counts == expect, f"{arch}: launches {counts}, expected {expect} per prefill")
+    row = dict(arch=arch, batch=batch, prompt=prompt, gen=gen, prefill_s=result["prefill_s"],
+               decode_ms_per_step=result["decode_s"] / gen * 1e3, tok_per_s=result["tok_per_s"],
+               peak_gb=peak / 1e9, launches=counts)
+    log(f"[serve] {json.dumps(row)}")
+    del result
+    free_cuda()
+    return row
+
+
+def serve_agreement():
+    """Reduced recurrentgemma served on the card (the kernels) against the
+    plain CPU path, same params and prompts."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.training import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_config("recurrentgemma-9b"))
+    params = init_params(0, cfg, "cpu")
+    batch = make_batch_for(cfg, batch=2, seq=160, seed=0)
+    want = serve(cfg, params, batch, gen=4)
+    got = serve(dataclasses.replace(cfg, use_pallas=True),
+                tree_map(lambda t: t.to("cuda"), params),
+                {k: v.to("cuda") for k, v in batch.items()}, gen=4)
+    d = max(float((got["prefill_logits"].cpu() - want["prefill_logits"]).abs().max()),
+            float((got["logits"].cpu() - want["logits"]).abs().max()))
+    log(f"[agreement] reduced recurrentgemma, prefill 160 + 4 steps: card vs CPU max |dlogits| "
+        f"= {d:.3e}, ids {got['tokens'][0].tolist()}")
+    check(d <= 1e-4, f"served logits: card and CPU disagree by {d}")
+    check(torch.equal(got["tokens"].cpu(), want["tokens"]), "served ids differ between card and CPU")
+    return d
+
+
+
 def main() -> int:
     import torch
 
@@ -506,16 +700,20 @@ def main() -> int:
     import repro_torch  # noqa: F401  (sets TF32 off)
     from repro_torch.configs import get_config
     from repro_torch.kernels.adaptive_update import cuda as C
+    from repro_torch.kernels.flash_attention import cuda as FA
+    from repro_torch.kernels.nvcc import compile_libraries
+    from repro_torch.kernels.rg_lru import cuda as RG
     from repro_torch.training import param_template
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
     log(f"card: {smi}  torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # -- phase 1: build ------------------------------------------------------
+    # -- phase 1: build (one nvcc per source, all at once) -----------------------
     t0 = time.perf_counter()
-    C.build_library(force=True)
-    log(f"[build] nvcc sm_90a {time.perf_counter() - t0:.1f}s -> {C.LIBRARY.relative_to(root)}")
+    libs = compile_libraries([C.SOURCE, FA.SOURCE, RG.SOURCE], force=True)
+    log(f"[build] nvcc sm_90a {time.perf_counter() - t0:.1f}s -> "
+        + ", ".join(str(lib.relative_to(root)) for lib in libs))
 
     # -- phase 2: each kernel against its plain version, full-width shapes ----
     n = sum(math.prod(shape) for shape, _ in _leaves(param_template(get_config("stablelm-1.6b"))))
@@ -556,6 +754,41 @@ def main() -> int:
 
     # -- phase 4: the other kernels through their own paths ---------------------
     path_counts = other_paths(dataclasses.replace(full, num_layers=2))
+    free_cuda()
+
+    # -- phase 5: the serving kernels against their plain versions --------------
+    flash_shapes = {  # B, S, T, Nq, Nkv, H, causal, window, softcap, dtype
+        "flash_attention/recurrentgemma-9b": (4, 4096, 4096, 16, 1, 256, True, 2048, None,
+                                              torch.bfloat16),
+        "flash_attention/recurrentgemma-9b/f32": (1, 4096, 4096, 16, 1, 256, True, 2048, None,
+                                                  torch.float32),
+        "flash_attention/stablelm-1.6b": (4, 512, 512, 32, 32, 64, True, None, None,
+                                          torch.bfloat16),
+        "flash_attention/gemma2-like/causal": (2, 1000, 1000, 32, 16, 128, True, 64, 50.0,
+                                               torch.float32),
+        "flash_attention/gemma2-like/noncausal": (2, 1000, 1000, 32, 16, 128, False, 64, 50.0,
+                                                  torch.float32),
+    }
+    for tag, shape in flash_shapes.items():
+        results[tag] = r = check_flash(*shape, dev)
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+        log(f"[kernel] {tag}: max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']})  "
+            f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}: {r['flops'] / 1e9:.1f} GFLOP, {r['bytes'] / 1e6:.1f} MB)  "
+            f"sdpa {lib}")
+        free_cuda()
+    results["rg_lru"] = r = check_rg_lru(4, 4096, 4096, dev)
+    log(f"[kernel] rg_lru: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  plain "
+        f"{r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bytes'] / 1e6:.1f} MB)")
+    free_cuda()
+
+    # -- phase 6: serving at full width, through the launcher --------------------
+    serving = [
+        serve_full("recurrentgemma-9b", 4, 4096, 32, {"flash_attention": 12, "rg_lru": 26}),
+        serve_full("stablelm-1.6b", 4, 512, 32, {"flash_attention": 24, "rg_lru": 0}),
+    ]
+    serve_agreement()
+    free_cuda()
 
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
@@ -569,18 +802,24 @@ def main() -> int:
         "fused_combine": "fused_combine/bfloat16",
         "fused_update": "fused_update",
     }
+    rg_path = "serve recurrentgemma-9b (one prefill)"
+    launches.update({
+        "flash_attention": (rg_path, serving[0]["launches"]["flash_attention"]),
+        "rg_lru": (rg_path, serving[0]["launches"]["rg_lru"]),
+    })
+    on_path.update({"flash_attention": "flash_attention/recurrentgemma-9b", "rg_lru": "rg_lru"})
     kernels = []
     for name, key in on_path.items():
         r = results[key]
         path, count = launches[name]
         check(count > 0, f"{name} was never launched on its path")
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name], launches=count,
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None, variant=key, path=path,
+            name=name, route="cuda", source=SOURCES.get(name, SOURCE), replaces=REPLACES[name],
+            launches=count, max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
+            library_ms=r.get("library_ms"), variant=key, path=path,
         ))
-    log(json.dumps({"variants": {k: {kk: vv for kk, vv in v.items()} for k, v in results.items()},
-                    "main": summary}))
+    log(json.dumps({"variants": results, "main": summary, "serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,10 @@ exported as numpy, become the port's tensors here.
 * :func:`adapt_from_jax` and :func:`delayed_from_jax` do the same for an
   ``AdaptState``'s tables and histogram and for a flat delayed ring (a bf16
   ring arrives as numpy's ``bfloat16`` extension type and keeps its bits).
+* :func:`cache_from_jax` turns the reference's decode cache (from
+  ``prefill`` or ``init_decode_state``, keyed by key path the same way) into
+  the port's, dtypes and bf16 bits kept, so a decode step can be compared
+  from the same cache.
 
 Nothing here imports the JAX package: the caller does the export.
 """
@@ -23,11 +27,13 @@ import numpy as np
 import torch
 
 from repro_torch.async_engine.delayed import DelayedGradients
+from repro_torch.models.transformer import init_stack_cache
 from repro_torch.training.adapt import AdaptState
 from repro_torch.training.steps import param_template
 from repro_torch.tree import keystr, tree_paths
 
-__all__ = ["params_from_jax", "params_to_numpy", "adapt_from_jax", "delayed_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "params_to_numpy", "adapt_from_jax", "delayed_from_jax",
+           "cache_from_jax", "to_torch"]
 
 
 def to_torch(a, device="cpu") -> torch.Tensor:
@@ -38,14 +44,18 @@ def to_torch(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def _check_names(what: str, np_tree: dict, template) -> None:
+    names = {keystr(path) for path, _ in tree_paths(template)}
+    missing = sorted(names - set(np_tree))
+    extra = sorted(set(np_tree) - names)
+    if missing or extra:
+        raise ValueError(f"{what} names disagree: missing {missing}, unexpected {extra}")
+
+
 def params_from_jax(np_tree: dict, cfg, device="cpu") -> tuple[torch.Tensor, dict]:
     """The reference's params -> ``(flat (N,) f32 buffer, template)``."""
     template = param_template(cfg)
-    names = {keystr(path): spec for path, spec in tree_paths(template)}
-    missing = sorted(set(names) - set(np_tree))
-    extra = sorted(set(np_tree) - set(names))
-    if missing or extra:
-        raise ValueError(f"param names disagree: missing {missing}, unexpected {extra}")
+    _check_names("param", np_tree, template)
     parts = []
     for path, (shape, dtype) in tree_paths(template):
         a = np_tree[keystr(path)]
@@ -77,3 +87,24 @@ def delayed_from_jax(ring, step, device="cpu") -> DelayedGradients:
     """A flat ``(K, N)`` delayed ring and its step counter."""
     return DelayedGradients(ring=to_torch(ring, device),
                             step=torch.tensor(int(step), dtype=torch.int32, device=device))
+
+
+def cache_from_jax(np_tree: dict, cfg, device="cpu") -> dict:
+    """The reference's decode cache -> the port's cache tree on ``device``.
+
+    The names must be the port's own (``pos{j}`` / ``rem{i}`` groups, ``k`` /
+    ``v`` or ``conv`` / ``h`` leaves) and each leaf of the rank the port
+    expects; batch, capacity and dtypes are the arrays' own.
+    """
+    template = init_stack_cache(cfg, 1, 1, torch.float32, "meta")
+    _check_names("cache", np_tree, template)
+    cache: dict = {}
+    for path, leaf in tree_paths(template):
+        a = np_tree[keystr(path)]
+        if a.ndim != leaf.dim():
+            raise ValueError(f"{keystr(path)}: rank {a.ndim} != {leaf.dim()}")
+        node = cache
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = to_torch(a, device)
+    return cache

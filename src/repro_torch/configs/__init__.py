@@ -1,7 +1,7 @@
-from repro_torch.configs import stablelm_1_6b  # noqa: F401  (registers the arch)
+from repro_torch.configs import recurrentgemma_9b, stablelm_1_6b  # noqa: F401  (register the archs)
 from repro_torch.configs.base import ModelConfig, get_config, list_configs, reduced, register
 
-# The archs this slice of the port runs (the reference registers ten).
-ASSIGNED_ARCHS = ("stablelm-1.6b",)
+# The archs the port runs so far (the reference registers ten).
+ASSIGNED_ARCHS = ("stablelm-1.6b", "recurrentgemma-9b")
 
 __all__ = ["ModelConfig", "get_config", "list_configs", "reduced", "register", "ASSIGNED_ARCHS"]

@@ -34,15 +34,13 @@ the repository's lint (reprolint RL004) claims every
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from repro_torch.async_engine.delayed import slot_live
 from repro_torch.kernels.adaptive_update import ref
+from repro_torch.kernels.nvcc import compile_libraries, library_path, ptr, raise_on, stream
 
 __all__ = [
     "LAUNCHES",
@@ -57,9 +55,7 @@ __all__ = [
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "adaptive_update.cu"
-LIBRARY = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels" / "libadaptive_update.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC")
+LIBRARY = library_path(SOURCE)
 
 LAUNCHES = {"fused_tick": 0, "fused_chain": 0, "fused_combine": 0, "fused_update": 0}
 
@@ -73,34 +69,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found (needed to build the adaptive_update kernels)")
-    return found
-
-
 def build_library(*, force: bool = False, verbose: bool = False) -> Path:
-    """Compile the kernels with nvcc unless an up-to-date library exists.
-
-    Writes to a temporary name and renames, so a half-written library is
-    never loaded.  Returns the library path.
-    """
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return LIBRARY
-    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    with subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) as proc:
-        out, err = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}{err}")
-    if verbose:
-        print(out + err, end="")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    """Compile the kernels with nvcc unless an up-to-date library exists;
+    returns the library path."""
+    return compile_libraries([SOURCE], force=force, verbose=verbose)[0]
 
 
 def _load():
@@ -153,17 +125,7 @@ def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)
 
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
 def pack_scalars(scalars: dict, order, device) -> torch.Tensor:
@@ -226,11 +188,11 @@ def fused_tick(kind: str, p, g, bufs, scalars, ring, step, taus, weights) -> tor
     s0 = fam[0] if fam else None
     s1 = fam[1] if len(fam) > 1 else None
     err = _load().au_fused_tick(
-        _FAMILY[kind], int(ring.dtype == torch.bfloat16), vec, _ptr(p), _ptr(g), _ptr(s0),
-        _ptr(s1), _ptr(ring), K, n, _ptr(step), _ptr(taus), _ptr(weights), taus.shape[0],
-        _ptr(s), _stream(p.device),
+        _FAMILY[kind], int(ring.dtype == torch.bfloat16), vec, ptr(p), ptr(g), ptr(s0),
+        ptr(s1), ptr(ring), K, n, ptr(step), ptr(taus), ptr(weights), taus.shape[0],
+        ptr(s), stream(p.device),
     )
-    _raise_on(err, "au_fused_tick")
+    raise_on(err, "au_fused_tick")
     LAUNCHES["fused_tick"] += 1
     return slot_live(step, taus, K)[1]
 
@@ -245,10 +207,10 @@ def fused_combine(g, ring, step, taus, weights) -> tuple[torch.Tensor, torch.Ten
     g_eff = torch.empty_like(g)
     vec = 1 if n % _VEC == 0 and _aligned(g, ring, g_eff) else 0
     err = _load().au_fused_combine(
-        int(ring.dtype == torch.bfloat16), vec, _ptr(g), _ptr(ring), _ptr(g_eff), K, n,
-        _ptr(step), _ptr(taus), _ptr(weights), taus.shape[0], _stream(g.device),
+        int(ring.dtype == torch.bfloat16), vec, ptr(g), ptr(ring), ptr(g_eff), K, n,
+        ptr(step), ptr(taus), ptr(weights), taus.shape[0], stream(g.device),
     )
-    _raise_on(err, "au_fused_combine")
+    raise_on(err, "au_fused_combine")
     LAUNCHES["fused_combine"] += 1
     return g_eff, slot_live(step, taus, K)[1]
 
@@ -270,9 +232,9 @@ def fused_chain(kind: str, p, g, bufs, scalars) -> None:
     s0 = fam[0] if fam else None
     s1 = fam[1] if len(fam) > 1 else None
     err = _load().au_fused_chain(
-        _FAMILY[kind], vec, _ptr(p), _ptr(g), _ptr(s0), _ptr(s1), n, _ptr(s), _stream(p.device)
+        _FAMILY[kind], vec, ptr(p), ptr(g), ptr(s0), ptr(s1), n, ptr(s), stream(p.device)
     )
-    _raise_on(err, "au_fused_chain")
+    raise_on(err, "au_fused_chain")
     LAUNCHES["fused_chain"] += 1
 
 
@@ -289,9 +251,9 @@ def fused_update(p, g, v, alpha, mu) -> None:
     s = pack_scalars({"alpha": alpha, "mu": mu}, ("alpha", "mu"), p.device)
     vec = 1 if n % _VEC == 0 and _aligned(p, g, v) else 0
     err = _load().au_fused_update(
-        vec, _ptr(p), _ptr(g), _ptr(v), n, _ptr(s[0:1]), _ptr(s[1:2]), _stream(p.device)
+        vec, ptr(p), ptr(g), ptr(v), n, ptr(s[0:1]), ptr(s[1:2]), stream(p.device)
     )
-    _raise_on(err, "au_fused_update")
+    raise_on(err, "au_fused_update")
     LAUNCHES["fused_update"] += 1
 
 

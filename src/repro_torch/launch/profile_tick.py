@@ -19,6 +19,26 @@ import dataclasses
 import time
 
 
+def print_profile(prof, wall: float, n: int, unit: str, top: int) -> None:
+    """Wall and device-busy time per ``unit``, device ops per ``unit``, the
+    kernels with the most device time and the host ops with the most CPU time."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in on_device)
+    launches = sum(e.count for e in on_device)
+    print(f"wall {wall * 1e3 / n:.1f} ms/{unit}  device busy {device_us / 1e3 / n:.1f} ms/{unit} "
+          f"({100 * device_us / 1e6 / wall:.1f}% of wall)  {launches / n:.0f} device ops/{unit}")
+    print(f"{'device ms/' + unit:>16} {'calls/' + unit:>12}  kernel")
+    for e in sorted(on_device, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
+        print(f"{e.self_device_time_total / 1e3 / n:16.3f} {e.count / n:12.1f}  {e.key[:110]}")
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    print(f"{'host ms/' + unit:>16} {'calls/' + unit:>12}  op (self CPU time)")
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[: top // 2]:
+        print(f"{e.self_cpu_time_total / 1e3 / n:16.3f} {e.count / n:12.1f}  {e.key[:110]}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--ticks", type=int, default=3)
@@ -28,7 +48,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -59,23 +78,8 @@ def main(argv=None):
             state, _ = engine.tick(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in on_device)
-    launches = sum(e.count for e in on_device)
-    print(f"layers={args.layers} ticks={args.ticks} wall {wall * 1e3 / args.ticks:.1f} ms/tick  "
-          f"device busy {device_us / 1e3 / args.ticks:.1f} ms/tick "
-          f"({100 * device_us / 1e6 / wall:.1f}% of wall)  "
-          f"{launches / args.ticks:.0f} device ops/tick")
-    print(f"{'device ms/tick':>14} {'calls/tick':>10}  kernel")
-    for e in sorted(on_device, key=lambda e: e.self_device_time_total, reverse=True)[: args.top]:
-        print(f"{e.self_device_time_total / 1e3 / args.ticks:14.3f} {e.count / args.ticks:10.1f}  "
-              f"{e.key[:110]}")
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-    print(f"{'host ms/tick':>14} {'calls/tick':>10}  op (self CPU time)")
-    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[: args.top // 2]:
-        print(f"{e.self_cpu_time_total / 1e3 / args.ticks:14.3f} {e.count / args.ticks:10.1f}  "
-              f"{e.key[:110]}")
+    print(f"layers={args.layers} ticks={args.ticks}")
+    print_profile(prof, wall, args.ticks, "tick", args.top)
     if args.out:
         prof.export_chrome_trace(args.out)
         print(f"trace -> {args.out}")

@@ -1,12 +1,22 @@
-"""Attention, global path (port of ``src/repro/models/attention.py``).
+"""Attention: blockwise prefill/train path, cached decode, KV caches (port
+of ``src/repro/models/attention.py``).
 
 :func:`blockwise_attention` follows the reference's online-softmax math
 block for block: a loop over query blocks (``lax.map`` there), an inner loop
 over KV blocks (``lax.scan``) carrying the running max, sum and accumulator,
-and the same guards for fully masked rows.  It is plain PyTorch on purpose —
-not ``scaled_dot_product_attention`` — so its numbers stay comparable with
-the reference's.  The sliding-window (banded) path, decode against a KV cache
-and the Pallas flash kernel (``use_pallas``) are not ported yet (ROADMAP).
+and the same guards for fully masked rows.  With a window and
+``T > window + block_q`` it takes the banded path, where each query block
+gathers only a KV band of ``window + block_q`` positions.  It is plain
+PyTorch on purpose — not ``scaled_dot_product_attention`` — so its numbers
+stay comparable with the reference's.  :func:`decode_attention` attends one
+token against a full or ring KV cache.
+
+Under ``cfg.use_pallas`` the attention of a self-attention layer runs the
+hand-written flash kernel (:mod:`repro_torch.kernels.flash_attention`; the
+plain version on a CPU tensor), as the reference runs its Pallas kernel.
+
+The cache writers update the cache IN PLACE (the reference returns a new
+one): a full-width decode would otherwise copy every layer's cache each step.
 """
 
 from __future__ import annotations
@@ -14,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention.cuda import flash_attention
 from repro_torch.models.layers import LayerIO, Params, apply_rope, truncated_normal
 
 NEG_INF = -2.0e38
@@ -76,8 +87,6 @@ def blockwise_attention(
     block_q: int = 512,
     block_k: int = 512,
 ) -> torch.Tensor:
-    if window is not None:
-        raise NotImplementedError("the banded sliding-window path is not ported yet")
     B, S, Nq, H = q.shape
     T, Nkv = k.shape[1], k.shape[2]
     G = Nq // Nkv
@@ -87,6 +96,9 @@ def blockwise_attention(
     if pad_q:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad_q))
         qpos = torch.nn.functional.pad(qpos, (0, pad_q), value=-(10**9))
+    if window is not None and T > window + bq:
+        out = _banded_attention(q, k, v, qpos, kpos, bq, window, softcap, causal)
+        return out[:, :S].reshape(B, S, Nq, H).to(v.dtype)
     if pad_k:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
@@ -110,13 +122,122 @@ def blockwise_attention(
     return out.to(v.dtype)
 
 
-def attention_layer(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,
-                    use_rope: bool = True) -> torch.Tensor:
-    """Projections + rope + blockwise attention + output projection."""
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas: the flash-attention kernel is not ported yet (ROADMAP, Queue 2)"
-        )
+def _softmax_pv(scores, v):
+    """One-shot masked softmax of ``scores`` (B, Nkv, G, Qb, Kb) against
+    ``v`` (B, Kb, Nkv, H), with the reference's guards -> (B, Qb, Nkv, G, H)."""
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    m = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.exp(scores - m)
+    p = torch.where(scores <= NEG_INF / 2, 0.0, p)
+    l = torch.clamp(torch.sum(p, dim=-1), min=1e-30)
+    pv = torch.einsum("bngqk,bknh->bqngh", p, v.to(f32))
+    return pv / l.permute(0, 3, 1, 2)[..., None]
+
+
+def _banded_attention(q, k, v, qpos, kpos, bq, window, softcap, causal):
+    """Sliding-window path: each query block gathers a KV band of width
+    ``window + bq`` — O(S·W) instead of O(S·T).  q: (B, Spad, Nkv, G, H)."""
+    B, Spad, Nkv, G, H = q.shape
+    T = k.shape[1]
+    band = window + bq
+    width = min(band, T)
+    outs = []
+    for qs in range(0, Spad, bq):
+        start = min(max(qs + bq - band, 0), max(T - band, 0))
+        scores = _block_attend(q[:, qs:qs + bq], k[:, start:start + width], qpos[:, qs:qs + bq],
+                               kpos[:, start:start + width],
+                               causal=causal, window=window, softcap=softcap)
+        outs.append(_softmax_pv(scores, v[:, start:start + width]))
+    return torch.cat(outs, dim=1).reshape(B, Spad, Nkv * G, H)
+
+
+# ---------------------------------------------------------------------------
+# Decode (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, Nq, H)
+    k_cache: torch.Tensor,  # (B, C, Nkv, H)
+    v_cache: torch.Tensor,
+    cache_positions: torch.Tensor,  # (B, C) absolute positions; -1 = empty slot
+    qpos: torch.Tensor,  # (B, 1)
+    *,
+    window: int | None = None,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    B, _, Nq, H = q.shape
+    Nkv = k_cache.shape[2]
+    qg = q.reshape(B, 1, Nkv, Nq // Nkv, H)
+    scores = _block_attend(qg, k_cache, qpos, cache_positions,
+                           causal=True, window=window, softcap=softcap)
+    return _softmax_pv(scores, v_cache).reshape(B, 1, Nq, H).to(v_cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache helpers (full + ring)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, capacity: int, nkv: int, hd: int, dtype, device) -> Params:
+    return {
+        "k": torch.zeros((batch, capacity, nkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, capacity, nkv, hd), dtype=dtype, device=device),
+    }
+
+
+def cache_positions_full(capacity: int, length: torch.Tensor, batch: int) -> torch.Tensor:
+    """Positions of slots [0..capacity) when ``length`` tokens are stored."""
+    slots = torch.arange(capacity, device=length.device)
+    pos = torch.where(slots < length, slots, -1)
+    return pos[None, :].expand(batch, capacity)
+
+
+def cache_positions_ring(capacity: int, length: torch.Tensor, batch: int) -> torch.Tensor:
+    """Ring buffer: slot j holds absolute position p ≡ j (mod capacity),
+    the largest such p < length; empty slots report -1."""
+    slots = torch.arange(capacity, device=length.device)
+    p = length - 1 - torch.remainder(length - 1 - slots, capacity)
+    pos = torch.where((p >= 0) & (length > 0), p, -1)
+    return pos[None, :].expand(batch, capacity)
+
+
+def update_cache_full(cache: Params, k_new, v_new, pos: torch.Tensor) -> Params:
+    """Write one token at absolute position ``pos`` (0-d int tensor), in place."""
+    slot = pos.reshape(1)
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    return cache
+
+
+def update_cache_ring(cache: Params, k_new, v_new, pos: torch.Tensor) -> Params:
+    return update_cache_full(cache, k_new, v_new, torch.remainder(pos, cache["k"].shape[1]))
+
+
+def fill_cache_from_prefill(k, v, capacity: int, ring: bool) -> Params:
+    """Build a decode cache from prefill K/V of length S."""
+    B, S = k.shape[0], k.shape[1]
+    if not ring:
+        if capacity < S:
+            raise ValueError(f"cache capacity {capacity} < prefill length {S}")
+        pad = (0, 0, 0, 0, 0, capacity - S)
+        return {"k": torch.nn.functional.pad(k, pad), "v": torch.nn.functional.pad(v, pad)}
+    # ring: keep the last `capacity` positions at slot = pos % capacity
+    n = min(S, capacity)
+    slots = torch.arange(S - n, S, device=k.device) % capacity
+    kc = torch.zeros((B, capacity) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
+    vc = torch.zeros((B, capacity) + tuple(v.shape[2:]), dtype=v.dtype, device=v.device)
+    kc[:, slots] = k[:, S - n:]
+    vc[:, slots] = v[:, S - n:]
+    return {"k": kc, "v": vc}
+
+
+# ---------------------------------------------------------------------------
+# Full attention layer (projections + rope + mix)
+# ---------------------------------------------------------------------------
+
+def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,
+                       use_rope: bool = True):
+    """Projections + rope + attention + output projection -> (y, k, v), with
+    ``k`` roped: prefill fills its decode cache from the same projections."""
     dt = x.dtype
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
     k = torch.einsum("btd,dnh->btnh", x, p["wk"].to(dt))
@@ -126,9 +247,20 @@ def attention_layer(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int
         k = apply_rope(k, io.positions, cfg.rope_theta)
     scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim**-0.5
     q = q * torch.tensor(scale, dtype=dt)
-    out = blockwise_attention(
-        q, k, v, io.positions, io.positions,
-        causal=io.causal, window=window, softcap=cfg.attn_logit_softcap,
-        block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
-    )
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(dt))
+    if cfg.use_pallas:
+        # the flash kernel (contiguous positions); q is pre-scaled above
+        out = flash_attention(q, k, v, causal=io.causal, window=window,
+                              softcap=cfg.attn_logit_softcap, scale=1.0)
+    else:
+        out = blockwise_attention(
+            q, k, v, io.positions, io.positions,
+            causal=io.causal, window=window, softcap=cfg.attn_logit_softcap,
+            block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+        )
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(dt)), k, v
+
+
+def attention_layer(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Projections + rope + attention + output projection."""
+    return attention_layer_kv(p, x, io, cfg, window=window, use_rope=use_rope)[0]

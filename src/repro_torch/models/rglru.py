@@ -1,0 +1,140 @@
+"""RG-LRU recurrent block (port of ``src/repro/models/rglru.py``;
+recurrentgemma-9b / Griffin, arXiv:2402.19427).
+
+Griffin's recurrent block:
+
+    x -> norm -> [branch A: linear -> conv1d(k=4) -> RG-LRU]
+              -> [branch B: linear -> GeLU]
+    y = out_proj(A * B)
+
+RG-LRU recurrence (eq. 1–4 of the Griffin paper), in log space:
+
+    r_t = sigmoid(W_a u_t + b_a),  i_t = sigmoid(W_x u_t + b_x)
+    a_t = exp(c * r_t * log sigmoid(Lambda)),  c = 8
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
+
+Under ``cfg.use_pallas`` the recurrence runs the hand-written RG-LRU kernel
+(:mod:`repro_torch.kernels.rg_lru`; the plain version on a CPU tensor), as
+the reference runs its Pallas kernel.  Decode is O(1): the cache carries the
+conv window and h, and :func:`apply_rglru_step` updates it IN PLACE.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rg_lru.cuda import rg_lru
+from repro_torch.kernels.rg_lru.ref import rg_lru_ref
+from repro_torch.models.layers import Params, truncated_normal
+
+_C = 8.0  # Griffin's fixed gate sharpness
+f32 = torch.float32
+
+
+def init_rglru(gen, cfg, device) -> Params:
+    d, w, kconv = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.ssm_conv
+    s = 1.0 / np.sqrt(d)
+    # Lambda init so a = sigmoid(Lambda) in [0.9, 0.999]: the reference's own
+    # numpy draw, so this leaf is identical in both packages
+    u = np.random.RandomState(1).uniform(0.9, 0.999, size=(w,))
+    lam = torch.from_numpy(np.log(u / (1.0 - u)).astype(np.float32))
+    return {
+        "in_x": truncated_normal(gen, (d, w), s, device),  # recurrent branch
+        "in_gate": truncated_normal(gen, (d, w), s, device),  # GeLU branch
+        "conv_w": truncated_normal(gen, (kconv, w), 1.0 / np.sqrt(kconv), device),
+        "conv_b": torch.zeros((w,), dtype=f32, device=device),
+        "w_a": truncated_normal(gen, (w, w), 1.0 / np.sqrt(w), device),
+        "b_a": torch.zeros((w,), dtype=f32, device=device),
+        "w_i": truncated_normal(gen, (w, w), 1.0 / np.sqrt(w), device),
+        "b_i": torch.zeros((w,), dtype=f32, device=device),
+        "lambda_": lam.to(device),
+        "out_proj": truncated_normal(gen, (w, d), 1.0 / np.sqrt(w), device),
+    }
+
+
+def _gates(p: Params, u: torch.Tensor):
+    """u: (B, S, W) -> log_a: (B, S, W) f32, gated input x_t: (B, S, W) f32."""
+    dt = u.dtype
+    r = torch.sigmoid((u @ p["w_a"].to(dt)).to(f32) + p["b_a"])
+    i = torch.sigmoid((u @ p["w_i"].to(dt)).to(f32) + p["b_i"])
+    log_a = _C * r * F.logsigmoid(p["lambda_"])[None, None, :]  # <= 0
+    a2 = torch.exp(2.0 * log_a)
+    x_in = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * u.to(f32))
+    return log_a, x_in
+
+
+def _conv(u, w, b):
+    K = w.shape[0]
+    upad = F.pad(u, (0, 0, K - 1, 0))
+    out = sum(upad[:, k:k + u.shape[1], :] * w[k][None, None, :] for k in range(K))
+    return out + b[None, None, :]
+
+
+def _branches(p: Params, x: torch.Tensor):
+    """The recurrent branch before its conv, and the GeLU branch."""
+    dt = x.dtype
+    u = x @ p["in_x"].to(dt)
+    g = F.gelu(x @ p["in_gate"].to(dt), approximate="tanh")
+    return u, g
+
+
+def _forward(p: Params, x: torch.Tensor, cfg):
+    """Full-sequence pass -> (out, the branch before its conv, ys).
+
+    Under ``cfg.use_pallas`` the recurrence runs the :func:`rg_lru` wrapper
+    (the kernel on the card), else the plain loop, as the reference's
+    ``lax.scan``."""
+    dt = x.dtype
+    u_raw, g = _branches(p, x)
+    u = _conv(u_raw, p["conv_w"].to(dt), p["conv_b"].to(dt))
+    log_a, x_in = _gates(p, u)
+    ys = rg_lru(log_a, x_in) if cfg.use_pallas else rg_lru_ref(log_a, x_in)
+    return (ys.to(dt) * g) @ p["out_proj"].to(dt), u_raw, ys
+
+
+def apply_rglru(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence path.  x: (B, S, D)."""
+    return _forward(p, x, cfg)[0]
+
+
+def init_rglru_cache(batch: int, cfg, dtype, device) -> Params:
+    w = cfg.lru_width or cfg.d_model
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, w), dtype=dtype, device=device),
+        "h": torch.zeros((batch, w), dtype=f32, device=device),
+    }
+
+
+def apply_rglru_step(p: Params, x: torch.Tensor, cache: Params, cfg):
+    """x: (B, 1, D) -> (y, cache), the cache updated in place."""
+    dt = x.dtype
+    u, g = _branches(p, x)
+    # the reference's jnp type promotion: an f32 cache lifts the window, the
+    # conv and the gates to f32 under bf16 activations
+    wd = torch.promote_types(cache["conv"].dtype, dt)
+    win = torch.cat([cache["conv"].to(wd), u.to(wd)], dim=1)  # (B, K, W)
+    u_c = (torch.einsum("bkw,kw->bw", win, p["conv_w"].to(dt).to(wd))[:, None, :]
+           + p["conv_b"].to(dt).to(wd))
+    log_a, x_in = _gates(p, u_c)
+    h = torch.exp(log_a[:, 0]) * cache["h"] + x_in[:, 0]
+    out = (h[:, None, :].to(dt) * g) @ p["out_proj"].to(dt)
+    cache["conv"].copy_(win[:, 1:])
+    cache["h"].copy_(h)
+    return out, cache
+
+
+def rglru_prefill_cache(p: Params, x: torch.Tensor, cfg, dtype):
+    """Full-sequence pass that also emits the decode cache.
+
+    The reference always runs its own ``lax.scan`` a second time here and
+    takes its final carry as ``h``.  This port takes ``h = ys[:, -1]`` from
+    the recurrence that gave the output: the same value, since the
+    recurrence starts from ``h0 = 0`` — and on the card a Python loop of S
+    steps in every recurrent layer would dwarf the rest of the prefill.
+    """
+    out, u_raw, ys = _forward(p, x, cfg)
+    K = cfg.ssm_conv
+    # copies, not views: a view would keep the whole (B, S, W) tensor alive
+    return out, {"conv": u_raw[:, -(K - 1):, :].to(dtype).clone(), "h": ys[:, -1].clone()}

@@ -1,13 +1,23 @@
-"""Decoder trunk, global blocks (port of ``src/repro/models/transformer.py``).
+"""Decoder trunk: heterogeneous blocks, prefill and cached decode (port of
+``src/repro/models/transformer.py``).
 
-Params keep the reference's layout — with ``scan_layers`` each leaf of the
-period is stacked on a leading layer axis under ``pos{j}`` — so flat buffers
-carry over element for element.  A Python loop over layers takes the place of
-``lax.scan``: the stacked leaves are ``unbind``-ed once (whose backward is one
-``stack`` per leaf, not one full-size scatter per layer), and
-``torch.utils.checkpoint`` takes the place of ``jax.checkpoint`` under
-``cfg.remat`` (recompute in the backward; the numbers are the same).
-Local/ssm/recurrent/MoE blocks and the decode path are not ported yet.
+A config's ``block_pattern`` (recurrentgemma's recurrent/recurrent/local,
+stablelm's global) defines one period; the stack is ``num_periods``
+repetitions of it plus unrolled remainder layers.  Params keep the
+reference's layout — with ``scan_layers`` each leaf of the period is stacked
+on a leading layer axis under ``pos{j}``, remainder layers sit under
+``rem{i}`` — so flat buffers carry over element for element.  A Python loop
+over layers takes the place of ``lax.scan``: the stacked leaves are
+``unbind``-ed once (whose backward is one ``stack`` per leaf, not one
+full-size scatter per layer), and ``torch.utils.checkpoint`` takes the place
+of ``jax.checkpoint`` under ``cfg.remat``.
+
+Each layer type owns its decode cache, stacked like the params:
+  global     -> full KV cache (capacity = max sequence)
+  local      -> ring KV cache (capacity = window)
+  recurrent  -> (conv window, lru state h)
+A decode step updates the cache in place and returns it.  Mamba (``ssm``)
+blocks and MoE are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,12 +28,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
+from repro_torch.models import rglru as R
 from repro_torch.models.layers import (
     LayerIO,
     Params,
     apply_layernorm,
     apply_mlp,
     apply_rmsnorm,
+    apply_rope,
     init_layernorm,
     init_mlp,
     init_rmsnorm,
@@ -42,16 +54,24 @@ def _norm(cfg, p, x):
 
 
 def _check_supported(layer_type: str, cfg) -> None:
-    if layer_type != "global" or cfg.num_experts:
+    if layer_type not in ("global", "local", "recurrent") or cfg.num_experts:
         raise NotImplementedError(
             f"layer type {layer_type!r} (experts={cfg.num_experts}) is not ported yet; "
-            "this slice runs dense global-attention blocks"
+            "the port runs global, local and recurrent blocks with dense MLPs"
         )
+
+
+def _window_for(layer_type: str, cfg) -> int | None:
+    return cfg.window_size if layer_type == "local" else None
 
 
 def init_block(gen, layer_type: str, cfg, device) -> Params:
     _check_supported(layer_type, cfg)
-    p: Params = {"pre_norm": _norm_init(cfg, device), "attn": A.init_attention(gen, cfg, device)}
+    p: Params = {"pre_norm": _norm_init(cfg, device)}
+    if layer_type == "recurrent":
+        p["rglru"] = R.init_rglru(gen, cfg, device)
+    else:
+        p["attn"] = A.init_attention(gen, cfg, device)
     if cfg.use_post_norms:
         p["post_norm"] = _norm_init(cfg, device)
     p["mlp_pre_norm"] = _norm_init(cfg, device)
@@ -61,11 +81,8 @@ def init_block(gen, layer_type: str, cfg, device) -> Params:
     return p
 
 
-def apply_block(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg) -> torch.Tensor:
-    """Full-sequence (train) path of one pre-norm residual block."""
-    _check_supported(layer_type, cfg)
-    pre = _norm(cfg, p["pre_norm"], x)
-    h = A.attention_layer(p["attn"], pre, io, cfg, window=None, use_rope=cfg.use_rope)
+def _mlp_residual(p: Params, x, pre, h, cfg):
+    """The block's second half: post-norm of the mixer output, residual, MLP."""
     if cfg.use_post_norms:
         h = _norm(cfg, p["post_norm"], h)
     if cfg.parallel_residual:
@@ -79,13 +96,116 @@ def apply_block(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg) -
     return (x + h + m) if cfg.parallel_residual else (x + m)
 
 
+def apply_block(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg) -> torch.Tensor:
+    """Full-sequence (train / prefill) path of one pre-norm residual block."""
+    _check_supported(layer_type, cfg)
+    pre = _norm(cfg, p["pre_norm"], x)
+    if layer_type == "recurrent":
+        h = R.apply_rglru(p["rglru"], pre, cfg)
+    else:
+        h = A.attention_layer(p["attn"], pre, io, cfg, window=_window_for(layer_type, cfg),
+                              use_rope=cfg.use_rope)
+    return _mlp_residual(p, x, pre, h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Decode-step block (single token, threaded cache)
+# ---------------------------------------------------------------------------
+
+def init_block_cache(layer_type: str, batch: int, capacity: int, cfg, dtype, device) -> Params:
+    _check_supported(layer_type, cfg)
+    if layer_type == "recurrent":
+        return R.init_rglru_cache(batch, cfg, dtype, device)
+    cap = min(cfg.window_size, capacity) if layer_type == "local" else capacity
+    return A.init_kv_cache(batch, cap, cfg.num_kv_heads, cfg.head_dim, dtype, device)
+
+
+def _attn_decode(p, x, cache, layer_type, pos, cfg):
+    """Project one token, write it into the cache, attend."""
+    dt = x.dtype
+    B = x.shape[0]
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"].to(dt))
+    qpos = pos.reshape(1, 1).expand(B, 1)
+    if cfg.use_rope:
+        q = apply_rope(q, qpos, cfg.rope_theta)
+        k = apply_rope(k, qpos, cfg.rope_theta)
+    scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim**-0.5
+    q = q * torch.tensor(scale, dtype=dt)
+    ring = layer_type == "local"
+    cache = (A.update_cache_ring if ring else A.update_cache_full)(cache, k, v, pos)
+    cpos_fn = A.cache_positions_ring if ring else A.cache_positions_full
+    cpos = cpos_fn(cache["k"].shape[1], pos + 1, B)
+    out = A.decode_attention(q, cache["k"], cache["v"], cpos, qpos,
+                             window=_window_for(layer_type, cfg),
+                             softcap=cfg.attn_logit_softcap)
+    # the reference's jnp promotion: an f32 cache gives an f32 output
+    od = torch.promote_types(out.dtype, dt)
+    return torch.einsum("bsnh,nhd->bsd", out.to(od), p["wo"].to(dt).to(od)), cache
+
+
+def apply_block_step(p: Params, x: torch.Tensor, cache: Params, layer_type: str, pos, cfg):
+    """x: (B, 1, D), pos: 0-d int tensor (absolute position) -> (x, cache);
+    the cache is updated in place."""
+    pre = _norm(cfg, p["pre_norm"], x)
+    if layer_type == "recurrent":
+        h, cache = R.apply_rglru_step(p["rglru"], pre, cache, cfg)
+    else:
+        h, cache = _attn_decode(p["attn"], pre, cache, layer_type, pos, cfg)
+    return _mlp_residual(p, x, pre, h, cfg), cache
+
+
+def prefill_block_cache(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg,
+                        capacity: int, cache_dtype):
+    """Full-sequence pass that also emits the decode cache.
+
+    The reference runs :func:`apply_block` and then the mixer's projections
+    (or its recurrence) a second time for the cache; here one pass of the
+    mixer gives both its output and the cache's contents, which are the same
+    values.
+    """
+    _check_supported(layer_type, cfg)
+    pre = _norm(cfg, p["pre_norm"], x)
+    if layer_type == "recurrent":
+        h, cache = R.rglru_prefill_cache(p["rglru"], pre, cfg, cache_dtype)
+    else:
+        h, k, v = A.attention_layer_kv(p["attn"], pre, io, cfg,
+                                       window=_window_for(layer_type, cfg), use_rope=cfg.use_rope)
+        ring = layer_type == "local"
+        cap = min(cfg.window_size, capacity) if ring else capacity
+        cache = A.fill_cache_from_prefill(k.to(cache_dtype), v.to(cache_dtype), cap, ring)
+    return _mlp_residual(p, x, pre, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Stack: periods + unrolled remainder
+# ---------------------------------------------------------------------------
+
+def _stacked(cfg) -> bool:
+    return cfg.scan_layers and cfg.num_periods > 0
+
+
+def _layers(cfg) -> list[tuple[str, str, int | None]]:
+    """``(group key, layer type, index in the group or None)`` in stack order."""
+    pattern = cfg.block_pattern
+    if _stacked(cfg):
+        out = [(f"pos{j}", t, i) for i in range(cfg.num_periods) for j, t in enumerate(pattern)]
+    else:
+        out = [(f"layer{i}", t, None) for i, t in enumerate(pattern * cfg.num_periods)]
+    return out + [(f"rem{i}", t, None) for i, t in enumerate(cfg.remainder_layers)]
+
+
+def _stack_trees(trees: list) -> Params:
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
 def init_stack(gen, cfg, device) -> Params:
     params: Params = {}
     n_per = cfg.num_periods
-    if cfg.scan_layers and n_per > 0:
+    if _stacked(cfg):
         for j, t in enumerate(cfg.block_pattern):
-            layers = [init_block(gen, t, cfg, device) for _ in range(n_per)]
-            params[f"pos{j}"] = tree_map(lambda *xs: torch.stack(xs), *layers)
+            params[f"pos{j}"] = _stack_trees([init_block(gen, t, cfg, device) for _ in range(n_per)])
     else:
         for i, t in enumerate(cfg.block_pattern * n_per):
             params[f"layer{i}"] = init_block(gen, t, cfg, device)
@@ -100,6 +220,14 @@ def _unstack(stacked: Params, n: int) -> list[Params]:
     return [tree_map(lambda parts, i=i: parts[i], per_leaf) for i in range(n)]
 
 
+def _per_layer(tree: Params, cfg) -> list[tuple[str, str, Params]]:
+    """``(group key, layer type, that layer's subtree)`` in stack order; the
+    subtree of a stacked layer is a view into the stacked leaves."""
+    views = {key: _unstack(tree[key], cfg.num_periods)
+             for key in {g for g, _, i in _layers(cfg) if i is not None}}
+    return [(g, t, tree[g] if i is None else views[g][i]) for g, t, i in _layers(cfg)]
+
+
 def apply_stack(params: Params, x: torch.Tensor, io: LayerIO, cfg) -> torch.Tensor:
     def layer(p, x, t):
         if cfg.remat:
@@ -107,15 +235,40 @@ def apply_stack(params: Params, x: torch.Tensor, io: LayerIO, cfg) -> torch.Tens
                               x, use_reentrant=False)
         return apply_block(p, x, t, io, cfg)
 
-    pattern = cfg.block_pattern
-    if cfg.scan_layers and cfg.num_periods > 0:
-        per_pos = [_unstack(params[f"pos{j}"], cfg.num_periods) for j in range(len(pattern))]
-        for i in range(cfg.num_periods):
-            for j, t in enumerate(pattern):
-                x = layer(per_pos[j][i], x, t)
-    else:
-        for i, t in enumerate(pattern * cfg.num_periods):
-            x = layer(params[f"layer{i}"], x, t)
-    for i, t in enumerate(cfg.remainder_layers):
-        x = layer(params[f"rem{i}"], x, t)
+    for _, t, p in _per_layer(params, cfg):
+        x = layer(p, x, t)
     return x
+
+
+def init_stack_cache(cfg, batch: int, capacity: int, dtype, device) -> Params:
+    """A zero cache, stacked like the params (real memory: decode writes into it)."""
+    cache: Params = {}
+    if _stacked(cfg):
+        for j, t in enumerate(cfg.block_pattern):
+            one = init_block_cache(t, batch, capacity, cfg, dtype, device)
+            cache[f"pos{j}"] = tree_map(
+                lambda leaf: leaf.new_zeros((cfg.num_periods,) + tuple(leaf.shape)), one)
+    else:
+        for i, t in enumerate(cfg.block_pattern * cfg.num_periods):
+            cache[f"layer{i}"] = init_block_cache(t, batch, capacity, cfg, dtype, device)
+    for i, t in enumerate(cfg.remainder_layers):
+        cache[f"rem{i}"] = init_block_cache(t, batch, capacity, cfg, dtype, device)
+    return cache
+
+
+def apply_stack_step(params: Params, x: torch.Tensor, cache: Params, pos, cfg):
+    """One token through every layer; the cache is updated in place."""
+    for (_, t, p), (_, _, c) in zip(_per_layer(params, cfg), _per_layer(cache, cfg)):
+        x, _ = apply_block_step(p, x, c, t, pos, cfg)
+    return x, cache
+
+
+def prefill_stack(params: Params, x: torch.Tensor, io: LayerIO, cfg, capacity: int, cache_dtype):
+    """Prefill the whole stack -> (hidden states, decode cache stacked like
+    the params)."""
+    groups: dict[str, list] = {}
+    for g, t, p in _per_layer(params, cfg):
+        x, c = prefill_block_cache(p, x, t, io, cfg, capacity, cache_dtype)
+        groups.setdefault(g, []).append(c)
+    cache = {g: _stack_trees(cs) if g.startswith("pos") else cs[0] for g, cs in groups.items()}
+    return x, cache

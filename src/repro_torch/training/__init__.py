@@ -12,6 +12,7 @@ from repro_torch.training.steps import (
     TrainState,
     init_params,
     init_train_state,
+    make_serve_step,
     make_step,
     param_template,
     param_view,
@@ -29,6 +30,7 @@ __all__ = [
     "TrainState",
     "init_params",
     "init_train_state",
+    "make_serve_step",
     "make_step",
     "param_template",
     "param_view",

@@ -1,5 +1,5 @@
-"""Train step factory (port of ``src/repro/training/steps.py``, modes
-``sync`` and ``async``).
+"""Train and serve step factories (port of ``src/repro/training/steps.py``:
+training modes ``sync`` and ``async``, and ``make_serve_step``).
 
 One factory, :func:`make_step`, produces the training step from a single
 gradient-transform pipeline:
@@ -52,6 +52,7 @@ __all__ = [
     "param_view",
     "init_train_state",
     "make_step",
+    "make_serve_step",
 ]
 
 MODES = ("sync", "async")
@@ -289,3 +290,15 @@ def make_step(
         }
 
     return train_step
+
+
+def make_serve_step(cfg) -> Callable:
+    """One batched greedy decode step: (params, cache, token, pos) ->
+    {next_token, logits, cache}; the cache is updated in place."""
+
+    def serve_step(params, cache, token: torch.Tensor, pos):
+        logits, new_cache = M.decode_step(params, cache, token, pos, cfg)
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        return {"next_token": next_token, "logits": logits, "cache": new_cache}
+
+    return serve_step

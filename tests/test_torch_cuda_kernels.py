@@ -1,0 +1,117 @@
+"""The port's flash-attention and RG-LRU kernels against their plain
+versions, on the card; the CPU path of each wrapper here.
+
+This file imports no JAX, so its ``cuda``-marked tests run on a machine with
+a card and PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+They skip without a card.  Tolerances: 3e-5 in f32, the reference's own
+kernel tolerance (``tests/test_kernels.py:97,117,165``); in bf16 1e-4 +
+1e-2 |plain|, one bf16 rounding of the output, since kernel and plain version
+both compute in f32 and round once (the reference's 3e-2 is as large as a
+typical output at long windows); the served logits 1e-4.  Full-width shapes
+are ``chip_smoke.py``'s.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.data import make_batch_for
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rg_lru as RG
+from repro_torch.launch.serve import serve
+from repro_torch.training import init_params
+from repro_torch.tree import tree_map
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernels are CUDA C++ and have no CPU mode")
+    return torch.device("cuda")
+
+
+def _qkv(B, S, T, Nq, Nkv, H, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+                 for shape in ((B, S, Nq, H), (B, T, Nkv, H), (B, T, Nkv, H)))
+
+
+def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
+    q, k, v = _qkv(1, 20, 20, 4, 2, 64, torch.float32, "cpu")
+    before = dict(FA.LAUNCHES), dict(RG.LAUNCHES)
+    assert torch.equal(FA.flash_attention(q, k, v, window=8, softcap=20.0),
+                       FA.attention_ref(q, k, v, window=8, softcap=20.0))
+    log_a, x = -torch.rand(2, 9, 16), torch.randn(2, 9, 16)
+    assert torch.equal(RG.rg_lru(log_a, x), RG.rg_lru_ref(log_a, x))
+    assert (dict(FA.LAUNCHES), dict(RG.LAUNCHES)) == before
+
+
+# B, S, T, Nq, Nkv, H, causal, window, softcap, dtype
+FLASH_CASES = [
+    (2, 100, 100, 4, 2, 64, True, None, None, torch.float32),
+    (1, 77, 150, 4, 4, 256, False, 40, None, torch.float32),
+    (1, 130, 130, 32, 16, 128, True, 64, 50.0, torch.float32),
+    (2, 300, 300, 16, 1, 256, True, 100, None, torch.bfloat16),
+    (1, 2200, 2200, 16, 1, 256, True, 2048, None, torch.float32),
+    (1, 2200, 2200, 16, 1, 256, True, 2048, None, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c[:9])))
+def test_flash_kernel_matches_plain_on_card(cuda_device, case):
+    *shape, causal, window, softcap, dtype = case
+    q, k, v = _qkv(*shape, dtype, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0 = FA.LAUNCHES["flash_attention"]
+    out = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == n0 + 1
+    rtol, atol = (3e-5, 3e-5) if dtype == torch.float32 else (1e-2, 1e-4)
+    torch.testing.assert_close(out.float(), FA.attention_ref(q, k, v, **kw).float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = _qkv(1, 8, 8, 2, 1, 32, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q, k, v)
+    q, k, v = _qkv(1, 8, 8, 2, 1, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="forward-only"):
+        FA.flash_attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W", [(2, 37, 100), (3, 100, 4096)])
+def test_rg_lru_kernel_matches_plain_on_card(cuda_device, B, S, W):
+    g = torch.Generator().manual_seed(S)
+    log_a = -torch.nn.functional.softplus(torch.randn(B, S, W, generator=g)).to(cuda_device)
+    x = torch.randn(B, S, W, generator=g).to(cuda_device)
+    n0 = RG.LAUNCHES["rg_lru"]
+    y = RG.rg_lru(log_a, x)
+    torch.cuda.synchronize()
+    assert RG.LAUNCHES["rg_lru"] == n0 + 1
+    torch.testing.assert_close(y, RG.rg_lru_ref(log_a, x), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+def test_served_recurrentgemma_on_card_matches_cpu(cuda_device):
+    """Reduced recurrentgemma, prefill + 4 greedy steps: the card with
+    use_pallas (the kernels) against the CPU's plain path, same params."""
+    cfg = reduced(get_config("recurrentgemma-9b"))
+    params = init_params(0, cfg, "cpu")
+    batch = make_batch_for(cfg, batch=2, seq=96, seed=0)
+    want = serve(cfg, params, batch, gen=4)
+    got = serve(dataclasses.replace(cfg, use_pallas=True),
+                tree_map(lambda t: t.to(cuda_device), params),
+                {k: v.to(cuda_device) for k, v in batch.items()}, gen=4)
+    torch.testing.assert_close(got["prefill_logits"].cpu(), want["prefill_logits"], rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(got["logits"].cpu(), want["logits"], rtol=0, atol=1e-4)
+    assert torch.equal(got["tokens"].cpu(), want["tokens"])
