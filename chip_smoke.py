@@ -9,9 +9,9 @@ CUDA toolkit.  It imports nothing of JAX or of the JAX package, and fails
 
 Phases, each fatal on failure:
 
-1. build — ``nvcc`` compiles the three CUDA sources for sm_90a, one process
-   per source, all at once: ``adaptive_update.cu``, ``flash_attention.cu``
-   and ``rg_lru.cu``.
+1. build — ``nvcc`` compiles the four CUDA sources for sm_90a, one process
+   per source, all at once: ``adaptive_update.cu``, ``flash_attention.cu``,
+   ``rg_lru.cu`` and ``selective_scan.cu``.
 2. kernels — every adaptive_update kernel's wrapper against its plain
    PyTorch version on the card, at the full-width shapes of stablelm-1.6b
    (N = 1,438,846,976 f32 params, K = 8 ring slots, W = 8 workers): the tick
@@ -46,16 +46,26 @@ Phases, each fatal on failure:
    the band's QK^T + PV FLOPs over the peak for the input type: 989 TFLOP/s
    bf16, 67 TFLOP/s f32) and, for attention,
    ``scaled_dot_product_attention``'s time at the same shape (timed only).
+   The selective-scan kernel at the falcon-mamba-7b shape (B 4, S 4096,
+   D 8192, N 16, u in bf16) and at odd sizes with u in f32 (B 2, S 1000,
+   D 1000): y and the final state within 3e-5 + 3e-5 |plain|, the
+   reference's tolerance; its bound is the largest of the bytes over
+   3.35 TB/s, the exponentials over the SFU rate (16 a clock per SM, 132
+   SMs, 1.98 GHz) and 6 f32 operations per (b, t, d, n) over 67 TFLOP/s.
 6. serving — the training state freed, full-width recurrentgemma-9b (38
    layers, 9.4e9 f32 params) through ``repro_torch.launch.serve``: batch 4,
    prompt 4096, 32 greedy steps, with the counts zeroed just before and read
    just after: 12 flash and 26 RG-LRU launches (one per recurrent layer:
    its output and its cache come from one recurrence), finite logits,
    ids in range.  Then full-width stablelm-1.6b: batch 4, prompt 512, 32
-   steps, 24 flash launches.  Prints prefill s, decode ms per step, tok/s and
-   peak memory.  Then reduced recurrentgemma served on the card (the
-   kernels) against the plain CPU path, same params: prompt 160, 4 steps,
-   logits within 1e-4, ids equal.
+   steps, 24 flash launches.  Then full-width falcon-mamba-7b (64 Mamba
+   layers, 7.27e9 f32 params): batch 4, prompt 4096, 32 steps, 64
+   selective-scan launches (one per layer: its output and its cache come
+   from one scan).  Every serve counts all three serving kernels.  Prints
+   prefill s, decode ms per step, tok/s and peak memory.  Then reduced
+   recurrentgemma and reduced falcon-mamba served on the card (the kernels)
+   against the plain CPU path, same params: prompt 160, 4 steps, logits
+   within 1e-4, ids equal.
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
 ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
@@ -73,6 +83,8 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+SM_CLOCK_HZ = 1.98e9  # H100 SXM maximum SM clock (NVIDIA data sheet)
+SFU_EXP_PER_S = 16 * 132 * SM_CLOCK_HZ  # exponentials: 16 a clock per SM, 132 SMs
 PEAK_FLOPS = {  # H100 SXM peaks by input type (NVIDIA data sheet)
     "bfloat16": 989e12,  # dense bf16 tensor cores
     "float32": 67e12,  # f32 outside the tensor cores
@@ -81,6 +93,7 @@ SOURCE = "src/repro_torch/kernels/adaptive_update/csrc/adaptive_update.cu"
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "rg_lru": "src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
+    "selective_scan": "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
 }
 REPLACES = {
     "fused_tick": "src/repro/kernels/adaptive_update/fused.py:301",
@@ -89,6 +102,7 @@ REPLACES = {
     "fused_update": "src/repro/kernels/adaptive_update/kernel.py:46",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
     "rg_lru": "src/repro/kernels/rg_lru/kernel.py:46",
+    "selective_scan": "src/repro/kernels/selective_scan/kernel.py:57",
 }
 K_RING, W_WORKERS, STEP = 8, 8, 11
 TAUS = [0, 2, 5, 2, 9, 1, 3, 7]  # two workers share a slot; tau 9 >= K is dead
@@ -623,6 +637,42 @@ def check_rg_lru(B, S, W, dev):
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes)
 
 
+def check_selective_scan(B, S, D, N, u_dtype, dev):
+    """The selective-scan kernel against its plain version: y and hT."""
+    import torch
+
+    from repro_torch.kernels.selective_scan import cuda as SS
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    u = torch.randn(B, S, D, generator=gen, device=dev).to(u_dtype)
+    delta = torch.nn.functional.softplus(torch.randn(B, S, D, generator=gen, device=dev) - 2.0)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(D, 1)  # the model's init
+    Bm = torch.randn(B, S, N, generator=gen, device=dev)
+    Cm = torch.randn(B, S, N, generator=gen, device=dev)
+    args = (u, delta, A, Bm, Cm)
+    y, hT = SS.selective_scan(*args)
+    want_y, want_h = SS.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    err = max(float((y - want_y).abs().max()), float((hT - want_h).abs().max()))
+    for got, want, what in ((y, want_y, "y"), (hT, want_h, "hT")):
+        bad = int(((got - want).abs() > 3e-5 + 3e-5 * want.abs()).sum())
+        check(bad == 0, f"selective_scan {B, S, D, N, u_dtype} {what}: {bad} elements past 3e-5 "
+                        f"(max |d| {err})")
+    del y, hT, want_y, want_h
+    ms = cuda_ms(lambda: SS.selective_scan(*args), iters=20)
+    plain_ms = cuda_ms(lambda: SS.selective_scan_ref(*args), iters=2)
+    nbytes = (u.element_size() + 4 + 4) * B * S * D + 4 * D * N + 8 * B * S * N + 4 * B * D * N
+    exps = B * S * D * N
+    flops = 6 * exps  # delta*A, the h update (3: mul, mul, add), y (2)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "exponentials": exps / SFU_EXP_PER_S,
+             "f32 operations": flops / PEAK_FLOPS["float32"]}
+    what = max(times, key=times.get)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=times[what] * 1e3, bound_by="bytes" if what == "bytes" else "operations",
+                bound_set_by=what, bound_terms_ms={k: v * 1e3 for k, v in times.items()},
+                bytes=nbytes, exps=exps, flops=flops, sm_clock_hz=SM_CLOCK_HZ)
+
+
 def serve_full(arch, batch, prompt, gen, expect):
     """Serve ``arch`` at full width through the launcher, counts zeroed just
     before and read just after; check them against ``expect``."""
@@ -631,16 +681,19 @@ def serve_full(arch, batch, prompt, gen, expect):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import cuda as FA
     from repro_torch.kernels.rg_lru import cuda as RG
+    from repro_torch.kernels.selective_scan import cuda as SS
     from repro_torch.launch import serve
 
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
     FA.reset_launches()
     RG.reset_launches()
+    SS.reset_launches()
     result = serve.main(["--arch", arch, "--batch", str(batch), "--prompt_len", str(prompt),
                          "--gen", str(gen), "--device", "cuda"])
     torch.cuda.synchronize()
-    counts = {"flash_attention": FA.LAUNCHES["flash_attention"], "rg_lru": RG.LAUNCHES["rg_lru"]}
+    counts = {"flash_attention": FA.LAUNCHES["flash_attention"], "rg_lru": RG.LAUNCHES["rg_lru"],
+              "selective_scan": SS.LAUNCHES["selective_scan"]}
     peak = torch.cuda.max_memory_allocated()
     vocab = get_config(arch).vocab_size
     check(bool(torch.isfinite(result["prefill_logits"]).all())
@@ -658,9 +711,9 @@ def serve_full(arch, batch, prompt, gen, expect):
     return row
 
 
-def serve_agreement():
-    """Reduced recurrentgemma served on the card (the kernels) against the
-    plain CPU path, same params and prompts."""
+def serve_agreement(arch):
+    """Reduced ``arch`` served on the card (the kernels) against the plain
+    CPU path, same params and prompts."""
     import torch
 
     from repro_torch.configs import get_config, reduced
@@ -669,7 +722,7 @@ def serve_agreement():
     from repro_torch.training import init_params
     from repro_torch.tree import tree_map
 
-    cfg = reduced(get_config("recurrentgemma-9b"))
+    cfg = reduced(get_config(arch))
     params = init_params(0, cfg, "cpu")
     batch = make_batch_for(cfg, batch=2, seq=160, seed=0)
     want = serve(cfg, params, batch, gen=4)
@@ -678,10 +731,11 @@ def serve_agreement():
                 {k: v.to("cuda") for k, v in batch.items()}, gen=4)
     d = max(float((got["prefill_logits"].cpu() - want["prefill_logits"]).abs().max()),
             float((got["logits"].cpu() - want["logits"]).abs().max()))
-    log(f"[agreement] reduced recurrentgemma, prefill 160 + 4 steps: card vs CPU max |dlogits| "
+    log(f"[agreement] reduced {arch}, prefill 160 + 4 steps: card vs CPU max |dlogits| "
         f"= {d:.3e}, ids {got['tokens'][0].tolist()}")
-    check(d <= 1e-4, f"served logits: card and CPU disagree by {d}")
-    check(torch.equal(got["tokens"].cpu(), want["tokens"]), "served ids differ between card and CPU")
+    check(d <= 1e-4, f"{arch}: served logits: card and CPU disagree by {d}")
+    check(torch.equal(got["tokens"].cpu(), want["tokens"]),
+          f"{arch}: served ids differ between card and CPU")
     return d
 
 
@@ -703,6 +757,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import cuda as FA
     from repro_torch.kernels.nvcc import compile_libraries
     from repro_torch.kernels.rg_lru import cuda as RG
+    from repro_torch.kernels.selective_scan import cuda as SS
     from repro_torch.training import param_template
 
     dev = torch.device("cuda")
@@ -711,7 +766,7 @@ def main() -> int:
 
     # -- phase 1: build (one nvcc per source, all at once) -----------------------
     t0 = time.perf_counter()
-    libs = compile_libraries([C.SOURCE, FA.SOURCE, RG.SOURCE], force=True)
+    libs = compile_libraries([C.SOURCE, FA.SOURCE, RG.SOURCE, SS.SOURCE], force=True)
     log(f"[build] nvcc sm_90a {time.perf_counter() - t0:.1f}s -> "
         + ", ".join(str(lib.relative_to(root)) for lib in libs))
 
@@ -781,14 +836,30 @@ def main() -> int:
     log(f"[kernel] rg_lru: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  plain "
         f"{r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bytes'] / 1e6:.1f} MB)")
     free_cuda()
+    scan_shapes = {  # B, S, D, N, u dtype
+        "selective_scan/falcon-mamba-7b": (4, 4096, 8192, 16, torch.bfloat16),
+        "selective_scan/odd/f32": (2, 1000, 1000, 16, torch.float32),
+    }
+    for tag, shape in scan_shapes.items():
+        results[tag] = r = check_selective_scan(*shape, dev)
+        terms = ", ".join(f"{k} {v:.3f} ms" for k, v in r["bound_terms_ms"].items())
+        log(f"[kernel] {tag}: max_abs_err {r['max_abs_err']:.3e} (tol 3e-5 + 3e-5|plain|)  "
+            f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms, set "
+            f"by the {r['bound_set_by']} ({terms}; SM clock {SM_CLOCK_HZ / 1e9:.2f} GHz)")
+        free_cuda()
 
     # -- phase 6: serving at full width, through the launcher --------------------
     serving = [
-        serve_full("recurrentgemma-9b", 4, 4096, 32, {"flash_attention": 12, "rg_lru": 26}),
-        serve_full("stablelm-1.6b", 4, 512, 32, {"flash_attention": 24, "rg_lru": 0}),
+        serve_full("recurrentgemma-9b", 4, 4096, 32,
+                   {"flash_attention": 12, "rg_lru": 26, "selective_scan": 0}),
+        serve_full("stablelm-1.6b", 4, 512, 32,
+                   {"flash_attention": 24, "rg_lru": 0, "selective_scan": 0}),
+        serve_full("falcon-mamba-7b", 4, 4096, 32,
+                   {"flash_attention": 0, "rg_lru": 0, "selective_scan": 64}),
     ]
-    serve_agreement()
-    free_cuda()
+    for arch in ("recurrentgemma-9b", "falcon-mamba-7b"):
+        serve_agreement(arch)
+        free_cuda()
 
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
@@ -808,6 +879,9 @@ def main() -> int:
         "rg_lru": (rg_path, serving[0]["launches"]["rg_lru"]),
     })
     on_path.update({"flash_attention": "flash_attention/recurrentgemma-9b", "rg_lru": "rg_lru"})
+    launches["selective_scan"] = ("serve falcon-mamba-7b (one prefill)",
+                                  serving[2]["launches"]["selective_scan"])
+    on_path["selective_scan"] = "selective_scan/falcon-mamba-7b"
     kernels = []
     for name, key in on_path.items():
         r = results[key]
@@ -817,6 +891,7 @@ def main() -> int:
             name=name, route="cuda", source=SOURCES.get(name, SOURCE), replaces=REPLACES[name],
             launches=count, max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
+            bound_set_by=r.get("bound_set_by", r.get("bound_by", "bytes")),
             library_ms=r.get("library_ms"), variant=key, path=path,
         ))
     log(json.dumps({"variants": results, "main": summary, "serving": serving}))

@@ -1,7 +1,8 @@
 """Where serving's time goes: prefill and greedy decode under ``torch.profiler``
 on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch recurrentgemma-9b \\
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        [--arch recurrentgemma-9b|falcon-mamba-7b|stablelm-1.6b] \\
         [--batch 4] [--prompt_len 4096] [--steps 8] [--out trace_prefix]
 
 Builds the serve launcher's run at full width (random params from the seed,
@@ -20,12 +21,13 @@ import argparse
 import dataclasses
 import time
 
+from repro_torch.configs import ASSIGNED_ARCHS
 from repro_torch.launch.profile_tick import print_profile
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="recurrentgemma-9b")
+    ap.add_argument("--arch", default="recurrentgemma-9b", choices=list(ASSIGNED_ARCHS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt_len", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=8)

@@ -3,12 +3,16 @@ prefill a batch of prompts, then greedy-decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
         --batch 4 --prompt_len 4096 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+        --batch 4 --prompt_len 4096 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Runs on the card by default, and there with ``use_pallas=True``: the
-attention of every local or global layer runs the hand-written flash kernel
-and every RG-LRU layer the hand-written RG-LRU kernel, the counterpart of the
-reference's TPU fast path.  ``--device cpu`` keeps the config's value (the
+attention of every local or global layer runs the hand-written flash kernel,
+every RG-LRU layer the hand-written RG-LRU kernel and every Mamba layer the
+hand-written selective-scan kernel, the counterpart of the reference's TPU
+fast path.  Decode runs none of them: its step is plain PyTorch, as the
+reference's is plain jnp.  ``--device cpu`` keeps the config's value (the
 plain PyTorch path).  Params are random, drawn from ``--seed``; the decode
 cache is f32, as the reference launcher's.  Prints the prefill and decode
 times, tok/s and the ids generated for the first prompt.

@@ -86,6 +86,20 @@ def apply_unembed(p: Params, x: torch.Tensor, *, softcap: float | None) -> torch
 
 
 # ---------------------------------------------------------------------------
+# Depthwise causal conv (the RG-LRU and Mamba branches)
+# ---------------------------------------------------------------------------
+
+def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, in ``u``'s dtype.  u: (B, S, C), w: (K, C).
+
+    ``sum_k w[k, c] * u[t - (K-1) + k, c]``, summed in the reference's order."""
+    K = w.shape[0]
+    upad = F.pad(u, (0, 0, K - 1, 0))
+    out = sum(upad[:, k:k + u.shape[1], :] * w[k][None, None, :] for k in range(K))
+    return out + b[None, None, :]
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rg_lru.cuda import rg_lru
 from repro_torch.kernels.rg_lru.ref import rg_lru_ref
-from repro_torch.models.layers import Params, truncated_normal
+from repro_torch.models.layers import Params, causal_conv, truncated_normal
 
 _C = 8.0  # Griffin's fixed gate sharpness
 f32 = torch.float32
@@ -65,13 +65,6 @@ def _gates(p: Params, u: torch.Tensor):
     return log_a, x_in
 
 
-def _conv(u, w, b):
-    K = w.shape[0]
-    upad = F.pad(u, (0, 0, K - 1, 0))
-    out = sum(upad[:, k:k + u.shape[1], :] * w[k][None, None, :] for k in range(K))
-    return out + b[None, None, :]
-
-
 def _branches(p: Params, x: torch.Tensor):
     """The recurrent branch before its conv, and the GeLU branch."""
     dt = x.dtype
@@ -88,7 +81,7 @@ def _forward(p: Params, x: torch.Tensor, cfg):
     ``lax.scan``."""
     dt = x.dtype
     u_raw, g = _branches(p, x)
-    u = _conv(u_raw, p["conv_w"].to(dt), p["conv_b"].to(dt))
+    u = causal_conv(u_raw, p["conv_w"].to(dt), p["conv_b"].to(dt))
     log_a, x_in = _gates(p, u)
     ys = rg_lru(log_a, x_in) if cfg.use_pallas else rg_lru_ref(log_a, x_in)
     return (ys.to(dt) * g) @ p["out_proj"].to(dt), u_raw, ys

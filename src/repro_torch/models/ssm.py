@@ -1,0 +1,143 @@
+"""Mamba-1 selective state-space block (port of ``src/repro/models/ssm.py``;
+falcon-mamba-7b, arXiv:2410.05355, after Gu & Dao 2023, arXiv:2312.00752).
+
+Block:   x -> in_proj -> (u, z); u -> causal conv1d(k=4) -> silu ->
+         selective scan (input-dependent dt, B, C; diagonal A) -> * silu(z)
+         -> out_proj,
+
+with falcon-mamba's RMS normalization of the (dt, B, C) projections
+(``bc_norm``).  The recurrence ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t``,
+``y_t = sum_n h_t C_t``, runs under ``cfg.use_pallas`` on the hand-written
+selective-scan kernel (:mod:`repro_torch.kernels.selective_scan`; the plain
+version on a CPU tensor), as the reference runs its Pallas kernel, and
+otherwise on the plain loop, the reference's ``lax.scan``.  Both give the
+final state as well as ``y``, so a prefill takes its output and its decode
+cache from one scan.  Decode is O(1): the cache carries the conv window and
+h, and :func:`apply_ssm_step` updates it IN PLACE.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.selective_scan.cuda import selective_scan
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.models.layers import Params, apply_rmsnorm, causal_conv, truncated_normal
+
+f32 = torch.float32
+
+
+def init_ssm(gen, cfg, device) -> Params:
+    d, di, N, dtr, kconv = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    s = 1.0 / np.sqrt(d)
+    # S4D-real initialization: A_n = -(n+1)
+    a_init = np.tile(np.arange(1, N + 1, dtype=np.float32)[None, :], (di, 1))
+    # dt_bias: the reference's own numpy draw, so this leaf is identical in
+    # both packages (softplus offset so dt starts in [1e-3, 1e-1])
+    dt_floor = 1e-3
+    u = np.random.RandomState(0).uniform(size=(di,)).astype(np.float32)
+    dt_init = np.exp(u * (np.log(0.1) - np.log(dt_floor)) + np.log(dt_floor))
+    inv_softplus = np.log(np.expm1(dt_init)).astype(np.float32)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=f32, device=device)
+
+    return {
+        "in_proj": truncated_normal(gen, (d, 2 * di), s, device),
+        "conv_w": truncated_normal(gen, (kconv, di), 1.0 / np.sqrt(kconv), device),
+        "conv_b": zeros(di),
+        "x_proj": truncated_normal(gen, (di, dtr + 2 * N), 1.0 / np.sqrt(di), device),
+        "dt_proj": truncated_normal(gen, (dtr, di), 1.0 / np.sqrt(dtr), device),
+        "dt_bias": torch.from_numpy(inv_softplus).to(device),
+        "a_log": torch.from_numpy(np.log(a_init)).to(device),
+        "d_skip": torch.ones((di,), dtype=f32, device=device),
+        "out_proj": truncated_normal(gen, (di, d), 1.0 / np.sqrt(di), device),
+        "bc_norm": {"dt": zeros(dtr), "b": zeros(N), "c": zeros(N)},  # falcon-mamba stabilization
+    }
+
+
+def _ssm_params(p: Params, u: torch.Tensor, cfg):
+    """Input-dependent (delta, A, B, C) from the conv output u: (B, S, Di).
+
+    The reference's dtypes: the projections and their RMS norms in u's dtype,
+    then delta f32 after the softplus and B, C cast to f32."""
+    dt = u.dtype
+    dtr, N = cfg.dt_rank, cfg.ssm_state
+    proj = u @ p["x_proj"].to(dt)
+    dlt, Bm, Cm = torch.split(proj, [dtr, N, N], dim=-1)
+    dlt = apply_rmsnorm({"scale": p["bc_norm"]["dt"]}, dlt)
+    Bm = apply_rmsnorm({"scale": p["bc_norm"]["b"]}, Bm)
+    Cm = apply_rmsnorm({"scale": p["bc_norm"]["c"]}, Cm)
+    delta = F.softplus((dlt @ p["dt_proj"].to(dt)).to(f32) + p["dt_bias"][None, None, :])
+    A = -torch.exp(p["a_log"])  # (Di, N) f32, negative real
+    return delta, A, Bm.to(f32), Cm.to(f32)
+
+
+def _forward(p: Params, x: torch.Tensor, cfg):
+    """Full-sequence pass -> (out, u before its conv, final state hT).
+
+    Under ``cfg.use_pallas`` the scan runs the :func:`selective_scan` wrapper
+    (the kernel on the card), else the plain loop; both leave the skip term
+    ``u * d_skip`` to the caller, as the reference's kernel does."""
+    dt = x.dtype
+    u_raw, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
+    u = F.silu(causal_conv(u_raw, p["conv_w"].to(dt), p["conv_b"].to(dt)))
+    delta, A, Bm, Cm = _ssm_params(p, u, cfg)
+    scan = selective_scan if cfg.use_pallas else selective_scan_ref
+    y, hT = scan(u, delta, A, Bm, Cm)
+    y = y + u.to(f32) * p["d_skip"][None, None, :]
+    out = (y.to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
+    return out, u_raw, hT
+
+
+def apply_ssm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence (train / prefill) path.  x: (B, S, D)."""
+    return _forward(p, x, cfg)[0]
+
+
+# ---------------------------------------------------------------------------
+# Decode: O(1) state = (conv window of the last K-1 inputs, ssm state h)
+# ---------------------------------------------------------------------------
+
+def init_ssm_cache(batch: int, cfg, dtype, device) -> Params:
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=f32, device=device),
+    }
+
+
+def apply_ssm_step(p: Params, x: torch.Tensor, cache: Params, cfg):
+    """x: (B, 1, D) -> (y, cache), the cache updated in place."""
+    dt = x.dtype
+    u, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
+    # the reference's jnp type promotion: an f32 cache lifts the window, the
+    # conv and the (dt, B, C) projections to f32 under bf16 activations
+    wd = torch.promote_types(cache["conv"].dtype, dt)
+    win = torch.cat([cache["conv"].to(wd), u.to(wd)], dim=1)  # (B, K, Di)
+    u_c = (torch.einsum("bkd,kd->bd", win, p["conv_w"].to(dt).to(wd))[:, None, :]
+           + p["conv_b"].to(dt).to(wd)[None, None, :])
+    u_c = F.silu(u_c)
+    delta, A, Bm, Cm = _ssm_params(p, u_c, cfg)
+    dlt = delta[:, 0, :, None]
+    h = torch.exp(dlt * A[None]) * cache["h"] + dlt * Bm[:, 0, None, :] * u_c.to(f32)[:, 0, :, None]
+    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0]) + u_c[:, 0].to(f32) * p["d_skip"][None]
+    out = (y[:, None, :].to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
+    cache["conv"].copy_(win[:, 1:])
+    cache["h"].copy_(h)
+    return out, cache
+
+
+def ssm_prefill_cache(p: Params, x: torch.Tensor, cfg, dtype):
+    """Full-sequence pass that also emits the decode cache at position S.
+
+    The reference runs its full-sequence path and then the plain scan a
+    second time, materialising dA and dBu at (B, S, Di, N), for the cache.
+    This port takes ``h`` from the scan that gave the output: the kernel (or
+    the plain loop) returns the final state with ``y``.
+    """
+    out, u_raw, hT = _forward(p, x, cfg)
+    K = cfg.ssm_conv
+    # a copy, not a view: a view would keep the whole (B, S, Di) branch alive
+    return out, {"conv": u_raw[:, -(K - 1):, :].to(dtype).clone(), "h": hT}

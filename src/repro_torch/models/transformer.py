@@ -16,8 +16,10 @@ Each layer type owns its decode cache, stacked like the params:
   global     -> full KV cache (capacity = max sequence)
   local      -> ring KV cache (capacity = window)
   recurrent  -> (conv window, lru state h)
-A decode step updates the cache in place and returns it.  Mamba (``ssm``)
-blocks and MoE are not ported yet.
+  ssm        -> (conv window, selective-scan state h)
+A decode step updates the cache in place and returns it.  A Mamba (``ssm``)
+block is its mixer and the residual alone (no MLP, no post-norm), as in the
+reference.  MoE is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
     LayerIO,
     Params,
@@ -54,10 +57,10 @@ def _norm(cfg, p, x):
 
 
 def _check_supported(layer_type: str, cfg) -> None:
-    if layer_type not in ("global", "local", "recurrent") or cfg.num_experts:
+    if layer_type not in ("global", "local", "recurrent", "ssm") or cfg.num_experts:
         raise NotImplementedError(
             f"layer type {layer_type!r} (experts={cfg.num_experts}) is not ported yet; "
-            "the port runs global, local and recurrent blocks with dense MLPs"
+            "the port runs global, local, recurrent and ssm blocks, without experts"
         )
 
 
@@ -68,6 +71,9 @@ def _window_for(layer_type: str, cfg) -> int | None:
 def init_block(gen, layer_type: str, cfg, device) -> Params:
     _check_supported(layer_type, cfg)
     p: Params = {"pre_norm": _norm_init(cfg, device)}
+    if layer_type == "ssm":
+        p["ssm"] = S.init_ssm(gen, cfg, device)
+        return p  # a mamba block has no separate MLP
     if layer_type == "recurrent":
         p["rglru"] = R.init_rglru(gen, cfg, device)
     else:
@@ -100,6 +106,8 @@ def apply_block(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg) -
     """Full-sequence (train / prefill) path of one pre-norm residual block."""
     _check_supported(layer_type, cfg)
     pre = _norm(cfg, p["pre_norm"], x)
+    if layer_type == "ssm":
+        return x + S.apply_ssm(p["ssm"], pre, cfg)
     if layer_type == "recurrent":
         h = R.apply_rglru(p["rglru"], pre, cfg)
     else:
@@ -114,6 +122,8 @@ def apply_block(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg) -
 
 def init_block_cache(layer_type: str, batch: int, capacity: int, cfg, dtype, device) -> Params:
     _check_supported(layer_type, cfg)
+    if layer_type == "ssm":
+        return S.init_ssm_cache(batch, cfg, dtype, device)
     if layer_type == "recurrent":
         return R.init_rglru_cache(batch, cfg, dtype, device)
     cap = min(cfg.window_size, capacity) if layer_type == "local" else capacity
@@ -149,6 +159,9 @@ def apply_block_step(p: Params, x: torch.Tensor, cache: Params, layer_type: str,
     """x: (B, 1, D), pos: 0-d int tensor (absolute position) -> (x, cache);
     the cache is updated in place."""
     pre = _norm(cfg, p["pre_norm"], x)
+    if layer_type == "ssm":
+        h, cache = S.apply_ssm_step(p["ssm"], pre, cache, cfg)
+        return x + h, cache
     if layer_type == "recurrent":
         h, cache = R.apply_rglru_step(p["rglru"], pre, cache, cfg)
     else:
@@ -161,12 +174,15 @@ def prefill_block_cache(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO
     """Full-sequence pass that also emits the decode cache.
 
     The reference runs :func:`apply_block` and then the mixer's projections
-    (or its recurrence) a second time for the cache; here one pass of the
-    mixer gives both its output and the cache's contents, which are the same
-    values.
+    (or its recurrence, or its scan) a second time for the cache; here one
+    pass of the mixer gives both its output and the cache's contents, which
+    are the same values.
     """
     _check_supported(layer_type, cfg)
     pre = _norm(cfg, p["pre_norm"], x)
+    if layer_type == "ssm":
+        h, cache = S.ssm_prefill_cache(p["ssm"], pre, cfg, cache_dtype)
+        return x + h, cache
     if layer_type == "recurrent":
         h, cache = R.rglru_prefill_cache(p["rglru"], pre, cfg, cache_dtype)
     else:
@@ -200,12 +216,24 @@ def _stack_trees(trees: list) -> Params:
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def _init_stacked(gen, layer_type: str, n: int, cfg, device) -> Params:
+    """``n`` blocks stacked on a leading axis, each drawn straight into its
+    slot: stacking a list of blocks would hold the period twice (2 x 27 GB
+    for falcon-mamba-7b's 64 layers)."""
+    first = init_block(gen, layer_type, cfg, device)
+    out = tree_map(lambda leaf: leaf.new_empty((n,) + tuple(leaf.shape)), first)
+    for i in range(n):
+        block = first if i == 0 else init_block(gen, layer_type, cfg, device)
+        tree_map(lambda dst, src, i=i: dst[i].copy_(src), out, block)
+    return out
+
+
 def init_stack(gen, cfg, device) -> Params:
     params: Params = {}
     n_per = cfg.num_periods
     if _stacked(cfg):
         for j, t in enumerate(cfg.block_pattern):
-            params[f"pos{j}"] = _stack_trees([init_block(gen, t, cfg, device) for _ in range(n_per)])
+            params[f"pos{j}"] = _init_stacked(gen, t, n_per, cfg, device)
     else:
         for i, t in enumerate(cfg.block_pattern * n_per):
             params[f"layer{i}"] = init_block(gen, t, cfg, device)

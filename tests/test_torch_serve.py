@@ -1,8 +1,9 @@
 """Port parity, serving: prefill and greedy decode of reduced
 recurrentgemma-9b (6 layers: recurrent, recurrent, local x 2; d_model 256,
-window 64, f32; also 8 layers, for the two remainder layers ``rem0``/``rem1``)
-and reduced stablelm-1.6b, on the reference's own params carried over by
-``repro_torch.bridge``, with the same numpy prompts.
+window 64, f32; also 8 layers, for the two remainder layers ``rem0``/``rem1``),
+reduced stablelm-1.6b and reduced falcon-mamba-7b (2 Mamba layers, d_inner
+512), on the reference's own params carried over by ``repro_torch.bridge``,
+with the same numpy prompts.
 
 Tolerances (f32 on both sides; the frameworks sum in other orders): last
 prefill logits, every cache leaf and every decode step's logits within 1e-4
@@ -38,6 +39,7 @@ MODELS = {  # name -> (arch, layers of the reduced config)
     "recurrentgemma": ("recurrentgemma-9b", 6),
     "recurrentgemma-rem": ("recurrentgemma-9b", 8),
     "stablelm": ("stablelm-1.6b", 2),
+    "falcon-mamba": ("falcon-mamba-7b", 2),
 }
 
 
@@ -110,7 +112,8 @@ def test_greedy_decode_from_the_carried_cache_matches_reference(model):
     _assert_cache_close(tcache, jcache)
 
 
-@pytest.mark.parametrize("arch,seq", [("stablelm-1.6b", 8), ("recurrentgemma-9b", 80)])
+@pytest.mark.parametrize("arch,seq", [("stablelm-1.6b", 8), ("recurrentgemma-9b", 80),
+                                      ("falcon-mamba-7b", 24)])
 def test_decode_matches_forward_and_prefill_continues(arch, seq):
     """Token-by-token decode reproduces the full-sequence logits (80 tokens
     wrap recurrentgemma's 64-slot ring), and prefill then decode equals
@@ -146,28 +149,55 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert torch.isfinite(result["logits"]).all() and torch.isfinite(result["prefill_logits"]).all()
 
 
-def test_full_width_templates_match_reference():
-    """Full recurrentgemma-9b on the meta device against the reference's
+def test_serve_launcher_runs_falcon_mamba_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    result = main(["--arch", "falcon-mamba-7b", "--reduced", "--device", "cpu", "--batch", "2",
+                   "--prompt_len", "9", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "arch=falcon-mamba-7b-reduced layers=2" in out and "use_pallas=False" in out
+    assert result["tokens"].shape == (2, 3) and result["logits"].shape == (2, 3, 512)
+    assert torch.isfinite(result["logits"]).all() and torch.isfinite(result["prefill_logits"]).all()
+
+
+def _assert_full_width_templates_match(arch):
+    """Full ``arch`` on the meta device against the reference's
     ``jax.eval_shape``: same key paths in the same order, same shapes —
-    params (12 periods under pos0..pos2, rem0 and rem1) and decode cache."""
-    jcfg, tcfg = j_get_config("recurrentgemma-9b"), get_config("recurrentgemma-9b")
+    params and decode cache.  Returns the param shapes."""
+    jcfg, tcfg = j_get_config(arch), get_config(arch)
     jshapes = jax.eval_shape(lambda k: JM.init_model(k, jcfg), jax.random.PRNGKey(0))
     want = [(jax.tree_util.keystr(p), tuple(s.shape))
             for p, s in jax.tree_util.tree_flatten_with_path(jshapes)[0]]
     got = [(keystr(p), tuple(shape)) for p, (shape, _) in tree_paths(param_template(tcfg))]
     assert got == want
-    assert "['stack']['rem1']['rglru']['lambda_']" in dict(got)
-    # 37.6 GB in f32; param_count()'s analytic sum leaves out the W x W gates
-    assert sum(int(np.prod(s)) for _, s in got) == 9_396_408_320
 
     jcache = jax.eval_shape(lambda: JM.init_decode_state(None, jcfg, 4, 4128,
                                                          cache_dtype=jnp.float32))
-    want = [(jax.tree_util.keystr(p), tuple(s.shape), s.dtype.name)
-            for p, s in jax.tree_util.tree_flatten_with_path(jcache)[0]]
+    want_cache = [(jax.tree_util.keystr(p), tuple(s.shape), s.dtype.name)
+                  for p, s in jax.tree_util.tree_flatten_with_path(jcache)[0]]
     meta = {"embed": {"embedding": torch.empty(0, device="meta")}}
     tcache = TM.init_decode_state(meta, tcfg, 4, 4128, cache_dtype=torch.float32)
-    got = [(keystr(p), tuple(t.shape), str(t.dtype).split(".")[-1]) for p, t in tree_paths(tcache)]
-    assert got == want
+    got_cache = [(keystr(p), tuple(t.shape), str(t.dtype).split(".")[-1])
+                 for p, t in tree_paths(tcache)]
+    assert got_cache == want_cache
+    return dict(got)
+
+
+def test_full_width_templates_match_reference():
+    """Full recurrentgemma-9b: 12 periods under pos0..pos2, rem0 and rem1."""
+    shapes = _assert_full_width_templates_match("recurrentgemma-9b")
+    assert "['stack']['rem1']['rglru']['lambda_']" in shapes
+    # 37.6 GB in f32; param_count()'s analytic sum leaves out the W x W gates
+    assert sum(int(np.prod(s)) for s in shapes.values()) == 9_396_408_320
+
+
+def test_full_width_falcon_mamba_templates_match_reference():
+    """Full falcon-mamba-7b: 64 Mamba blocks stacked under pos0, untied
+    unembed; 29.09 GB in f32."""
+    shapes = _assert_full_width_templates_match("falcon-mamba-7b")
+    assert shapes["['stack']['pos0']['ssm']['in_proj']"] == (64, 4096, 16384)
+    assert shapes["['unembed']['embedding']"] == (65_024, 4096)
+    assert sum(int(np.prod(s)) for s in shapes.values()) == 7_272_683_520
 
 
 def test_cache_from_jax_keeps_dtypes_and_bits(model):
