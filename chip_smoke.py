@@ -11,7 +11,8 @@ Phases, each fatal on failure:
 
 1. build — ``nvcc`` compiles the four CUDA sources for sm_90a, one process
    per source, all at once: ``adaptive_update.cu``, ``flash_attention.cu``,
-   ``rg_lru.cu`` and ``selective_scan.cu``.
+   ``rg_lru.cu`` and ``selective_scan.cu``; prints ``ptxas -v`` (registers,
+   shared memory and spills of every kernel).
 2. kernels — every adaptive_update kernel's wrapper against its plain
    PyTorch version on the card, at the full-width shapes of stablelm-1.6b
    (N = 1,438,846,976 f32 params, K = 8 ring slots, W = 8 workers): the tick
@@ -34,18 +35,22 @@ Phases, each fatal on failure:
 5. serving kernels — the flash-attention kernel against its plain version at
    the recurrentgemma-9b local-layer shape (B 4, S = T = 4096, Nq 16, Nkv 1,
    H 256, window 2048, causal, bf16, and the same in f32 at B 1), the
-   stablelm-1.6b shape (B 4, S 512, Nq = Nkv = 32, H 64, causal, bf16) and a
+   stablelm-1.6b shape (B 4, S 512, Nq = Nkv = 32, H 64, causal, bf16), a
    gemma2-27b-like shape the serving path does not reach (Nq 32, Nkv 16,
-   H 128, window 64, softcap 50, S = 1000, f32, causal and not); the RG-LRU
-   kernel at B 4, S 4096, W 4096.  Tolerance |kernel - plain| <= 3e-5 +
+   H 128, window 64, softcap 50, S = 1000, f32 and bf16, causal and not) and
+   S != T (S 77, T 150, H 256, window 40, non-causal, bf16), so every bf16
+   head width of the tensor-core body runs; the RG-LRU kernel at B 4,
+   S 4096, W 4096.  Tolerance |kernel - plain| <= 3e-5 +
    3e-5 |plain| in f32, the reference's; in bf16 1e-4 + 1e-2 |plain|, one
    bf16 rounding of the output (both sides compute in f32 and round once),
    tighter than the reference's 3e-2, which at S = 4096 is as large as a
    typical output and would pass a band edge one key tile off.  Prints each
    time, the plain version's, the bound (the larger of bytes / 3.35 TB/s and
    the band's QK^T + PV FLOPs over the peak for the input type: 989 TFLOP/s
-   bf16, 67 TFLOP/s f32) and, for attention,
-   ``scaled_dot_product_attention``'s time at the same shape (timed only).
+   bf16, 67 TFLOP/s f32) and, for attention, the achieved TFLOP/s of band
+   work, the share of the bound and ``scaled_dot_product_attention``'s time
+   at the same shape (timed only); at the recurrentgemma-9b shape also the SM
+   clock and power draw that nvidia-smi reads while the kernel runs.
    The selective-scan kernel at the falcon-mamba-7b shape (B 4, S 4096,
    D 8192, N 16, u in bf16) and at odd sizes with u in f32 (B 2, S 1000,
    D 1000): y and the final state within 3e-5 + 3e-5 |plain|, the
@@ -68,8 +73,10 @@ Phases, each fatal on failure:
    within 1e-4, ids equal.
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
-ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``.
+ms, plain_ms, bound_ms, library_ms, ...; for a kernel redesigned since its
+first port, ``ms_before``: the earlier body's time from PERF.md, not
+measured here), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -104,6 +111,9 @@ REPLACES = {
     "rg_lru": "src/repro/kernels/rg_lru/kernel.py:46",
     "selective_scan": "src/repro/kernels/selective_scan/kernel.py:57",
 }
+# Times of earlier bodies of a redesigned kernel, from PERF.md (not measured
+# here): flash attention's CUDA-core bf16 body at the recurrentgemma-9b shape.
+MS_BEFORE = {"flash_attention": 36.978}
 K_RING, W_WORKERS, STEP = 8, 8, 11
 TAUS = [0, 2, 5, 2, 9, 1, 3, 7]  # two workers share a slot; tau 9 >= K is dead
 CHUNK = 1 << 26
@@ -571,9 +581,33 @@ def band_mask(S, T, causal, window, dev):
     return valid
 
 
-def check_flash(B, S, T, Nq, Nkv, H, causal, window, softcap, dtype, dev):
+def clock_under(fn, seconds=1.0):
+    """Median SM clock (MHz) and largest power draw (W) that nvidia-smi reads
+    every 100 ms while ``fn`` runs back to back for ``seconds``."""
+    import torch
+
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=60)[0]
+    rows = [[float(x) for x in line.split(",")] for line in out.strip().splitlines() if line.strip()]
+    check(len(rows) > 0, "nvidia-smi read no clock under load")
+    clocks = sorted(r[0] for r in rows)
+    return clocks[len(clocks) // 2], max(r[1] for r in rows)
+
+
+def check_flash(B, S, T, Nq, Nkv, H, causal, window, softcap, dtype, dev, clock=False):
     """Flash kernel vs its plain version; SDPA timed beside it where one call
-    computes the same function (no softcap)."""
+    computes the same function (no softcap).  ``clock``: also read the SM
+    clock and power while the kernel runs back to back."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda as FA
@@ -595,6 +629,7 @@ def check_flash(B, S, T, Nq, Nkv, H, causal, window, softcap, dtype, dev):
                     f"{bad} elements past {tol} (max |d| {err})")
     del out, want
     ms = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw))
+    load = clock_under(lambda: FA.flash_attention(q, k, v, **kw)) if clock else None
     plain_ms = cuda_ms(lambda: FA.attention_ref(q, k, v, **kw), iters=2)
     library_ms = None
     if softcap is None:
@@ -612,7 +647,9 @@ def check_flash(B, S, T, Nq, Nkv, H, causal, window, softcap, dtype, dev):
     bound_ms = max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
     by = "operations" if t_ops >= nbytes / HBM_BYTES_PER_S else "bytes"
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=by, flops=flops, bytes=nbytes, tol=tol)
+                bound_ms=bound_ms, bound_by=by, flops=flops, bytes=nbytes, tol=tol,
+                tflops=flops / ms / 1e9,
+                **({"sm_clock_mhz": load[0], "power_w": load[1]} if load else {}))
 
 
 def check_rg_lru(B, S, W, dev):
@@ -766,7 +803,7 @@ def main() -> int:
 
     # -- phase 1: build (one nvcc per source, all at once) -----------------------
     t0 = time.perf_counter()
-    libs = compile_libraries([C.SOURCE, FA.SOURCE, RG.SOURCE, SS.SOURCE], force=True)
+    libs = compile_libraries([C.SOURCE, FA.SOURCE, RG.SOURCE, SS.SOURCE], force=True, verbose=True)
     log(f"[build] nvcc sm_90a {time.perf_counter() - t0:.1f}s -> "
         + ", ".join(str(lib.relative_to(root)) for lib in libs))
 
@@ -823,14 +860,23 @@ def main() -> int:
                                                torch.float32),
         "flash_attention/gemma2-like/noncausal": (2, 1000, 1000, 32, 16, 128, False, 64, 50.0,
                                                   torch.float32),
+        "flash_attention/gemma2-like/causal/bf16": (2, 1000, 1000, 32, 16, 128, True, 64, 50.0,
+                                                    torch.bfloat16),
+        "flash_attention/gemma2-like/noncausal/bf16": (2, 1000, 1000, 32, 16, 128, False, 64,
+                                                       50.0, torch.bfloat16),
+        "flash_attention/s-ne-t/bf16": (1, 77, 150, 4, 4, 256, False, 40, None, torch.bfloat16),
     }
     for tag, shape in flash_shapes.items():
-        results[tag] = r = check_flash(*shape, dev)
+        results[tag] = r = check_flash(*shape, dev, clock=tag == "flash_attention/recurrentgemma-9b")
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+        if "sm_clock_mhz" in r:
+            log(f"[kernel] {tag}: under load the SM clock reads {r['sm_clock_mhz']:.0f} MHz, "
+                f"power up to {r['power_w']:.1f} W")
         log(f"[kernel] {tag}: max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']})  "
             f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}: {r['flops'] / 1e9:.1f} GFLOP, {r['bytes'] / 1e6:.1f} MB)  "
-            f"sdpa {lib}")
+            f"{r['tflops']:.1f} TFLOP/s of band work, {100 * r['bound_ms'] / r['ms']:.1f} % of "
+            f"the bound  sdpa {lib}")
         free_cuda()
     results["rg_lru"] = r = check_rg_lru(4, 4096, 4096, dev)
     log(f"[kernel] rg_lru: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  plain "
@@ -893,6 +939,7 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
             bound_set_by=r.get("bound_set_by", r.get("bound_by", "bytes")),
             library_ms=r.get("library_ms"), variant=key, path=path,
+            **({"ms_before": MS_BEFORE[name]} if name in MS_BEFORE else {}),
         ))
     log(json.dumps({"variants": results, "main": summary, "serving": serving}))
     print(json.dumps({"kernels": kernels}))

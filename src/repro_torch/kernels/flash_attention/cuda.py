@@ -3,16 +3,28 @@
 The kernel lives in ``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``,
 ``fa_forward``) and replaces the Pallas kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention_call``; its
-source note gives the design and what bounds it.  :func:`flash_attention`
-takes the model's ``(B, S, N, H)`` layout, as the reference's
-``ops.py::flash_attention`` does, but needs none of its transposes or
-padding: the kernel reads q, k and v through their strides and masks the
-ragged ends itself.
+source note gives the design and what bounds it.  It has two bodies:
+
+* bf16: the products on the tensor cores (``wgmma``), K/V tiles by TMA into a
+  2-stage ring in shared memory, a producer warpgroup and one or two
+  consumer warpgroups of 64 query rows per block (by head width), P split
+  into two bf16 terms for the PV product so the result stays within one
+  bf16 rounding of the f32 reference.  TMA needs
+  16-byte aligned bases and strides: the wrapper refuses an input that lacks
+  them (no copy, no fallback).
+* f32: the products on the CUDA cores in f32 (the tensor cores would take
+  f32 only as TF32, which would break the reference's 3e-5 gate).
+
+:func:`flash_attention` takes the model's ``(B, S, N, H)`` layout, as the
+reference's ``ops.py::flash_attention`` does, but needs none of its
+transposes or padding: the kernel reads q, k and v through their strides and
+masks the ragged ends itself.
 
 On a CPU tensor the wrapper runs the plain version,
-:func:`.ref.attention_ref`; on a CUDA tensor it launches the kernel or
-raises.  There is no other fallback.  The kernel is forward-only, as the
-reference's is (no VJP): an input that requires a gradient is refused.
+:func:`.ref.attention_ref`; on a CUDA tensor it launches the kernel of its
+dtype or raises.  There is no other fallback.  The kernel is forward-only,
+as the reference's is (no VJP): an input that requires a gradient is
+refused.
 
 :data:`LAUNCHES` counts the kernel's launches (the CPU path counts nothing).
 The module is ``cuda.py``, not ``kernel.py``: the repository's lint (RL004)
@@ -72,6 +84,11 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} must have unit stride over head_dim")
         if t.requires_grad:
             raise ValueError("flash_attention is forward-only (no VJP, as in the reference)")
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(t.stride(d) % 8 for d in range(3) if t.shape[d] > 1)):
+            raise ValueError(f"{name}: the bf16 kernel loads tiles by TMA, which needs a 16-byte "
+                             f"aligned base and strides (multiples of 8 elements); got strides "
+                             f"{t.stride()}")
 
 
 def flash_attention(
