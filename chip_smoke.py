@@ -49,8 +49,7 @@ Phases, each fatal on failure:
    the band's QK^T + PV FLOPs over the peak for the input type: 989 TFLOP/s
    bf16, 67 TFLOP/s f32) and, for attention, the achieved TFLOP/s of band
    work, the share of the bound and ``scaled_dot_product_attention``'s time
-   at the same shape (timed only); at the recurrentgemma-9b shape also the SM
-   clock and power draw that nvidia-smi reads while the kernel runs.
+   at the same shape (timed only).
    The selective-scan kernel at the falcon-mamba-7b shape (B 4, S 4096,
    D 8192, N 16, u in bf16) and at odd sizes with u in f32 (B 2, S 1000,
    D 1000): y and the final state within 3e-5 + 3e-5 |plain|, the
@@ -73,9 +72,8 @@ Phases, each fatal on failure:
    within 1e-4, ids equal.
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
-ms, plain_ms, bound_ms, library_ms, ...; for a kernel redesigned since its
-first port, ``ms_before``: the earlier body's time from PERF.md, not
-measured here), the card's name and power limit, and as the last line
+ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
+and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -111,9 +109,6 @@ REPLACES = {
     "rg_lru": "src/repro/kernels/rg_lru/kernel.py:46",
     "selective_scan": "src/repro/kernels/selective_scan/kernel.py:57",
 }
-# Times of earlier bodies of a redesigned kernel, from PERF.md (not measured
-# here): flash attention's CUDA-core bf16 body at the recurrentgemma-9b shape.
-MS_BEFORE = {"flash_attention": 36.978}
 K_RING, W_WORKERS, STEP = 8, 8, 11
 TAUS = [0, 2, 5, 2, 9, 1, 3, 7]  # two workers share a slot; tau 9 >= K is dead
 CHUNK = 1 << 26
@@ -581,33 +576,9 @@ def band_mask(S, T, causal, window, dev):
     return valid
 
 
-def clock_under(fn, seconds=1.0):
-    """Median SM clock (MHz) and largest power draw (W) that nvidia-smi reads
-    every 100 ms while ``fn`` runs back to back for ``seconds``."""
-    import torch
-
-    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                             "--format=csv,noheader,nounits", "-lms", "100"],
-                            stdout=subprocess.PIPE, text=True)
-    try:
-        end = time.perf_counter() + seconds
-        while time.perf_counter() < end:
-            for _ in range(10):
-                fn()
-            torch.cuda.synchronize()
-    finally:
-        proc.terminate()
-        out = proc.communicate(timeout=60)[0]
-    rows = [[float(x) for x in line.split(",")] for line in out.strip().splitlines() if line.strip()]
-    check(len(rows) > 0, "nvidia-smi read no clock under load")
-    clocks = sorted(r[0] for r in rows)
-    return clocks[len(clocks) // 2], max(r[1] for r in rows)
-
-
-def check_flash(B, S, T, Nq, Nkv, H, causal, window, softcap, dtype, dev, clock=False):
+def check_flash(B, S, T, Nq, Nkv, H, causal, window, softcap, dtype, dev):
     """Flash kernel vs its plain version; SDPA timed beside it where one call
-    computes the same function (no softcap).  ``clock``: also read the SM
-    clock and power while the kernel runs back to back."""
+    computes the same function (no softcap)."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda as FA
@@ -629,7 +600,6 @@ def check_flash(B, S, T, Nq, Nkv, H, causal, window, softcap, dtype, dev, clock=
                     f"{bad} elements past {tol} (max |d| {err})")
     del out, want
     ms = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw))
-    load = clock_under(lambda: FA.flash_attention(q, k, v, **kw)) if clock else None
     plain_ms = cuda_ms(lambda: FA.attention_ref(q, k, v, **kw), iters=2)
     library_ms = None
     if softcap is None:
@@ -648,8 +618,7 @@ def check_flash(B, S, T, Nq, Nkv, H, causal, window, softcap, dtype, dev, clock=
     by = "operations" if t_ops >= nbytes / HBM_BYTES_PER_S else "bytes"
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=by, flops=flops, bytes=nbytes, tol=tol,
-                tflops=flops / ms / 1e9,
-                **({"sm_clock_mhz": load[0], "power_w": load[1]} if load else {}))
+                tflops=flops / ms / 1e9)
 
 
 def check_rg_lru(B, S, W, dev):
@@ -867,17 +836,16 @@ def main() -> int:
         "flash_attention/s-ne-t/bf16": (1, 77, 150, 4, 4, 256, False, 40, None, torch.bfloat16),
     }
     for tag, shape in flash_shapes.items():
-        results[tag] = r = check_flash(*shape, dev, clock=tag == "flash_attention/recurrentgemma-9b")
+        results[tag] = r = check_flash(*shape, dev)
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
-        if "sm_clock_mhz" in r:
-            log(f"[kernel] {tag}: under load the SM clock reads {r['sm_clock_mhz']:.0f} MHz, "
-                f"power up to {r['power_w']:.1f} W")
         log(f"[kernel] {tag}: max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']})  "
             f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}: {r['flops'] / 1e9:.1f} GFLOP, {r['bytes'] / 1e6:.1f} MB)  "
             f"{r['tflops']:.1f} TFLOP/s of band work, {100 * r['bound_ms'] / r['ms']:.1f} % of "
             f"the bound  sdpa {lib}")
         free_cuda()
+    log("[kernel] flash_attention/recurrentgemma-9b: the earlier CUDA-core bf16 body took "
+        "36.978 ms at this shape (PERF.md section 6, row 5; not measured in this run)")
     results["rg_lru"] = r = check_rg_lru(4, 4096, 4096, dev)
     log(f"[kernel] rg_lru: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  plain "
         f"{r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bytes'] / 1e6:.1f} MB)")
@@ -939,7 +907,6 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
             bound_set_by=r.get("bound_set_by", r.get("bound_by", "bytes")),
             library_ms=r.get("library_ms"), variant=key, path=path,
-            **({"ms_before": MS_BEFORE[name]} if name in MS_BEFORE else {}),
         ))
     log(json.dumps({"variants": results, "main": summary, "serving": serving}))
     print(json.dumps({"kernels": kernels}))

@@ -59,10 +59,13 @@
 //    PV costs two products, 1.5x the FLOPs of QK^T + PV.  P rounded once to
 //    bf16 errs by 2^-9 relative per weight, ~4e-5 absolute at a 2048-key
 //    window, but that error does not shrink with |out| where the weighted
-//    sum cancels, and it puts outputs past the bf16 gate (1e-4 + 1e-2
-//    |plain|): test_torch_cuda_kernels.py emulates both on the CPU.  With the
-//    split the weights carry 16 bits; QK^T from bf16 operands with f32
-//    accumulation is exact per product.
+//    sum cancels: there |out| falls toward 0 while the error stays at the
+//    size of the weights' rounding, and outputs fall past the bf16 gate
+//    (1e-4 + 1e-2 |plain|, whose relative term shrinks with |out|).  With
+//    the split the weights carry 16 bits, 2^-17 relative, and every output
+//    of the card's bf16 cases (phase 5 of chip_smoke.py, FLASH_CASES) stays
+//    inside the gate.  QK^T from bf16 operands with f32 accumulation is
+//    exact per product.
 //  * Band: key tiles wholly outside the causal or window band of a block are
 //    never loaded; a consumer passes over the tiles outside its own rows'
 //    band (waits for them and releases them, no products); only tiles that
