@@ -20,13 +20,18 @@ Phases, each fatal on failure:
    and fused_update.  Tolerance |kernel - plain| <= 1e-6 + 1e-6 |plain|
    (1e-5 with a bf16 ring: the slot-folded sum differs from the
    worker-by-worker one in rounding); the ring's bits and the live mask
-   exactly equal.  Prints each kernel's time, the plain version's, the byte
-   bound at 3.35 TB/s and the errors.
+   exactly equal.  The momentum / bf16 tick runs again with NaN in ring
+   slots 5 and 7, which no worker maps to at step 11: p and v must come out
+   finite and match the plain version (the tick reads only live slots).
+   Prints each kernel's time, the plain version's, the byte bound at
+   3.35 TB/s (the tick moves exactly those bytes) and the errors.
 3. main path — ``run(RunSpec(mode="async", fuse=True, ...))`` on full-width
    stablelm-1.6b (24 layers, momentum, W = 8, ring 8 in bf16, batch 4 x seq
    512, refresh every 5) for 12 ticks, launch counts zeroed just before and
    read just after; checks finite losses, one fused_tick launch per tick, a
-   refresh that rewrote the alpha table in place, and prints peak memory.
+   refresh that rewrote the alpha table in place, and prints peak memory and,
+   per tick, the ring slots the tick read (replayed from that tick's taus)
+   and so its bytes.
    Then the same fused async run on reduced stablelm on the card against the
    plain CPU path on the same params, batches and uniforms.
 4. other paths — sync (fused_chain), clip (fused_combine + fused_chain) and
@@ -51,11 +56,13 @@ Phases, each fatal on failure:
    work, the share of the bound and ``scaled_dot_product_attention``'s time
    at the same shape (timed only).
    The selective-scan kernel at the falcon-mamba-7b shape (B 4, S 4096,
-   D 8192, N 16, u in bf16) and at odd sizes with u in f32 (B 2, S 1000,
+   D 8192, N 16, u in bf16) with the model's A = -(1..N) and with A drawn
+   per (d, n) as -exp(randn), and at odd sizes with u in f32 (B 2, S 1000,
    D 1000): y and the final state within 3e-5 + 3e-5 |plain|, the
    reference's tolerance; its bound is the largest of the bytes over
    3.35 TB/s, the exponentials over the SFU rate (16 a clock per SM, 132
-   SMs, 1.98 GHz) and 6 f32 operations per (b, t, d, n) over 67 TFLOP/s.
+   SMs, 1.98 GHz) and 6 f32 operations per (b, t, d, n) over 67 TFLOP/s;
+   prints the exponentials per second it reached beside that SFU peak.
 6. serving — the training state freed, full-width recurrentgemma-9b (38
    layers, 9.4e9 f32 params) through ``repro_torch.launch.serve``: batch 4,
    prompt 4096, 32 greedy steps, with the counts zeroed just before and read
@@ -223,8 +230,13 @@ def err_update(errs, got, want, tol):
     check(bad == 0, f"{bad} elements past tolerance {tol}")
 
 
-def check_tick(kind, ring_dtype, n, dev):
-    """Tick kernel vs plain at full width; returns the numbers for the JSON."""
+DEAD_SLOTS = (5, 7)  # no worker's source slot at STEP with TAUS
+
+
+def check_tick(kind, ring_dtype, n, dev, *, nan_dead=False):
+    """Tick kernel vs plain at full width; returns the numbers for the JSON.
+    ``nan_dead`` fills the slots no worker maps to with NaN: a tick that read
+    them would turn p and the state to NaN (0 * NaN); it is not timed."""
     import torch
 
     from repro_torch.kernels.adaptive_update import cuda as C
@@ -235,6 +247,9 @@ def check_tick(kind, ring_dtype, n, dev):
     g = torch.randn(n, generator=gen, device=dev)
     bufs = make_state(kind, n, gen, dev)
     ring = torch.randn(K_RING, n, generator=gen, device=dev, dtype=ring_dtype)
+    if nan_dead:
+        for k in DEAD_SLOTS:
+            ring[k] = float("nan")
     step = torch.tensor(STEP, dtype=torch.int32, device=dev)
     taus = torch.tensor(TAUS, dtype=torch.int32, device=dev)
     weights = torch.rand(W_WORKERS, generator=gen, device=dev) + 0.1
@@ -243,6 +258,9 @@ def check_tick(kind, ring_dtype, n, dev):
     sums0 = slot_checksums(ring)
     live = C.fused_tick(kind, p, g, bufs, s, ring, step, taus, weights)
     torch.cuda.synchronize()
+    for x in [p] + state_list(kind, bufs):
+        check(all(bool(torch.isfinite(x[lo:lo + CHUNK]).all()) for lo in range(0, n, CHUNK)),
+              "the tick produced non-finite values" + (" (it read a dead slot)" if nan_dead else ""))
     sums1 = slot_checksums(ring)
     push = STEP % K_RING
     check(all(a == b for k, (a, b) in enumerate(zip(sums0, sums1)) if k != push),
@@ -269,13 +287,14 @@ def check_tick(kind, ring_dtype, n, dev):
         check(torch.equal(live, lr), "live mask differs")
         del pc, bc, bufs_c, rc, pr, br, rr
     del p0, bufs0
-    ms = cuda_ms(lambda: C.fused_tick(kind, p, g, bufs, s, ring, step, taus, weights))
     item = ring.element_size()
     nbytes = tick_bytes(kind, n, item, STEP, TAUS, weights.tolist(), K_RING)
-    # what this simple kernel moves: it reads every non-pushed slot, dead or not
-    moved = n * (12 + 8 * len(state_list(kind, bufs)) + item * K_RING)
+    if nan_dead:
+        return dict(max_abs_err=errs["max_abs_err"], plain_ms=plain_ms, bytes=nbytes)
+    ms = cuda_ms(lambda: C.fused_tick(kind, p, g, bufs, s, ring, step, taus, weights))
+    # the kernel reads only the live slots: it moves exactly the bound's bytes
     return dict(max_abs_err=errs["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes, kernel_bytes=moved)
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes, kernel_bytes=nbytes)
 
 
 def check_chain(kind, n, dev):
@@ -396,19 +415,51 @@ def free_cuda():
 # ---------------------------------------------------------------------------
 
 class TickLog:
-    """Per-tick host line (synchronizes to time each tick: measurement only)."""
+    """Per-tick host line (synchronizes to time each tick: measurement only).
 
-    def __init__(self, name):
+    With ``replay`` (the fused async main path) it also replays each tick's
+    taus: it keeps the workers' generator state and the tables in force
+    before the tick, draws the same uniforms again and looks them up, so it
+    can count the ring slots the tick kernel read (``live_slots``) and so
+    its bytes."""
+
+    def __init__(self, name, workers=W_WORKERS, replay=False):
         import torch
 
-        self.name, self.rows, self._torch = name, [], torch
+        self.name, self.rows, self._torch, self.workers = name, [], torch, workers
         self._t = None
+        self._snap = None
+        self._replay_on = replay
+
+    def _snapshot(self, state):
+        if not self._replay_on or state.adapt is None or state.delayed is None:
+            self._snap = None
+            return
+        self._snap = (state.rng.get_state(), state.adapt.tau_cdf.clone(),
+                      state.adapt.alpha_table.clone(), int(state.delayed.step))
+
+    def _replay(self, ctx):
+        """(taus, slots read) of the tick just run, from the snapshot."""
+        from repro_torch.training.adapt import sample_taus
+
+        torch = self._torch
+        rng_state, cdf, table, step = self._snap
+        dev = cdf.device
+        gen = torch.Generator(device=dev)
+        gen.set_state(rng_state)
+        taus = sample_taus(torch.rand(self.workers, generator=gen, device=dev), cdf)
+        alphas = table[taus.long().clamp(0, table.shape[0] - 1)]
+        check(abs(float(taus.float().mean()) - float(ctx.metrics["tau_mean"])) == 0.0,
+              f"[{self.name}] the replayed taus disagree with the tick's tau_mean")
+        K = _leaves(ctx.state.delayed.ring)[0].shape[0]
+        return taus.tolist(), live_slots(step, taus.tolist(), alphas.tolist(), K)
 
     def on_start(self, ctx):
         self._torch.cuda.synchronize()
         self._t = time.perf_counter()
         adapt = ctx.state.adapt
         self.table_ptr = adapt.alpha_table.data_ptr() if adapt is not None else None
+        self._snapshot(ctx.state)
 
     def on_refresh(self, ctx):
         pass
@@ -420,11 +471,17 @@ class TickLog:
         row = dict(step=ctx.step, ms=(now - self._t) * 1e3, loss=m["loss"],
                    tau_mean=m.get("tau_mean"), alpha_mean=m.get("alpha_mean"),
                    table=ctx.state.adapt.alpha_table.clone() if ctx.state.adapt is not None else None)
-        self._t = now
+        if self._snap is not None:
+            row["taus"], row["slots_read"] = self._replay(ctx)
         self.rows.append(row)
         extra = "" if row["tau_mean"] is None else (
             f"  tau_mean {row['tau_mean']:.3f}  alpha_mean {row['alpha_mean']:.6f}")
+        if "slots_read" in row:
+            extra += f"  taus {row['taus']}  ring slots read {row['slots_read']}"
         log(f"[{self.name}] tick {ctx.step:3d}  loss {row['loss']:.4f}{extra}  {row['ms']:.1f} ms")
+        self._snapshot(ctx.state)
+        self._torch.cuda.synchronize()
+        self._t = time.perf_counter()  # the next tick's clock starts after this hook's own work
 
     def on_end(self, ctx):
         pass
@@ -456,7 +513,7 @@ def main_path(cfg, n_expected):
     spec = RunSpec(cfg=cfg, pipeline=pipe, mode="async", num_steps=12, batch_size=4, seq_len=512,
                    num_workers=W_WORKERS, ring=K_RING, ring_dtype="bfloat16", adapt=adapt,
                    fuse=True, refresh_every=5, seed=0, device="cuda")
-    hook = TickLog("main")
+    hook = TickLog("main", replay=True)
     torch.cuda.reset_peak_memory_stats()
     C.reset_launches()
     t0 = time.perf_counter()
@@ -480,9 +537,15 @@ def main_path(cfg, n_expected):
           or not torch.equal(hook.rows[9]["table"], hook.rows[8]["table"]),
           "no refresh changed the alpha table")
     steady = [r["ms"] for r in hook.rows[1:]]
+    ring_item = state.delayed.ring.element_size()
+    tick_gb = [n * (8 + 4 + 8 + ring_item * (1 + r["slots_read"])) / 1e9 for r in hook.rows]
+    log(f"[main] ring slots read per tick {[r['slots_read'] for r in hook.rows]}; tick kernel "
+        f"bytes per tick (GB) {[round(b, 3) for b in tick_gb]}, {sum(tick_gb):.2f} GB over "
+        f"{len(tick_gb)} ticks, {sum(tick_gb) / HBM_BYTES_PER_S * 1e12:.3f} ms at 3.35 TB/s")
     summary = dict(ticks=spec.num_steps, first_tick_ms=hook.rows[0]["ms"],
                    median_tick_ms=sorted(steady)[len(steady) // 2], peak_gb=peak / 1e9,
-                   losses=[r["loss"] for r in hook.rows], launches=counts)
+                   losses=[r["loss"] for r in hook.rows], launches=counts,
+                   slots_read=[r["slots_read"] for r in hook.rows], tick_kernel_gb=tick_gb)
     return summary, counts
 
 
@@ -643,8 +706,10 @@ def check_rg_lru(B, S, W, dev):
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes)
 
 
-def check_selective_scan(B, S, D, N, u_dtype, dev):
-    """The selective-scan kernel against its plain version: y and hT."""
+def check_selective_scan(B, S, D, N, u_dtype, dev, a_init="model"):
+    """The selective-scan kernel against its plain version: y and hT.
+    ``a_init``: "model" is the init's A = -(1..N) on every row, "random" A
+    drawn per (d, n) as -exp(randn)."""
     import torch
 
     from repro_torch.kernels.selective_scan import cuda as SS
@@ -652,7 +717,10 @@ def check_selective_scan(B, S, D, N, u_dtype, dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     u = torch.randn(B, S, D, generator=gen, device=dev).to(u_dtype)
     delta = torch.nn.functional.softplus(torch.randn(B, S, D, generator=gen, device=dev) - 2.0)
-    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(D, 1)  # the model's init
+    if a_init == "model":
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(D, 1)
+    else:
+        A = -torch.exp(torch.randn(D, N, generator=gen, device=dev))
     Bm = torch.randn(B, S, N, generator=gen, device=dev)
     Cm = torch.randn(B, S, N, generator=gen, device=dev)
     args = (u, delta, A, Bm, Cm)
@@ -676,7 +744,8 @@ def check_selective_scan(B, S, D, N, u_dtype, dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=times[what] * 1e3, bound_by="bytes" if what == "bytes" else "operations",
                 bound_set_by=what, bound_terms_ms={k: v * 1e3 for k, v in times.items()},
-                bytes=nbytes, exps=exps, flops=flops, sm_clock_hz=SM_CLOCK_HZ)
+                bytes=nbytes, exps=exps, flops=flops, sm_clock_hz=SM_CLOCK_HZ,
+                exps_per_s=exps / (ms * 1e-3))
 
 
 def serve_full(arch, batch, prompt, gen, expect):
@@ -788,6 +857,11 @@ def main() -> int:
             log(f"[kernel] {tag}: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  plain "
                 f"{r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bytes'] / 1e9:.2f} GB)")
             free_cuda()
+    r = check_tick("momentum", torch.bfloat16, n, dev, nan_dead=True)
+    results["fused_tick/momentum/bfloat16/nan-dead-slots"] = r
+    log(f"[kernel] fused_tick/momentum/bfloat16 with NaN in dead slots {DEAD_SLOTS}: p and v "
+        f"finite, max_abs_err {r['max_abs_err']:.3e} against the plain version")
+    free_cuda()
     for kind in ("sgd", "momentum", "adam"):
         r = check_chain(kind, n, dev)
         results[f"fused_chain/{kind}"] = r
@@ -851,15 +925,18 @@ def main() -> int:
         f"{r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bytes'] / 1e6:.1f} MB)")
     free_cuda()
     scan_shapes = {  # B, S, D, N, u dtype
-        "selective_scan/falcon-mamba-7b": (4, 4096, 8192, 16, torch.bfloat16),
-        "selective_scan/odd/f32": (2, 1000, 1000, 16, torch.float32),
+        "selective_scan/falcon-mamba-7b": (4, 4096, 8192, 16, torch.bfloat16, "model"),
+        "selective_scan/falcon-mamba-7b/random-A": (4, 4096, 8192, 16, torch.bfloat16, "random"),
+        "selective_scan/odd/f32": (2, 1000, 1000, 16, torch.float32, "model"),
     }
-    for tag, shape in scan_shapes.items():
-        results[tag] = r = check_selective_scan(*shape, dev)
+    for tag, (*shape, a_init) in scan_shapes.items():
+        results[tag] = r = check_selective_scan(*shape, dev, a_init=a_init)
         terms = ", ".join(f"{k} {v:.3f} ms" for k, v in r["bound_terms_ms"].items())
         log(f"[kernel] {tag}: max_abs_err {r['max_abs_err']:.3e} (tol 3e-5 + 3e-5|plain|)  "
             f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms, set "
-            f"by the {r['bound_set_by']} ({terms}; SM clock {SM_CLOCK_HZ / 1e9:.2f} GHz)")
+            f"by the {r['bound_set_by']} ({terms}; SM clock {SM_CLOCK_HZ / 1e9:.2f} GHz)  "
+            f"{r['exps_per_s'] / 1e12:.3f} T exponentials/s of the SFU's "
+            f"{SFU_EXP_PER_S / 1e12:.3f} T/s ({100 * r['exps_per_s'] / SFU_EXP_PER_S:.1f} %)")
         free_cuda()
 
     # -- phase 6: serving at full width, through the launcher --------------------

@@ -17,8 +17,8 @@
 // least time is the bytes each must move over 3.35 TB/s.  With a momentum
 // body and a K = 8 bf16 ring:
 //   tick    p r/w 8N + g 4N + v r/w 8N + ring read 2N per live slot other
-//           than the pushed one + slot write 2N   (<= 34N; this simple kernel
-//           reads all K - 1 other slots, live or not: 36N)
+//           than the pushed one + slot write 2N   (<= 34N; 32N at the
+//           smoke test's taus, which leave 5 live slots besides the push)
 //   chain   p r/w 8N + g 4N + v r/w 8N                       = 20N
 //   combine g 4N + ring reads (<= 14N) + slot write 2N + g_eff 4N (<= 24N)
 //   update  p r/w 8N + g 4N + v r/w 8N                       = 20N
@@ -35,6 +35,21 @@
 //    step % K in the combine and is written to that slot, the ONLY slot the
 //    kernel writes (the TPU kernel rewrote all K slots of its block, an
 //    artefact of its BlockSpec);
+//  * the tick reads only live slots: its prologue lists the slots whose
+//    folded weight is not 0, in ascending k, and the combine runs over that
+//    list, so it moves exactly the bytes above.  A slot no live worker maps
+//    to is never read (as in the plain delayed_combine, which gathers only
+//    the workers' slots), and for finite ring contents the sum is bitwise
+//    the all-slot sum: a skipped term added mul(0, r) = +-0 to an
+//    accumulator that starts at +0.  For K <= 8 the list loop is unrolled
+//    and every ring load of a unit goes out, predicated on the list's
+//    length, before the first multiply-add, together with the p and state
+//    loads; a larger K takes a runtime loop over the list.  The first
+//    design read all K - 1 other slots, dead or not, in a runtime
+//    loop with a branch on the pushed slot: 19.215 ms for the momentum /
+//    bf16 tick at N = 1.4388e9 (36N moved at 2.70 TB/s) on an H100 80GB
+//    HBM3 at 700 W; this design takes 17.1-17.7 ms there, moving 32N
+//    (77-80 % of the byte bound; kernel_variants.py and PERF.md);
 //  * the scalar factors apply one at a time in link order (never
 //    pre-multiplied), then the family body, with __fmul_rn/__fadd_rn so
 //    nvcc cannot contract them into FMAs: the chain and update kernels are
@@ -42,8 +57,8 @@
 //    combine fold same-slot workers before multiplying, so they agree with
 //    the worker-by-worker plain sum to f32 round-off only;
 //  * p, the optimizer state and the ring are updated in place.
-// Simple first: cp.async/TMA staging and skipping slots whose weight is 0 are
-// later work.
+// The chain, combine and update kernels keep the first design: the combine
+// still reads every non-pushed slot.  cp.async/TMA staging is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,20 +137,46 @@ __device__ __forceinline__ float to_ring(float x, const __nv_bfloat16*) {
 // ---- per-block prologue: slot-folded combine weights ------------------------
 
 // w_slot[k] = sum over workers w whose source slot (step - tau_w) mod K is k
-// of weights[w] * live[w], in worker order; push = step mod K.
+// of weights[w] * live[w], in worker order; push = step mod K.  Thread 0.
+__device__ __forceinline__ void fold_weights(const int* step, const int* taus,
+                                             const float* weights, int W, int K, float* w_slot,
+                                             int* push) {
+  const int t = *step;
+  for (int k = 0; k < K; ++k) w_slot[k] = 0.f;
+  for (int w = 0; w < W; ++w) {
+    const int tau = taus[w];
+    const int src = t - tau;
+    const float live = (src >= 0 && tau < K) ? 1.f : 0.f;
+    const int slot = ((src % K) + K) % K;
+    w_slot[slot] = add(w_slot[slot], mul(weights[w], live));
+  }
+  *push = ((t % K) + K) % K;
+}
+
 __device__ __forceinline__ void fold_slots(const int* step, const int* taus, const float* weights,
                                            int W, int K, float* w_slot, int* push) {
+  if (threadIdx.x == 0) fold_weights(step, taus, weights, W, K, w_slot, push);
+  __syncthreads();
+}
+
+// The tick's prologue: the folded weights, then the slots whose weight is
+// not 0, in ascending k (the pushed slot among them, its term the fresh
+// gradient): slots[0..count) and their weights.  A slot no live worker maps
+// to is never read.
+__device__ __forceinline__ void fold_live_slots(const int* step, const int* taus,
+                                                const float* weights, int W, int K, float* w_slot,
+                                                int* push, int* slots, float* w_live, int* count) {
   if (threadIdx.x == 0) {
-    const int t = *step;
-    for (int k = 0; k < K; ++k) w_slot[k] = 0.f;
-    for (int w = 0; w < W; ++w) {
-      const int tau = taus[w];
-      const int src = t - tau;
-      const float live = (src >= 0 && tau < K) ? 1.f : 0.f;
-      const int slot = ((src % K) + K) % K;
-      w_slot[slot] = add(w_slot[slot], mul(weights[w], live));
+    fold_weights(step, taus, weights, W, K, w_slot, push);
+    int m = 0;
+    for (int k = 0; k < K; ++k) {
+      if (w_slot[k] != 0.f) {
+        slots[m] = k;
+        w_live[m] = w_slot[k];
+        ++m;
+      }
     }
-    *push = ((t % K) + K) % K;
+    *count = m;
   }
   __syncthreads();
 }
@@ -173,48 +214,128 @@ __device__ __forceinline__ void block_range(long long units, long long& lo, long
 
 // ---- fused tick: push + slot-folded combine + scalars + body + apply -------
 
-template <int FAM, typename RT, bool VEC>
+// 8 ring elements as loaded, before conversion: two float4 or one uint4.
+struct Raw8f {
+  float4 a, b;
+};
+template <typename RT>
+struct RawOf;
+template <>
+struct RawOf<float> {
+  using type = Raw8f;
+};
+template <>
+struct RawOf<__nv_bfloat16> {
+  using type = uint4;
+};
+
+__device__ __forceinline__ void load_raw(Raw8f& r, const float* ptr) {
+  r.a = reinterpret_cast<const float4*>(ptr)[0];
+  r.b = reinterpret_cast<const float4*>(ptr)[1];
+}
+__device__ __forceinline__ void load_raw(uint4& r, const __nv_bfloat16* ptr) {
+  r = *reinterpret_cast<const uint4*>(ptr);
+}
+__device__ __forceinline__ void unpack8(const Raw8f& r, float (&x)[kVec]) {
+  x[0] = r.a.x; x[1] = r.a.y; x[2] = r.a.z; x[3] = r.a.w;
+  x[4] = r.b.x; x[5] = r.b.y; x[6] = r.b.z; x[7] = r.b.w;
+}
+__device__ __forceinline__ void unpack8(const uint4& r, float (&x)[kVec]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int j = 0; j < kVec / 2; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    x[2 * j] = f.x;
+    x[2 * j + 1] = f.y;
+  }
+}
+
+// MAXL > 0: at most MAXL listed slots (K <= MAXL); the loop over them is
+// unrolled and every ring load of a unit is issued, predicated on the list's
+// length, before the first multiply-add.  MAXL == 0: any K, a runtime loop.
+template <int FAM, typename RT, bool VEC, int MAXL>
 __global__ void __launch_bounds__(kThreads)
 tick_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ s0,
             float* __restrict__ s1, RT* __restrict__ ring, int K, long long n,
             const int* __restrict__ step, const int* __restrict__ taus,
             const float* __restrict__ weights, int W, const float* __restrict__ scalars) {
   __shared__ float w_slot[kMaxK];
-  __shared__ int push_slot;
-  fold_slots(step, taus, weights, W, K, w_slot, &push_slot);
+  __shared__ float w_live[kMaxK];
+  __shared__ int slots[kMaxK];
+  __shared__ int push_slot, n_live;
+  fold_live_slots(step, taus, weights, W, K, w_slot, &push_slot, slots, w_live, &n_live);
   constexpr int NS = NumScalars<FAM>::value;
   float s[NS];
 #pragma unroll
   for (int i = 0; i < NS; ++i) s[i] = scalars[i];
-  const int push = push_slot;
+  const int push = push_slot, nl = n_live;
   long long lo, hi;
   if (VEC) {
+    constexpr int M = MAXL > 0 ? MAXL : 1;
+    int lk[M];
+    float lw[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      lk[j] = j < nl ? slots[j] : push;
+      lw[j] = j < nl ? w_live[j] : 0.f;
+    }
     block_range(n / kVec, lo, hi);
     for (long long u = lo + threadIdx.x; u < hi; u += blockDim.x) {
       const long long i = u * kVec;
       float gq[kVec], acc[kVec], pv[kVec], av[kVec], bv[kVec];
       load8(g + i, gq);
+      if (MAXL > 0) {
+        typename RawOf<RT>::type raw[M];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        gq[j] = to_ring(gq[j], ring);
-        acc[j] = 0.f;
-      }
-      for (int k = 0; k < K; ++k) {
-        float r[kVec];
-        if (k == push) {
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) r[j] = gq[j];
-        } else {
-          load8(ring + (long long)k * n + i, r);
+        for (int j = 0; j < M; ++j) {
+          if (j < nl && lk[j] != push) load_raw(raw[j], ring + (long long)lk[j] * n + i);
         }
-        const float wk = w_slot[k];
+        load8(p + i, pv);
+        if (FAM != kSgd) load8(s0 + i, av);
+        if (FAM == kAdam) load8(s1 + i, bv);
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[j] = add(acc[j], mul(wk, r[j]));
+        for (int j = 0; j < kVec; ++j) {
+          gq[j] = to_ring(gq[j], ring);
+          acc[j] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          if (j < nl) {
+            float r[kVec];
+            if (lk[j] == push) {
+#pragma unroll
+              for (int e = 0; e < kVec; ++e) r[e] = gq[e];
+            } else {
+              unpack8(raw[j], r);
+            }
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[e] = add(acc[e], mul(lw[j], r[e]));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          gq[j] = to_ring(gq[j], ring);
+          acc[j] = 0.f;
+        }
+        for (int j = 0; j < nl; ++j) {
+          const int k = slots[j];
+          float r[kVec];
+          if (k == push) {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) r[e] = gq[e];
+          } else {
+            load8(ring + (long long)k * n + i, r);
+          }
+          const float wk = w_live[j];
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[e] = add(acc[e], mul(wk, r[e]));
+        }
+        load8(p + i, pv);
+        if (FAM != kSgd) load8(s0 + i, av);
+        if (FAM == kAdam) load8(s1 + i, bv);
       }
       store8(ring + (long long)push * n + i, gq);
-      load8(p + i, pv);
-      if (FAM != kSgd) load8(s0 + i, av);
-      if (FAM == kAdam) load8(s1 + i, bv);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) body<FAM>(acc[j], s, pv[j], av[j], bv[j]);
       store8(p + i, pv);
@@ -226,9 +347,10 @@ tick_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restric
     for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
       const float gq = to_ring(g[i], ring);
       float acc = 0.f;
-      for (int k = 0; k < K; ++k) {
+      for (int j = 0; j < nl; ++j) {
+        const int k = slots[j];
         const float r = k == push ? gq : load1(ring + (long long)k * n + i);
-        acc = add(acc, mul(w_slot[k], r));
+        acc = add(acc, mul(w_live[j], r));
       }
       store1(ring + (long long)push * n + i, gq);
       float pv = p[i], av = 0.f, bv = 0.f;
@@ -382,35 +504,42 @@ int grid_for(Kernel kernel, long long units) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
-template <int FAM, typename RT, bool VEC>
+template <int FAM, typename RT, bool VEC, int MAXL>
 int launch_tick(float* p, const float* g, float* s0, float* s1, void* ring, int K, long long n,
                 const int* step, const int* taus, const float* weights, int W,
                 const float* scalars, cudaStream_t stream) {
-  auto kernel = tick_kernel<FAM, RT, VEC>;
+  auto kernel = tick_kernel<FAM, RT, VEC, MAXL>;
   const int grid = grid_for(kernel, VEC ? n / kVec : n);
   kernel<<<grid, kThreads, 0, stream>>>(p, g, s0, s1, static_cast<RT*>(ring), K, n, step, taus,
                                         weights, W, scalars);
   return (int)cudaGetLastError();
 }
 
+// unrolled: the K <= 8 specialisation (vector path only); else the runtime list loop
 template <int FAM, typename RT>
-int dispatch_tick_vec(int vec, float* p, const float* g, float* s0, float* s1, void* ring, int K,
-                      long long n, const int* step, const int* taus, const float* weights, int W,
-                      const float* scalars, cudaStream_t stream) {
-  return vec ? launch_tick<FAM, RT, true>(p, g, s0, s1, ring, K, n, step, taus, weights, W,
-                                          scalars, stream)
-             : launch_tick<FAM, RT, false>(p, g, s0, s1, ring, K, n, step, taus, weights, W,
-                                           scalars, stream);
+int dispatch_tick_vec(int vec, int unrolled, float* p, const float* g, float* s0, float* s1,
+                      void* ring, int K, long long n, const int* step, const int* taus,
+                      const float* weights, int W, const float* scalars, cudaStream_t stream) {
+  if (!vec)
+    return launch_tick<FAM, RT, false, 0>(p, g, s0, s1, ring, K, n, step, taus, weights, W,
+                                          scalars, stream);
+  if (unrolled && K <= 8)
+    return launch_tick<FAM, RT, true, 8>(p, g, s0, s1, ring, K, n, step, taus, weights, W,
+                                         scalars, stream);
+  return launch_tick<FAM, RT, true, 0>(p, g, s0, s1, ring, K, n, step, taus, weights, W, scalars,
+                                       stream);
 }
 
 template <int FAM>
-int dispatch_tick_ring(int ring_bf16, int vec, float* p, const float* g, float* s0, float* s1,
-                       void* ring, int K, long long n, const int* step, const int* taus,
-                       const float* weights, int W, const float* scalars, cudaStream_t stream) {
-  return ring_bf16 ? dispatch_tick_vec<FAM, __nv_bfloat16>(vec, p, g, s0, s1, ring, K, n, step,
-                                                           taus, weights, W, scalars, stream)
-                   : dispatch_tick_vec<FAM, float>(vec, p, g, s0, s1, ring, K, n, step, taus,
-                                                   weights, W, scalars, stream);
+int dispatch_tick_ring(int ring_bf16, int vec, int unrolled, float* p, const float* g, float* s0,
+                       float* s1, void* ring, int K, long long n, const int* step,
+                       const int* taus, const float* weights, int W, const float* scalars,
+                       cudaStream_t stream) {
+  return ring_bf16 ? dispatch_tick_vec<FAM, __nv_bfloat16>(vec, unrolled, p, g, s0, s1, ring, K,
+                                                           n, step, taus, weights, W, scalars,
+                                                           stream)
+                   : dispatch_tick_vec<FAM, float>(vec, unrolled, p, g, s0, s1, ring, K, n, step,
+                                                   taus, weights, W, scalars, stream);
 }
 
 template <typename RT, bool VEC>
@@ -448,25 +577,37 @@ int dispatch_chain(int vec, float* p, const float* g, float* s0, float* s1, long
 
 extern "C" int au_max_k() { return kMaxK; }
 
+// Variant 1 (measurement only, src/repro_torch/launch/kernel_variants.py):
+// the runtime loop over the live slots in place of the K <= 8 unrolled one.
+extern "C" int au_fused_tick_variant(int variant, int family, int ring_bf16, int vec, float* p,
+                                     const float* g, float* s0, float* s1, void* ring, int K,
+                                     long long n, const int* step, const int* taus,
+                                     const float* weights, int W, const float* scalars,
+                                     void* stream) {
+  if (K < 1 || K > kMaxK || variant < 0 || variant > 1) return (int)cudaErrorInvalidValue;
+  const int unrolled = variant == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case kSgd:
+      return dispatch_tick_ring<kSgd>(ring_bf16, vec, unrolled, p, g, s0, s1, ring, K, n, step,
+                                      taus, weights, W, scalars, st);
+    case kMomentum:
+      return dispatch_tick_ring<kMomentum>(ring_bf16, vec, unrolled, p, g, s0, s1, ring, K, n,
+                                           step, taus, weights, W, scalars, st);
+    case kAdam:
+      return dispatch_tick_ring<kAdam>(ring_bf16, vec, unrolled, p, g, s0, s1, ring, K, n, step,
+                                       taus, weights, W, scalars, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 extern "C" int au_fused_tick(int family, int ring_bf16, int vec, float* p, const float* g,
                              float* s0, float* s1, void* ring, int K, long long n,
                              const int* step, const int* taus, const float* weights, int W,
                              const float* scalars, void* stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (family) {
-    case kSgd:
-      return dispatch_tick_ring<kSgd>(ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
-                                      weights, W, scalars, st);
-    case kMomentum:
-      return dispatch_tick_ring<kMomentum>(ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
-                                           weights, W, scalars, st);
-    case kAdam:
-      return dispatch_tick_ring<kAdam>(ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
-                                       weights, W, scalars, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return au_fused_tick_variant(0, family, ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
+                               weights, W, scalars, stream);
 }
 
 extern "C" int au_fused_combine(int ring_bf16, int vec, const float* g, void* ring, float* g_eff,

@@ -41,6 +41,7 @@ from repro_torch.async_engine.delayed import (
     init_flat_delayed,
 )
 from repro_torch.models import model as M
+from repro_torch.models.layers import dtype_of
 from repro_torch.optim import transform as T
 from repro_torch.training.adapt import AdaptState, alpha_lookup, record_taus, sample_taus
 from repro_torch.tree import tree_leaves, tree_map
@@ -112,13 +113,21 @@ def init_train_state(
     """Initial state.  ``fuse=True`` builds the fused layout for a fuseable
     pipeline: flat optimizer state, a flat ``(K, N)`` ring and, for f32
     params, flat-native params.  ``params`` may be a tree or a packed
-    ``(N,)`` buffer (e.g. from :func:`repro_torch.bridge.params_from_jax`)."""
+    ``(N,)`` buffer (e.g. from :func:`repro_torch.bridge.params_from_jax`).
+
+    As the reference, f32 leaves are first stored in ``cfg.param_dtype``: a
+    bf16 tree is then not flat-native and gets a bf16 ring
+    (:func:`ring_dtype_for`)."""
     if params is None:
         params = init_params(seed, cfg, device)
     fused = _fused_form(opt) if fuse else None
     flat_given = isinstance(params, torch.Tensor)
-    if flat_given and fused is None:
+    if flat_given and (fused is None or cfg.param_dtype != "float32"):
         params = T.flat_view(params, param_template(cfg))
+        flat_given = False
+    if cfg.param_dtype != "float32":
+        pd = dtype_of(cfg.param_dtype)
+        params = tree_map(lambda p: p.to(pd) if p.dtype == f32 else p, params)
     if fused is not None and not flat_given and all(
         leaf.dtype == f32 for leaf in tree_leaves(params)
     ):
