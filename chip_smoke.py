@@ -455,11 +455,11 @@ class TickLog:
         return taus.tolist(), live_slots(step, taus.tolist(), alphas.tolist(), K)
 
     def on_start(self, ctx):
+        self._snapshot(ctx.state)
         self._torch.cuda.synchronize()
         self._t = time.perf_counter()
         adapt = ctx.state.adapt
         self.table_ptr = adapt.alpha_table.data_ptr() if adapt is not None else None
-        self._snapshot(ctx.state)
 
     def on_refresh(self, ctx):
         pass
@@ -471,17 +471,19 @@ class TickLog:
         row = dict(step=ctx.step, ms=(now - self._t) * 1e3, loss=m["loss"],
                    tau_mean=m.get("tau_mean"), alpha_mean=m.get("alpha_mean"),
                    table=ctx.state.adapt.alpha_table.clone() if ctx.state.adapt is not None else None)
+        self._t = now
+        t0 = time.perf_counter()
         if self._snap is not None:
             row["taus"], row["slots_read"] = self._replay(ctx)
+        self._snapshot(ctx.state)
+        self._torch.cuda.synchronize()
+        self._t += time.perf_counter() - t0  # the replay is not the next tick's time
         self.rows.append(row)
         extra = "" if row["tau_mean"] is None else (
             f"  tau_mean {row['tau_mean']:.3f}  alpha_mean {row['alpha_mean']:.6f}")
         if "slots_read" in row:
             extra += f"  taus {row['taus']}  ring slots read {row['slots_read']}"
         log(f"[{self.name}] tick {ctx.step:3d}  loss {row['loss']:.4f}{extra}  {row['ms']:.1f} ms")
-        self._snapshot(ctx.state)
-        self._torch.cuda.synchronize()
-        self._t = time.perf_counter()  # the next tick's clock starts after this hook's own work
 
     def on_end(self, ctx):
         pass
@@ -732,6 +734,8 @@ def check_selective_scan(B, S, D, N, u_dtype, dev, a_init="model"):
         bad = int(((got - want).abs() > 3e-5 + 3e-5 * want.abs()).sum())
         check(bad == 0, f"selective_scan {B, S, D, N, u_dtype} {what}: {bad} elements past 3e-5 "
                         f"(max |d| {err})")
+    if a_init == "random":
+        scan_witness(f"{B, S, D, N, u_dtype}", args, y, hT, want_y, want_h)
     del y, hT, want_y, want_h
     ms = cuda_ms(lambda: SS.selective_scan(*args), iters=20)
     plain_ms = cuda_ms(lambda: SS.selective_scan_ref(*args), iters=2)
@@ -746,6 +750,51 @@ def check_selective_scan(B, S, D, N, u_dtype, dev, a_init="model"):
                 bound_set_by=what, bound_terms_ms={k: v * 1e3 for k, v in times.items()},
                 bytes=nbytes, exps=exps, flops=flops, sm_clock_hz=SM_CLOCK_HZ,
                 exps_per_s=exps / (ms * 1e-3))
+
+
+def scan_witness(tag, args, y, hT, want_y, want_h):
+    """The kernel's and the f32 plain version's y and hT, each against the
+    plain scan in f64, a witness of the f32 rounding: elements past 3e-5 +
+    3e-5 |f64| and the largest |d| / (3e-5 + 3e-5 |f64|).  A reading, not a
+    gate: where y cancels, the f32 plain version misses it too."""
+    import torch
+
+    from repro_torch.kernels.selective_scan import cuda as SS
+
+    exact = dict(zip(("y", "hT"), SS.selective_scan_ref(*args, dtype=torch.float64)))
+    parts = []
+    for what, got, want in (("y", y, want_y), ("hT", hT, want_h)):
+        tol = 3e-5 + 3e-5 * exact[what].abs()
+        for who, v in (("kernel", got), ("f32 plain", want)):
+            d = (v.double() - exact[what]).abs()
+            parts.append(f"{what} {who} {int((d > tol).sum())} past, max |d|/tol "
+                         f"{float((d / tol).max()):.3f}")
+            del d
+    log(f"[witness] selective_scan {tag} against the f64 plain scan: " + "; ".join(parts))
+
+
+def witness_delta_ranges(dev):
+    """``scan_witness`` over 3000 steps with A = -exp(randn) and delta near
+    30 (decays underflow, y cancels 16 terms) or log-uniform from 1e-4 to 30,
+    as the card test ``test_selective_scan_kernel_holds_over_delta_ranges``."""
+    import torch
+
+    from repro_torch.kernels.selective_scan import cuda as SS
+
+    B, S, D, N = 1, 3000, 64, 16
+    for rng in ("large", "mixed"):
+        for u_dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(11)
+            u = torch.randn(B, S, D, generator=gen, device=dev).to(u_dtype)
+            A = -torch.exp(torch.randn(D, N, generator=gen, device=dev))
+            Bm = torch.randn(B, S, N, generator=gen, device=dev)
+            Cm = torch.randn(B, S, N, generator=gen, device=dev)
+            r = torch.rand(B, S, D, generator=gen, device=dev)
+            delta = 20.0 + 10.0 * r if rng == "large" else torch.exp(-9.2 + 12.6 * r)
+            args = (u, delta, A, Bm, Cm)
+            y, hT = SS.selective_scan(*args)
+            scan_witness(f"{B, S, D, N, u_dtype} delta {rng}", args, y, hT,
+                         *SS.selective_scan_ref(*args))
 
 
 def serve_full(arch, batch, prompt, gen, expect):
@@ -938,6 +987,7 @@ def main() -> int:
             f"{r['exps_per_s'] / 1e12:.3f} T exponentials/s of the SFU's "
             f"{SFU_EXP_PER_S / 1e12:.3f} T/s ({100 * r['exps_per_s'] / SFU_EXP_PER_S:.1f} %)")
         free_cuda()
+    witness_delta_ranges(dev)
 
     # -- phase 6: serving at full width, through the launcher --------------------
     serving = [

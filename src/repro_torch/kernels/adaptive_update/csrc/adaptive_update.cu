@@ -49,7 +49,8 @@
 //    loop with a branch on the pushed slot: 19.215 ms for the momentum /
 //    bf16 tick at N = 1.4388e9 (36N moved at 2.70 TB/s) on an H100 80GB
 //    HBM3 at 700 W; this design takes 17.1-17.7 ms there, moving 32N
-//    (77-80 % of the byte bound; kernel_variants.py and PERF.md);
+//    (77-80 % of the byte bound), and the runtime loop in place of the
+//    unrolled one 17.25-17.84 ms (PERF.md);
 //  * the scalar factors apply one at a time in link order (never
 //    pre-multiplied), then the family body, with __fmul_rn/__fadd_rn so
 //    nvcc cannot contract them into FMAs: the chain and update kernels are
@@ -515,15 +516,15 @@ int launch_tick(float* p, const float* g, float* s0, float* s1, void* ring, int 
   return (int)cudaGetLastError();
 }
 
-// unrolled: the K <= 8 specialisation (vector path only); else the runtime list loop
+// K <= 8 on the vector path takes the unrolled list loop; else the runtime one
 template <int FAM, typename RT>
-int dispatch_tick_vec(int vec, int unrolled, float* p, const float* g, float* s0, float* s1,
+int dispatch_tick_vec(int vec, float* p, const float* g, float* s0, float* s1,
                       void* ring, int K, long long n, const int* step, const int* taus,
                       const float* weights, int W, const float* scalars, cudaStream_t stream) {
   if (!vec)
     return launch_tick<FAM, RT, false, 0>(p, g, s0, s1, ring, K, n, step, taus, weights, W,
                                           scalars, stream);
-  if (unrolled && K <= 8)
+  if (K <= 8)
     return launch_tick<FAM, RT, true, 8>(p, g, s0, s1, ring, K, n, step, taus, weights, W,
                                          scalars, stream);
   return launch_tick<FAM, RT, true, 0>(p, g, s0, s1, ring, K, n, step, taus, weights, W, scalars,
@@ -531,15 +532,14 @@ int dispatch_tick_vec(int vec, int unrolled, float* p, const float* g, float* s0
 }
 
 template <int FAM>
-int dispatch_tick_ring(int ring_bf16, int vec, int unrolled, float* p, const float* g, float* s0,
+int dispatch_tick_ring(int ring_bf16, int vec, float* p, const float* g, float* s0,
                        float* s1, void* ring, int K, long long n, const int* step,
                        const int* taus, const float* weights, int W, const float* scalars,
                        cudaStream_t stream) {
-  return ring_bf16 ? dispatch_tick_vec<FAM, __nv_bfloat16>(vec, unrolled, p, g, s0, s1, ring, K,
-                                                           n, step, taus, weights, W, scalars,
-                                                           stream)
-                   : dispatch_tick_vec<FAM, float>(vec, unrolled, p, g, s0, s1, ring, K, n, step,
-                                                   taus, weights, W, scalars, stream);
+  return ring_bf16 ? dispatch_tick_vec<FAM, __nv_bfloat16>(vec, p, g, s0, s1, ring, K, n, step,
+                                                           taus, weights, W, scalars, stream)
+                   : dispatch_tick_vec<FAM, float>(vec, p, g, s0, s1, ring, K, n, step, taus,
+                                                   weights, W, scalars, stream);
 }
 
 template <typename RT, bool VEC>
@@ -577,37 +577,25 @@ int dispatch_chain(int vec, float* p, const float* g, float* s0, float* s1, long
 
 extern "C" int au_max_k() { return kMaxK; }
 
-// Variant 1 (measurement only, src/repro_torch/launch/kernel_variants.py):
-// the runtime loop over the live slots in place of the K <= 8 unrolled one.
-extern "C" int au_fused_tick_variant(int variant, int family, int ring_bf16, int vec, float* p,
-                                     const float* g, float* s0, float* s1, void* ring, int K,
-                                     long long n, const int* step, const int* taus,
-                                     const float* weights, int W, const float* scalars,
-                                     void* stream) {
-  if (K < 1 || K > kMaxK || variant < 0 || variant > 1) return (int)cudaErrorInvalidValue;
-  const int unrolled = variant == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (family) {
-    case kSgd:
-      return dispatch_tick_ring<kSgd>(ring_bf16, vec, unrolled, p, g, s0, s1, ring, K, n, step,
-                                      taus, weights, W, scalars, st);
-    case kMomentum:
-      return dispatch_tick_ring<kMomentum>(ring_bf16, vec, unrolled, p, g, s0, s1, ring, K, n,
-                                           step, taus, weights, W, scalars, st);
-    case kAdam:
-      return dispatch_tick_ring<kAdam>(ring_bf16, vec, unrolled, p, g, s0, s1, ring, K, n, step,
-                                       taus, weights, W, scalars, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 extern "C" int au_fused_tick(int family, int ring_bf16, int vec, float* p, const float* g,
                              float* s0, float* s1, void* ring, int K, long long n,
                              const int* step, const int* taus, const float* weights, int W,
                              const float* scalars, void* stream) {
-  return au_fused_tick_variant(0, family, ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
-                               weights, W, scalars, stream);
+  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case kSgd:
+      return dispatch_tick_ring<kSgd>(ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
+                                      weights, W, scalars, st);
+    case kMomentum:
+      return dispatch_tick_ring<kMomentum>(ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
+                                           weights, W, scalars, st);
+    case kAdam:
+      return dispatch_tick_ring<kAdam>(ring_bf16, vec, p, g, s0, s1, ring, K, n, step, taus,
+                                       weights, W, scalars, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int au_fused_combine(int ring_bf16, int vec, const float* g, void* ring, float* g_eff,

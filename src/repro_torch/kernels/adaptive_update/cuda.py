@@ -81,12 +81,11 @@ def _load():
         lib = ctypes.CDLL(str(build_library()))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.au_fused_tick.argtypes = [I, I, I, P, P, P, P, P, I, L, P, P, P, I, P, P]
-        lib.au_fused_tick_variant.argtypes = [I, I, I, I, P, P, P, P, P, I, L, P, P, P, I, P, P]
         lib.au_fused_combine.argtypes = [I, I, P, P, P, I, L, P, P, P, I, P]
         lib.au_fused_chain.argtypes = [I, I, P, P, P, P, L, P, P]
         lib.au_fused_update.argtypes = [I, P, P, P, L, P, P, P]
-        for fn in (lib.au_fused_tick, lib.au_fused_tick_variant, lib.au_fused_combine,
-                   lib.au_fused_chain, lib.au_fused_update):
+        for fn in (lib.au_fused_tick, lib.au_fused_combine, lib.au_fused_chain,
+                   lib.au_fused_update):
             fn.restype = ctypes.c_int
         lib.au_max_k.argtypes = []
         lib.au_max_k.restype = ctypes.c_int

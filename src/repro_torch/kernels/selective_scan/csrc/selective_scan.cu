@@ -65,14 +65,17 @@
 //    of 128 x 4 blocks at the falcon-mamba shape is one wave.
 // What bounds it: the issue slots, not the SFU or memory: per (t, n) about
 // 7 f32 instructions besides the SFU op, plus the per-state scan, loads and
-// loop.  At the falcon-mamba shape it takes 1.12 ms with u in bf16 and 1.09
-// ms with u in f32 (H100 80GB HBM3, 700 W, kernel_variants.py).  Measured
-// slower in the same runs: an accurate expf (1.70 ms), 8 steps a thread in
-// 4 segments at 256 threads a block and 64 registers (1.28 ms), delta and u
-// loaded per chunk instead of staged (1.80 ms); and, in code not kept
-// (PERF.md), the next state's decays formed inside this state's walk in the
-// registers it frees (1.17 ms), formed under the current state's scan, and
-// a state loop unrolled by two.
+// loop.  At the falcon-mamba shape it took 1.124 ms with u in bf16 and
+// 1.098 ms with u in f32, where the first design took 2.137 and 1.491 ms in
+// the same process (H100 80GB HBM3, 700 W; PERF.md names the run and its
+// script).  Measured slower in that run, at the bf16 shape, and not kept:
+// an accurate expf (1.702 ms); unshifted ex2.approx (1.171 ms, and 143 y
+// values past the gate with random A); 8 steps a thread in 4 segments at
+// 256 threads a block and 64 registers (1.282 ms); delta and u loaded per
+// chunk instead of staged (1.806 ms).  In earlier runs (PERF.md): the next
+// state's decays formed inside this state's walk in the registers it frees
+// (1.168 ms), formed under the current state's scan, and a state loop
+// unrolled by two.
 // A state beyond N gets A = 0 and B = C = 0, a step beyond S delta = u = 0
 // and B = C = 0 (a = 1, b = 0: h and y unchanged), a channel beyond D
 // computes channel D - 1 and stores nothing, so any S, D and N <= 16 run
@@ -90,18 +93,12 @@ constexpr int kCh = 64;               // channels per block
 constexpr int kN = 16;                // states held per channel (Mamba-1's N)
 constexpr int kTP = kT + 4;           // row stride of the B/C tables: 16-byte rows, and a
                                       // warp's segments in distinct bank groups
+constexpr int kL = 16;                // steps a thread owns
+constexpr int kSeg = kT / kL;         // segments a channel
+constexpr int kChW = 32 / kSeg;       // channels a warp: lane = segment * kChW + channel
+constexpr int kThreads = kCh * kSeg;  // threads a block
+constexpr int kMinBlocks = 4;         // blocks an SM: 16 warps at 128 registers
 constexpr float kLog2e = 1.4426950408889634f;
-
-// The thread geometry, by the steps kL a thread owns: kSeg = 32 / kL
-// segments a channel, kChW = 32 / kSeg channels a warp (lane = segment *
-// kChW + channel), kCh * kSeg threads a block.
-template <int kL>
-struct Geom {
-  static_assert(kL == 8 || kL == 16, "8 or 16 steps a thread");
-  static constexpr int kSeg = kT / kL;
-  static constexpr int kChW = 32 / kSeg;
-  static constexpr int kThreads = kCh * kSeg;
-};
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -139,50 +136,37 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) 
 // Column of channel c in row t of the [t][c] delta/u tiles: groups of a
 // warp's kChW channels XOR-swizzled by the step's segment, so a warp's
 // segments hit distinct banks.
-template <int kL>
-__device__ __forceinline__ int swc(int t, int c) {
-  return c ^ (((t / kL) % Geom<kL>::kSeg) * Geom<kL>::kChW);
-}
+__device__ __forceinline__ int swc(int t, int c) { return c ^ (((t / kL) % kSeg) * kChW); }
 
 template <typename T>
 constexpr int smem_bytes(bool stage) {
   return (2 * 2 * kN * kTP + 2 * kN * kCh) * 4 + (stage ? 2 * kT * kCh * (4 + sizeof(T)) : 0);
 }
 
-// 2 exp(x) for x = dt * A <= 0 (twice the decay: see the walk below), by EXPM:
-//  kExpf  an accurate expf (range reduction around the SFU's ex2);
-//  kEx2   ex2.approx.ftz(dt * A log2 e);
-//  kEx2s  ex2.approx.ftz(dt * A log2 e + 1): one FFMA, one SFU op.  The
-//         SFU's ex2 is least accurate, relative to 1 - 2^z, for z just below
-//         0 (decays near 1, whose error repeats over thousands of steps);
-//         shifted by one its input lies in (-inf, 1], as in expf's own range
-//         reduction, and the shift is the factor 2.
-enum ExpMode { kExpf = 0, kEx2 = 1, kEx2s = 2 };
-
-template <int EXPM>
-__device__ __forceinline__ float decay2(float dt, float an) {
-  if (EXPM == kExpf) return 2.f * expf(dt * an);
-  if (EXPM == kEx2) return 2.f * ex2(dt * an);
-  return ex2(fmaf(dt, an, 1.f));
-}
+// 2 exp(x) for x = dt * A <= 0 (twice the decay: see the walk below), with
+// an = A log2 e: ex2.approx.ftz(dt * an + 1), one FFMA and one SFU op.  The
+// SFU's ex2 is least accurate, relative to 1 - 2^z, for z just below 0
+// (decays near 1, whose error repeats over thousands of steps); shifted by
+// one its input lies in (-inf, 1], as in expf's own range reduction, and
+// the shift is the factor 2.
+__device__ __forceinline__ float decay2(float dt, float an) { return ex2(fmaf(dt, an, 1.f)); }
 
 // STAGE: delta and u reach shared memory by 16-byte cp.async, a chunk ahead
 // (needs D % 8 == 0 and 16-byte aligned delta and u); else each thread
 // loads its steps from global memory at the start of the chunk.
-template <typename T, int EXPM, int MINB, bool STAGE, int kL>
-__global__ void __launch_bounds__(Geom<kL>::kThreads, MINB)
+template <typename T, bool STAGE>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     ss_fwd(const T* __restrict__ u, const float* __restrict__ delta,
            const float* __restrict__ A, const float* __restrict__ Bm,
            const float* __restrict__ Cm, float* __restrict__ y, float* __restrict__ hT,
            int S, int D, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sbc = reinterpret_cast<float*>(smem);  // [buffer][B, C][state][step, padded]
-  float* s_a = sbc + 2 * 2 * kN * kTP;          // [state][channel]: A (x log2 e unless expf)
+  float* s_a = sbc + 2 * 2 * kN * kTP;          // [state][channel]: A log2 e
   float* s_carry = s_a + kN * kCh;              // [state][channel]: h / 2 after the last chunk
   float* s_dt = s_carry + kN * kCh;             // [buffer][step][channel] (STAGE)
   T* s_u = reinterpret_cast<T*>(s_dt + 2 * kT * kCh);
 
-  constexpr int kSeg = Geom<kL>::kSeg, kChW = Geom<kL>::kChW, kThreads = Geom<kL>::kThreads;
   const int lane = threadIdx.x & 31;
   const int seg = lane / kChW;
   const int c = (threadIdx.x >> 5) * kChW + lane % kChW;
@@ -197,7 +181,7 @@ __global__ void __launch_bounds__(Geom<kL>::kThreads, MINB)
     const int n = i / kCh, cc = i % kCh;
     const int dd = min(d0 + cc, D - 1);
     const float a = n < N ? __ldg(A + static_cast<long long>(dd) * N + n) : 0.f;
-    s_a[n * kCh + cc] = EXPM == kExpf ? a : a * kLog2e;
+    s_a[n * kCh + cc] = a * kLog2e;
     s_carry[n * kCh + cc] = 0.f;
   }
 
@@ -226,7 +210,7 @@ __global__ void __launch_bounds__(Geom<kL>::kThreads, MINB)
         const int t = i / kPd, c0 = (i % kPd) * 4;
         const bool in = t0 + t < S && d0 + c0 < D;
         const float* src = in ? delta + (row + t0 + t) * D + d0 + c0 : delta;
-        cp_async16(&s_dt[(buf * kT + t) * kCh + swc<kL>(t, c0)], src, in);
+        cp_async16(&s_dt[(buf * kT + t) * kCh + swc(t, c0)], src, in);
       }
 #pragma unroll
       for (int k = 0; k < kT * kPu / kThreads; ++k) {
@@ -234,7 +218,7 @@ __global__ void __launch_bounds__(Geom<kL>::kThreads, MINB)
         const int t = i / kPu, c0 = (i % kPu) * kEu;
         const bool in = t0 + t < S && d0 + c0 < D;
         const T* src = in ? u + (row + t0 + t) * D + d0 + c0 : u;
-        cp_async16(&s_u[(buf * kT + t) * kCh + swc<kL>(t, c0)], src, in);
+        cp_async16(&s_u[(buf * kT + t) * kCh + swc(t, c0)], src, in);
       }
     }
     cp_async_commit();
@@ -269,8 +253,8 @@ __global__ void __launch_bounds__(Geom<kL>::kThreads, MINB)
 #pragma unroll
       for (int j = 0; j < kL; ++j) {
         const int t = seg * kL + j;
-        dt[j] = s_dt[(buf * kT + t) * kCh + swc<kL>(t, c)];
-        du[j] = dt[j] * to_f32(s_u[(buf * kT + t) * kCh + swc<kL>(t, c)]) * static_cast<float>(1 << j);
+        dt[j] = s_dt[(buf * kT + t) * kCh + swc(t, c)];
+        du[j] = dt[j] * to_f32(s_u[(buf * kT + t) * kCh + swc(t, c)]) * static_cast<float>(1 << j);
       }
     }
 #pragma unroll
@@ -296,7 +280,7 @@ __global__ void __launch_bounds__(Geom<kL>::kThreads, MINB)
         bb[4 * q + 3] = du[4 * q + 3] * b4.w;
       }
 #pragma unroll
-      for (int j = 0; j < kL; ++j) a2[j] = decay2<EXPM>(dt[j], an);
+      for (int j = 0; j < kL; ++j) a2[j] = decay2(dt[j], an);
       // fold this segment into one pair, h_end / 2 = pa (h_in / 2) + pb, as
       // a tree: (a, b) o (a', b') = (a a', a' b + b'), kL - 1 combines,
       // depth log2 kL
@@ -369,10 +353,10 @@ __global__ void __launch_bounds__(Geom<kL>::kThreads, MINB)
   }
 }
 
-template <typename T, int EXPM, int MINB, bool STAGE, int kL>
+template <typename T, bool STAGE>
 int launch(const void* u, const float* delta, const float* A, const float* Bm, const float* Cm,
            float* y, float* hT, int B, int S, int D, int N, cudaStream_t st) {
-  auto kernel = ss_fwd<T, EXPM, MINB, STAGE, kL>;
+  auto kernel = ss_fwd<T, STAGE>;
   constexpr int bytes = smem_bytes<T>(STAGE);
   static bool attr_set = false;  // one attribute call per instantiation
   if (!attr_set) {
@@ -382,56 +366,24 @@ int launch(const void* u, const float* delta, const float* A, const float* Bm, c
     attr_set = true;
   }
   const dim3 grid((D + kCh - 1) / kCh, B);
-  kernel<<<grid, Geom<kL>::kThreads, bytes, st>>>(static_cast<const T*>(u), delta, A, Bm, Cm, y, hT, S, D,
+  kernel<<<grid, kThreads, bytes, st>>>(static_cast<const T*>(u), delta, A, Bm, Cm, y, hT, S, D,
                                         N);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel is variant 0; the others are kept for measurement (see the
-// C entry).  Staging needs D % 8 == 0 and 16-byte aligned delta and u.
+// Staging needs D % 8 == 0 and 16-byte aligned delta and u.
 template <typename T>
-int dispatch(int variant, const void* u, const float* delta, const float* A, const float* Bm,
-             const float* Cm, float* y, float* hT, int B, int S, int D, int N, cudaStream_t st) {
+int dispatch(const void* u, const float* delta, const float* A, const float* Bm, const float* Cm,
+             float* y, float* hT, int B, int S, int D, int N, cudaStream_t st) {
   const bool aligned = D % 8 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(delta) % 16 == 0;
-#define SS_LAUNCH(EXPM, STAGE, L) \
-  launch<T, EXPM, 4, STAGE, L>(u, delta, A, Bm, Cm, y, hT, B, S, D, N, st)
-  switch (variant) {
-    case 0:
-      return aligned ? SS_LAUNCH(kEx2s, true, 16) : SS_LAUNCH(kEx2s, false, 16);
-    case 1:
-      return aligned ? SS_LAUNCH(kExpf, true, 16) : SS_LAUNCH(kExpf, false, 16);
-    case 2:
-      return aligned ? SS_LAUNCH(kEx2, true, 16) : SS_LAUNCH(kEx2, false, 16);
-    case 3:
-      return aligned ? SS_LAUNCH(kEx2s, true, 8) : SS_LAUNCH(kEx2s, false, 8);
-    case 4:
-      return SS_LAUNCH(kEx2s, false, 16);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef SS_LAUNCH
+  return aligned ? launch<T, true>(u, delta, A, Bm, Cm, y, hT, B, S, D, N, st)
+                 : launch<T, false>(u, delta, A, Bm, Cm, y, hT, B, S, D, N, st);
 }
 
 }  // namespace
 
 extern "C" {
-
-// Variants for measurement (src/repro_torch/launch/kernel_variants.py):
-// 0 the kernel (16 steps a thread, shifted ex2, delta/u staged); 1 accurate
-// expf; 2 unshifted ex2; 3 8 steps a thread in 4 segments (256 threads a
-// block, at most 64 registers); 4 delta and u loaded from global memory at
-// the start of each chunk, not staged.  All run 4 blocks an SM.
-int selective_scan_variant(int variant, const void* u, int u_bf16, const float* delta,
-                           const float* A, const float* Bm, const float* Cm, float* y,
-                           float* hT, int B, int S, int D, int N, void* stream) {
-  if (B <= 0 || D <= 0 || S < 0) return 0;
-  if (B > 65535 || N < 1 || N > kN)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return u_bf16 ? dispatch<__nv_bfloat16>(variant, u, delta, A, Bm, Cm, y, hT, B, S, D, N, st)
-                : dispatch<float>(variant, u, delta, A, Bm, Cm, y, hT, B, S, D, N, st);
-}
 
 // u: contiguous (B, S, D), bf16 if u_bf16 else f32; delta (B, S, D), A (D, N),
 // Bm and Cm (B, S, N) contiguous f32, N <= 16 -> y (B, S, D), hT (B, D, N)
@@ -439,8 +391,12 @@ int selective_scan_variant(int variant, const void* u, int u_bf16, const float* 
 int selective_scan_forward(const void* u, int u_bf16, const float* delta, const float* A,
                            const float* Bm, const float* Cm, float* y, float* hT, int B, int S,
                            int D, int N, void* stream) {
-  return selective_scan_variant(0, u, u_bf16, delta, A, Bm, Cm, y, hT, B, S, D, N,
-                                stream);
+  if (B <= 0 || D <= 0 || S < 0) return 0;
+  if (B > 65535 || N < 1 || N > kN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return u_bf16 ? dispatch<__nv_bfloat16>(u, delta, A, Bm, Cm, y, hT, B, S, D, N, st)
+                : dispatch<float>(u, delta, A, Bm, Cm, y, hT, B, S, D, N, st);
 }
 
 }  // extern "C"

@@ -48,8 +48,6 @@ def _load():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.selective_scan_forward.argtypes = [P, I, P, P, P, P, P, P, I, I, I, I, P]
         lib.selective_scan_forward.restype = ctypes.c_int
-        lib.selective_scan_variant.argtypes = [I, P, I, P, P, P, P, P, P, I, I, I, I, P]
-        lib.selective_scan_variant.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -16,16 +16,17 @@ __all__ = ["selective_scan_ref"]
 f32 = torch.float32
 
 
-def selective_scan_ref(u, delta, A, Bm, Cm):
+def selective_scan_ref(u, delta, A, Bm, Cm, dtype=f32):
     """u/delta: (B, S, D); A: (D, N); Bm/Cm: (B, S, N), from h_0 = 0.
 
-    Returns ``y`` (B, S, D) f32 (no d_skip, as the kernel) and the final
-    state ``hT`` (B, D, N) f32.
+    Returns ``y`` (B, S, D) (no d_skip, as the kernel) and the final state
+    ``hT`` (B, D, N), computed in ``dtype``: f32, as the kernel, or f64 for
+    a witness of the f32 rounding.
     """
-    u, delta, A, Bm, Cm = (t.to(f32) for t in (u, delta, A, Bm, Cm))
+    u, delta, A, Bm, Cm = (t.to(dtype) for t in (u, delta, A, Bm, Cm))
     B, S, D = u.shape
-    h = torch.zeros((B, D, A.shape[1]), dtype=f32, device=u.device)
-    y = torch.empty((B, S, D), dtype=f32, device=u.device)
+    h = torch.zeros((B, D, A.shape[1]), dtype=dtype, device=u.device)
+    y = torch.empty((B, S, D), dtype=dtype, device=u.device)
     for t in range(S):
         dt = delta[:, t, :, None]
         h = torch.exp(dt * A) * h + dt * Bm[:, t, None, :] * u[:, t, :, None]
