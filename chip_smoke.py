@@ -78,6 +78,23 @@ Phases, each fatal on failure:
    against the plain CPU path, same params: prompt 160, 4 steps, logits
    within 1e-4, ids equal.
 
+7. resume — the configuration of phase 3 with 6 ticks and a refresh every 2:
+   run A uninterrupted, checkpointing at step 3 (``CheckpointHook``; its
+   histogram is partial) into a temporary directory under ``build/``; run B,
+   a fresh pipeline and adapt, ``run(spec, resume_from=dir,
+   resume_step=3)``, crossing the step-4 refresh.  B's losses must equal A's
+   steps 4-6 and every leaf of B's final state (params, momentum, ring bits,
+   ring step, adapt tables and histogram, step, generator state) A's, bit for
+   bit; the host estimators must agree; fused_tick launches 6 + 3.  Prints
+   the checkpoint's GB on disk, save and restore seconds, the disk's free
+   space and peak memory.  The directory is removed at the end of the phase.
+8. exact simulator — the paper's Fig.-3 problem (noisy quadratic, d 16,
+   m 16, T 3000; constant and eq.-26 geometric-momentum tables) through
+   ``async_engine.exact`` on the card and on the CPU: taus and alphas
+   exactly equal, losses and x within 1e-5 relative (max |d| / max |CPU|),
+   and the adaptive table at loss 1.5 in no more commits than the constant
+   one.  Prints both commit counts and the phase's seconds.
+
 Then one JSON object with every kernel (launches on its path, max_abs_err,
 ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
 and as the last line
@@ -89,6 +106,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -863,6 +881,200 @@ def serve_agreement(arch):
     return d
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: checkpoint and resume on the main path; phase 8: the exact simulator
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    import torch
+
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def same_bits(host, dev_leaf):
+    """``host`` (a CPU copy) and the card's ``dev_leaf`` hold the same bits,
+    compared on the card a chunk at a time."""
+    import torch
+
+    if isinstance(dev_leaf, torch.Generator):
+        return torch.equal(host, dev_leaf.get_state())
+    a, b = host.reshape(-1), dev_leaf.reshape(-1)
+    if a.dtype != b.dtype or a.numel() != b.numel():
+        return False
+    return all(torch.equal(_bits(a[i:i + CHUNK].to(b.device)), _bits(b[i:i + CHUNK]))
+               for i in range(0, a.numel(), CHUNK))
+
+
+def resume_path(cfg, n_expected, ckpt_root):
+    """Run A: 6 uninterrupted fused async ticks (refresh every 2) with a
+    checkpoint at step 3, whose histogram is partial.  Run B: a fresh
+    pipeline and adapt resumed from it at step 3, crossing the step-4
+    refresh.  B's losses and every leaf of B's final state must equal A's
+    bit for bit, and the host estimators must agree."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import key_paths
+    from repro_torch.kernels.adaptive_update import cuda as C
+    from repro_torch.optim import transform as T
+    from repro_torch.run import CheckpointHook, Hook, RunSpec, run
+
+    class Losses(Hook):
+        def __init__(self):
+            self.losses, self.t_start = [], None
+
+        def on_start(self, ctx):
+            torch.cuda.synchronize()
+            self.t_start = time.perf_counter()
+
+        def on_tick(self, ctx):
+            self.losses.append(ctx.metrics["loss"].item())
+
+    class TimedCheckpoint(CheckpointHook):
+        """``CheckpointHook(every=3)`` timed, and stopped after its first save:
+        a save at step 6 would write another 34.5 GB that nothing reads."""
+
+        def _save(self, ctx):
+            if self.saved_steps:
+                return
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._save(ctx)
+            self.seconds = time.perf_counter() - t0
+
+    def spec():
+        pipe, adapt = lm_pipeline(0.01, W_WORKERS, K_RING)
+        return RunSpec(cfg=cfg, pipeline=pipe, mode="async", num_steps=6, batch_size=4,
+                       seq_len=512, num_workers=W_WORKERS, ring=K_RING, ring_dtype="bfloat16",
+                       adapt=adapt, fuse=True, refresh_every=2, seed=0, device="cuda")
+
+    with tempfile.TemporaryDirectory(dir=ckpt_root) as d:
+        free_disk = shutil.disk_usage(d).free
+        torch.cuda.reset_peak_memory_stats()
+        spec_a, track_a, saver = spec(), Losses(), TimedCheckpoint(d, every=3)
+        C.reset_launches()
+        res_a = run(spec_a, hooks=[track_a, saver])
+        torch.cuda.synchronize()
+        launches_a = C.LAUNCHES["fused_tick"]
+        check(saver.saved_steps == [3], f"checkpoints at {saver.saved_steps}")
+        n = res_a.state.params.numel()
+        check(n == n_expected, f"unexpected parameter count {n}")
+        files = [f for f in os.listdir(d) if f.startswith("step_00000003")]
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f)) for f in files)
+        hist = np.load(os.path.join(d, "step_00000003.npz"))[".adapt.hist"]
+        check(int(hist.sum()) > 0, "the step-3 checkpoint holds no partial histogram")
+        # run A's final state leaves the card (34.5 GB beside run B's 46 GB would not fit)
+        final_a = {k: (v.get_state() if isinstance(v, torch.Generator) else v.cpu())
+                   for k, v in key_paths(res_a.state)}
+        est_a = T.staleness_link(spec_a.pipeline).estimator
+        del res_a
+        free_cuda()
+
+        spec_b, track_b = spec(), Losses()
+        C.reset_launches()
+        t0 = time.perf_counter()
+        res_b = run(spec_b, hooks=[track_b], resume_from=d, resume_step=3)
+        restore_s = track_b.t_start - t0
+        torch.cuda.synchronize()
+        launches_b = C.LAUNCHES["fused_tick"]
+        peak = torch.cuda.max_memory_allocated()
+        final_b = dict(key_paths(res_b.state))
+        check(res_b.start_step == 3, f"resumed at {res_b.start_step}")
+        check(track_b.losses == track_a.losses[3:],
+              f"resumed losses {track_b.losses} != uninterrupted {track_a.losses[3:]}")
+        check(sorted(final_a) == sorted(final_b), "the final states' leaves differ in name")
+        differ = [k for k in final_a if not same_bits(final_a[k], final_b[k])]
+        check(not differ, f"resumed state differs from the uninterrupted one in {differ}")
+        est_b = T.staleness_link(spec_b.pipeline).estimator
+        check(est_a.n_seen == est_b.n_seen and np.array_equal(est_a.counts, est_b.counts),
+              "the host estimators differ after the resume")
+        check(launches_a == 6 and launches_b == 3,
+              f"fused_tick launched {launches_a} + {launches_b} times, expected 6 + 3")
+        row = dict(n_params=n, leaves=sorted(final_a), checkpoint_gb=ckpt_bytes / 1e9,
+                   save_s=saver.seconds, restore_s=restore_s, free_disk_gb=free_disk / 1e9,
+                   peak_gb=peak / 1e9, losses=track_a.losses, launches=[launches_a, launches_b],
+                   est_n_seen=est_b.n_seen)
+        log(f"[resume] full-width stablelm-1.6b, fused async, checkpoint at 3 of 6 (refresh "
+            f"every 2): checkpoint {row['checkpoint_gb']:.2f} GB on disk ({free_disk / 1e9:.1f} "
+            f"GB free before it), save {saver.seconds:.2f} s, restore {restore_s:.2f} s, peak "
+            f"memory {peak / 1e9:.2f} GB; resumed losses {track_b.losses} equal run A's steps "
+            f"4-6; {len(final_a)} leaves bitwise equal ({', '.join(sorted(final_a))}); "
+            f"estimator n_seen {est_b.n_seen} equal; fused_tick launches {launches_a} + "
+            f"{launches_b}")
+        del res_b, final_a, final_b
+    free_cuda()
+    return row
+
+
+def exact_simulator():
+    """The paper's Fig.-3 problem through the exact simulator: a noisy
+    quadratic, d 16, m 16, T 3000, the constant table and the eq.-26
+    normalised geometric-momentum table, on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.async_engine import simulate_async_sgd, uniform_commit_order
+    from repro_torch.core import staleness as S
+    from repro_torch.core import step_size as SS
+
+    d, m, T, alpha_c, eps = 16, 16, 3000, 0.05, 1.5
+    rng = np.random.default_rng(0)
+    batches = (0.3 * rng.standard_normal((T, d))).astype(np.float32)
+    eig = np.linspace(0.5, 3.0, d).astype(np.float32)
+    order = uniform_commit_order(T, m, seed=3)
+
+    def iters_to(losses):
+        idx = np.nonzero(losses < eps)[0]
+        return int(idx[0]) if idx.size else T + 1
+
+    def on(device):
+        e = torch.from_numpy(eig).to(device)
+
+        def loss(x, b):
+            return 0.5 * torch.sum(e * (x - b) ** 2)
+
+        x0 = torch.full((d,), 2.0, device=device)
+        bt = torch.from_numpy(batches).to(device)
+        probe = simulate_async_sgd(loss, x0, bt, order, np.full(256, alpha_c, np.float32), m)
+        pmf = S.empirical_pmf(probe.taus.cpu().numpy(), tau_max=255)
+        adaptive = SS.make_schedule("geometric_momentum", alpha_c,
+                                    S.Geometric(p=max(float(pmf[0]), 1e-3)), mu_star=0.0,
+                                    tau_max=255, normalize_pmf=pmf)
+        out = {}
+        for name, sched in (("constant", SS.constant(alpha_c, tau_max=255)),
+                            ("adaptive", adaptive)):
+            tr = simulate_async_sgd(loss, x0, bt, order, sched.table, m)
+            out[name] = {k: getattr(tr, k).cpu().numpy()
+                         for k in ("params", "taus", "losses", "alphas")}
+        return out
+
+    t0 = time.perf_counter()
+    card = on("cuda")
+    card_s = time.perf_counter() - t0
+    cpu = on("cpu")
+    row = {"card_s": card_s, "phase_s": time.perf_counter() - t0}
+    for name in ("constant", "adaptive"):
+        a, b = card[name], cpu[name]
+        check(np.array_equal(a["taus"], b["taus"]) and np.array_equal(a["alphas"], b["alphas"]),
+              f"exact simulator ({name}): taus or alphas differ between card and CPU")
+        for k in ("losses", "params"):
+            rel = float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max())
+            check(rel <= 1e-5, f"exact simulator ({name}): {k} differ by {rel:.3e} relative")
+            row[f"{name}_{k}_rel"] = rel
+        row[f"{name}_iters"] = iters_to(a["losses"])
+    check(row["adaptive_iters"] <= row["constant_iters"],
+          f"adaptive table reached eps {eps} after {row['adaptive_iters']} commits, "
+          f"constant after {row['constant_iters']}")
+    log(f"[exact] Fig.-3 quadratic d {d}, m {m}, T {T}: iterations to loss < {eps}: adaptive "
+        f"{row['adaptive_iters']}, constant {row['constant_iters']}; card vs CPU taus and alphas "
+        f"equal, losses / x within {max(v for k, v in row.items() if k.endswith('_rel')):.3e} "
+        f"relative; card {card_s:.2f} s, phase {row['phase_s']:.2f} s")
+    return row
+
+
 
 def main() -> int:
     import torch
@@ -1002,6 +1214,13 @@ def main() -> int:
         serve_agreement(arch)
         free_cuda()
 
+    # -- phase 7: checkpoint and resume on the main path, full width ------------
+    (root / "build").mkdir(exist_ok=True)
+    resume = resume_path(full, n, root / "build")
+
+    # -- phase 8: the exact simulator on the card against the CPU ----------------
+    exact = exact_simulator()
+
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
         "fused_chain": ("sync_fuse", path_counts["sync_fuse"]["fused_chain"]),
@@ -1035,7 +1254,8 @@ def main() -> int:
             bound_set_by=r.get("bound_set_by", r.get("bound_by", "bytes")),
             library_ms=r.get("library_ms"), variant=key, path=path,
         ))
-    log(json.dumps({"variants": results, "main": summary, "serving": serving}))
+    log(json.dumps({"variants": results, "main": summary, "serving": serving, "resume": resume,
+                    "exact": exact}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ fast path.  Decode runs none of them: its step is plain PyTorch, as the
 reference's is plain jnp.  ``--device cpu`` keeps the config's value (the
 plain PyTorch path).  Params are random, drawn from ``--seed``; the decode
 cache is f32, as the reference launcher's.  Prints the prefill and decode
-times, tok/s and the ids generated for the first prompt.
+times, tok/s and the ids generated for the first prompt; ``--json PATH``
+also writes them as the reference's three bench.v1 rows
+(:mod:`repro_torch.bench_schema`).
 """
 
 from __future__ import annotations
@@ -84,6 +86,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true", help="small same-family variant")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--json", default=None, metavar="PATH",
+                    help="write timings as bench.v1 rows to PATH")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -102,6 +106,18 @@ def main(argv=None) -> dict:
         print(f"decode: {args.gen} steps x batch {args.batch} in {result['decode_s']:.2f}s "
               f"({result['tok_per_s']:.1f} tok/s)")
         print("generated token ids [0]:", result["tokens"][0].tolist())
+    if args.json:
+        from repro_torch.bench_schema import bench_row, write_bench_json
+
+        config = {"arch": args.arch, "batch": args.batch, "prompt_len": args.prompt_len,
+                  "gen": args.gen, "reduced": args.reduced, "seed": args.seed}
+        base = f"serve/{args.arch}"
+        write_bench_json(args.json, [
+            bench_row(f"{base}/prefill_s", result["prefill_s"], "s", config),
+            bench_row(f"{base}/decode_s", result["decode_s"], "s", config),
+            bench_row(f"{base}/tok_per_s", result["tok_per_s"] or 0.0, "tok/s", config),
+        ])
+        print(f"wrote {args.json}")
     return result
 
 

@@ -12,6 +12,11 @@ hand-written fused kernels (one ``fused_tick`` launch per async tick);
 ``--fused`` applies through the ``fused_apply`` link (the ``fused_update``
 kernel).  The full-width model on one 80 GB card needs the fused layout and
 a short low-precision ring: ``--fuse --ring 8 --ring_dtype bfloat16``.
+
+Checkpoint and resume: ``--checkpoint_dir D --checkpoint_every N`` saves the
+full state every N steps (device state and the estimator's host half);
+rerunning with ``--resume`` (and a larger ``--steps``) prints ``resuming at
+step K`` and continues bit-identically to an uninterrupted run.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import argparse
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, reduced
 from repro_torch.optim import transform as T
-from repro_torch.run import LogHook, RunSpec, run
+from repro_torch.run import CheckpointHook, LogHook, RunSpec, run
 from repro_torch.training import default_adapt_setup
 
 
@@ -70,14 +75,52 @@ def main(argv=None):
     ap.add_argument("--fuse", action="store_true", help="lower the pipeline to the fused kernels")
     ap.add_argument("--momentum", type=float, default=None,
                     help="heavy-ball mu (adds the trace link; 0.9 by default with --fused)")
+    ap.add_argument("--checkpoint_dir", default=None,
+                    help="full-fidelity checkpoint directory (enables saving)")
+    ap.add_argument("--checkpoint_every", type=int, default=0,
+                    help="save cadence in steps (requires --checkpoint_dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --checkpoint_dir "
+                         "(bit-identical to the uninterrupted run)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume requires --checkpoint_dir")
+    if args.checkpoint_every and not args.checkpoint_dir:
+        ap.error("--checkpoint_every requires --checkpoint_dir")
+    if args.checkpoint_dir and not args.checkpoint_every and not args.resume:
+        ap.error(
+            "--checkpoint_dir does nothing without --checkpoint_every N "
+            "(to save) and/or --resume (to restore)"
+        )
     spec = build_spec(args)
     print(f"arch={spec.cfg.name} layers={spec.cfg.num_layers} mode={spec.mode} "
           f"fused={args.fused} fuse={args.fuse} device={args.device}")
+    if args.resume:
+        from repro_torch.checkpoint import latest_step
+
+        try:
+            at = latest_step(args.checkpoint_dir)
+        except FileNotFoundError:
+            raise SystemExit(
+                f"--resume: no checkpoint found under {args.checkpoint_dir!r} "
+                "(no 'latest' pointer — did a previous run save with "
+                "--checkpoint_every?)"
+            ) from None
+        if at > args.steps:
+            raise SystemExit(
+                f"--resume: checkpoint is at step {at} but --steps is "
+                f"{args.steps}; pass --steps >= {at} to continue the run"
+            )
+        print(f"resuming at step {at} from {args.checkpoint_dir}")
     hooks = [LogHook(log_every=max(args.steps // 10, 1))]
-    result = run(spec, hooks=hooks)
+    if args.checkpoint_dir and args.checkpoint_every:
+        hooks.append(CheckpointHook(args.checkpoint_dir, every=args.checkpoint_every))
+    result = run(spec, hooks=hooks, resume_from=args.checkpoint_dir if args.resume else None)
+    if not result.history:
+        print(f"nothing to do: checkpoint already at step {result.step} of {args.steps}")
+        return result
     if args.async_psgd and args.refresh_every:
         est = T.staleness_link(spec.pipeline).estimator
         print(f"online estimator: lam={est.fit('poisson').lam:.2f} (m={args.workers}), "

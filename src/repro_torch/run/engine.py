@@ -3,10 +3,16 @@
 ``build()`` makes the initial state, ``tick(state, batch)`` runs one step,
 ``refresh(state)`` is the host-side adaptation boundary (drain the
 histogram, refit, write the new table into the same tensors), and
-``finish``/``abort`` close the lifecycle.  PyTorch runs eagerly, so there is
-no compile to count; the fused layout updates its buffers in place, so a
-build copies any tensors it takes from the spec (``spec.params``,
-``spec.adapt``) and a run never mutates them.
+``finish``/``abort``/``liveness`` close the lifecycle (no-ops here: no engine
+of the port runs live machinery yet).  ``build_template()`` is the resume
+path's shape-only state: its tensors live on ``meta``, so restoring a
+full-width checkpoint never builds the state it is about to overwrite.
+
+PyTorch runs eagerly, so there is no compile to count: ``retraces`` is None
+and :class:`~repro_torch.run.hooks.BenchHook` leaves out its retrace row,
+as the reference does for a precompiled :class:`PrebuiltEngine`.  The fused
+layout updates its buffers in place, so a build copies any tensors it takes
+from the spec (``spec.params``, ``spec.adapt``) and a run never mutates them.
 """
 
 from __future__ import annotations
@@ -17,19 +23,23 @@ import torch
 
 from repro_torch.run.spec import RunSpec
 
-__all__ = ["SyncEngine", "AsyncEngine", "make_engine"]
+__all__ = ["SyncEngine", "AsyncEngine", "PrebuiltEngine", "make_engine"]
 
 
 def _refresher_of(pipeline):
-    from repro_torch.optim import transform as T
+    """The refresh-capable handle of ``pipeline``; shares
+    :func:`repro_torch.run.ckpt.refresh_link_of`'s resolution, so the
+    checkpointed host state and the object a refresh mutates are the same."""
+    from repro_torch.run.ckpt import refresh_link_of
 
-    link = T.staleness_link(pipeline)
+    link = refresh_link_of(pipeline)
     assert link is not None, "refresh requested but the pipeline has no scale_by_staleness link"
     return link
 
 
 class _EngineBase:
     mode = ""
+    retraces = None  # eager PyTorch: nothing is traced, so nothing to count
 
     def __init__(self, spec: RunSpec):
         self.spec = spec
@@ -50,16 +60,33 @@ class _EngineBase:
         a = self.spec.adapt
         return None if a is None else a.to(self.spec.device).clone()
 
-    def build(self):
+    def _build(self, params, adapt):
         from repro_torch.training.steps import init_train_state
 
         spec = self.spec
         return init_train_state(
             spec.cfg, spec.pipeline, seed=spec.seed, device=spec.device,
             async_ring=spec.ring if self.mode == "async" else 0,
-            adapt=self._adapt(), params=self._params(), fuse=spec.fuse,
-            ring_dtype=spec.ring_dtype,
+            adapt=adapt, params=params, fuse=spec.fuse, ring_dtype=spec.ring_dtype,
         )
+
+    def build(self):
+        return self._build(self._params(), self._adapt())
+
+    def build_template(self):
+        """The state's structure, shapes and dtypes with nothing allocated:
+        every tensor on ``meta``, the generator (which cannot be) on the
+        run's device.  The resume path restores into it."""
+        from repro_torch.models import model as M
+        from repro_torch.tree import tree_map
+
+        spec = self.spec
+        if spec.params is None:
+            params = M.init_model(None, spec.cfg, "meta")
+        else:
+            params = tree_map(lambda t: torch.empty_like(t, device="meta"), spec.params)
+        adapt = None if spec.adapt is None else spec.adapt.to("meta")
+        return self._build(params, adapt)
 
     def _make_step(self) -> Callable:
         from repro_torch.training.steps import make_step
@@ -94,6 +121,9 @@ class _EngineBase:
     def abort(self) -> None:
         pass
 
+    def liveness(self) -> dict:
+        return {}
+
 
 class SyncEngine(_EngineBase):
     """Synchronous engine (paper §III SyncPSGD baseline)."""
@@ -110,6 +140,24 @@ class AsyncEngine(_EngineBase):
         super().__init__(spec)
         assert spec.ring > 0, "async mode needs RunSpec.ring (delayed-ring depth)"
         assert spec.adapt is not None, "async mode needs RunSpec.adapt (see make_adapt)"
+
+
+class PrebuiltEngine(_EngineBase):
+    """Adapter for a hand-built ``(step_fn, state)`` pair: ``build()`` and
+    ``build_template()`` return that state, ``tick`` calls ``step_fn``."""
+
+    def __init__(self, step_fn: Callable, state: Any, *, pipeline=None,
+                 spec: RunSpec | None = None):
+        super().__init__(spec if spec is not None else RunSpec())
+        self.pipeline = pipeline
+        self._state = state
+        self._tick = step_fn
+
+    def build(self):
+        return self._state
+
+    def build_template(self):
+        return self._state
 
 
 _ENGINES = {"sync": SyncEngine, "async": AsyncEngine}

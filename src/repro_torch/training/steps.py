@@ -113,7 +113,8 @@ def init_train_state(
     """Initial state.  ``fuse=True`` builds the fused layout for a fuseable
     pipeline: flat optimizer state, a flat ``(K, N)`` ring and, for f32
     params, flat-native params.  ``params`` may be a tree or a packed
-    ``(N,)`` buffer (e.g. from :func:`repro_torch.bridge.params_from_jax`).
+    ``(N,)`` buffer (e.g. from :func:`repro_torch.bridge.params_from_jax`);
+    params on ``meta`` give a shape-only state (the resume template).
 
     As the reference, f32 leaves are first stored in ``cfg.param_dtype``: a
     bf16 tree is then not flat-native and gets a bf16 ring
@@ -138,7 +139,8 @@ def init_train_state(
         params=params,
         opt_state=(fused or opt).init(params),
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        rng=torch.Generator(device=dev).manual_seed(seed + 1),
+        # a shape-only (meta) state still needs a real generator: on ``device``
+        rng=torch.Generator(device=device if dev.type == "meta" else dev).manual_seed(seed + 1),
         delayed=init_ring(params, async_ring, dtype=ring_dtype) if async_ring else None,
         adapt=adapt,
     )
