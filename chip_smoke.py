@@ -94,6 +94,31 @@ Phases, each fatal on failure:
    exactly equal, losses and x within 1e-5 relative (max |d| / max |CPU|),
    and the adaptive table at loss 1.5 in no more commits than the constant
    one.  Prints both commit counts and the phase's seconds.
+9. sharded async — ``run(RunSpec(mode="sharded_async", fuse=True, ...))`` on
+   full-width stablelm-1.6b: momentum, W = 2 workers of K = 4 bf16 ring
+   slots each (worker 0 draws from a geometric CDF, worker 1 replays an
+   event-simulator trace), the eq.-26 table, batch 4 x seq 512, 6 ticks, a
+   refresh every 3; counts zeroed just before and read just after.  Checks
+   6 ``fused_chain`` launches and no ``fused_tick``, finite losses, a
+   refresh that rewrote the alpha table in place, and that each refresh
+   drained a merged histogram of exactly W x 3 taus.  Prints the median
+   tick, peak memory and the ring's GB.  Then the same fused sharded run on
+   reduced stablelm (W 2 and 4) on the card against the plain CPU path (same
+   params, batches and uniforms): with an f32 ring, as phase 3's reduced
+   check, max |dp| <= 1e-5; with a bf16 ring the difference is printed
+   (a bf16 rounding flip moves p by up to 2^-8 of a step); histograms and
+   tables equal in both.
+10. the paper's CNN — the Fig.-1 CNN at 32x32x3, batch 16, m 16, the
+   constant table at alpha 0.01, through the exact simulator on the card and
+   on the CPU over the first 100 commits of the heterogeneous event order:
+   taus and alphas exactly equal; in float64 the losses within 1e-4
+   relative (max |d| / max |CPU|); in f32 the same bound over the commits
+   before the CPU's own f32 run leaves its f64 run by 1e-5 relative (the
+   trajectory amplifies round-off; the horizon is measured in this run).
+   Then ``experiments.convergence`` at m 16, one repeat, T 2500, printing its
+   row (not gated on speedup: the paper's claim is a trend), and the CNN
+   example's constant and MindTheStep runs at 600 commits, printing both
+   iterations-to-threshold and seconds.
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
 ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
@@ -1076,6 +1101,229 @@ def exact_simulator():
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the sharded async engine; phase 10: the paper's CNN
+# ---------------------------------------------------------------------------
+
+SHARDED_W, SHARDED_K = 2, 4
+
+
+def sharded_setup(lr, W, K, device):
+    """The eq.-26 MindTheStep chain (momentum 0.9) and a WorkerAdaptState
+    with heterogeneous workers: worker 0 a geometric CDF, worker 1 an
+    event-simulator trace, any further ones Poisson CDFs."""
+    from repro_torch.async_engine import EventSimConfig, simulate_staleness_trace
+    from repro_torch.core.staleness import Geometric, Poisson
+    from repro_torch.optim import transform as T
+    from repro_torch.training import default_adapt_setup, make_worker_adapt
+
+    sched, _, adapt = default_adapt_setup(lr, W, K, device="cpu")
+    samplers = [Geometric(p=1.0 / (1.0 + W)),
+                simulate_staleness_trace(EventSimConfig(m=W), num_updates=64, seed=0)]
+    samplers += [Poisson(float(W))] * (W - 2)
+    wadapt = make_worker_adapt(sched.table[:adapt.tau_max + 1], samplers, cdf_support=K,
+                               device=device)
+    link = T.scale_by_staleness(sched, lr, m=W, tau_max=adapt.tau_max)
+    return T.chain(link, T.scale(-lr), T.trace(0.9)), wadapt
+
+
+def sharded_path(cfg, n_expected):
+    import torch
+
+    from repro_torch.kernels.adaptive_update import cuda as C
+    from repro_torch.optim import transform as T
+    from repro_torch.run import Hook, RunSpec, run
+    from repro_torch.training import merge_worker_hist
+
+    W, K = SHARDED_W, SHARDED_K
+    pipe, adapt = sharded_setup(0.01, W, K, "cpu")
+    est = T.staleness_link(pipe).estimator
+
+    class Drains(Hook):
+        """Per tick (measurement only, it waits for the device): the merged
+        histogram's count; per refresh, the taus the estimator took in."""
+
+        def __init__(self):
+            self.hist, self.drained, self._seen = [], [], 0
+
+        def on_refresh(self, ctx):
+            self.drained.append(est.n_seen - self._seen)
+            self._seen = est.n_seen
+
+        def on_tick(self, ctx):
+            self.hist.append(int(merge_worker_hist(ctx.state.adapt).sum()))
+
+    spec = RunSpec(cfg=cfg, pipeline=pipe, mode="sharded_async", num_steps=6, batch_size=4,
+                   seq_len=512, ring=K, ring_dtype="bfloat16", adapt=adapt, fuse=True,
+                   refresh_every=3, seed=0, device="cuda")
+    hook, drains = TickLog("sharded", workers=W), Drains()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_launches()
+    t0 = time.perf_counter()
+    result = run(spec, hooks=[hook, drains])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(C.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    state = result.state
+    n = state.params.numel()
+    ring = state.delayed.ring
+    ring_gb = ring.numel() * ring.element_size() / 1e9
+    log(f"[sharded] N={n} params  ring {tuple(ring.shape)} {ring.dtype} ({ring_gb:.2f} GB)  "
+        f"wall {wall:.2f}s  peak memory {peak / 1e9:.2f} GB  launches {counts}")
+    check(n == n_expected, f"unexpected parameter count {n}")
+    check(tuple(ring.shape[:2]) == (W, K), f"ring shape {tuple(ring.shape)}")
+    check(all(math.isfinite(r["loss"]) for r in hook.rows), "non-finite loss on the sharded path")
+    check(counts["fused_chain"] == spec.num_steps and counts["fused_tick"] == 0,
+          f"sharded path launched fused_chain {counts['fused_chain']} and fused_tick "
+          f"{counts['fused_tick']} times, expected {spec.num_steps} and 0")
+    check(counts["fused_combine"] == counts["fused_update"] == 0,
+          "the sharded path launched the combine or update kernel")
+    check(state.adapt.alpha_table.data_ptr() == hook.table_ptr,
+          "the refresh replaced the alpha table tensor instead of writing into it")
+    check(not torch.equal(hook.rows[2]["table"], hook.rows[1]["table"])
+          or not torch.equal(hook.rows[5]["table"], hook.rows[4]["table"]),
+          "no refresh changed the alpha table")
+    check(drains.drained == [W * 3, W * 3],
+          f"the refreshes drained {drains.drained} taus, expected {W * 3} each")
+    check(drains.hist == [W, 2 * W, 0, W, 2 * W, 0],
+          f"merged histogram counts per tick {drains.hist}")
+    steady = [r["ms"] for r in hook.rows[1:]]
+    summary = dict(ticks=spec.num_steps, first_tick_ms=hook.rows[0]["ms"],
+                   median_tick_ms=sorted(steady)[len(steady) // 2], peak_gb=peak / 1e9,
+                   ring_gb=ring_gb, losses=[r["loss"] for r in hook.rows], launches=counts,
+                   drained=drains.drained)
+    log(f"[sharded] losses {summary['losses']}; median tick {summary['median_tick_ms']:.1f} ms "
+        f"(first {summary['first_tick_ms']:.1f} ms); refreshes drained {drains.drained} taus")
+    return summary, counts
+
+
+def sharded_agreement(W):
+    """Reduced stablelm, 4 fused sharded ticks (refresh every 2): the card
+    against the CPU on the same params, batches and uniforms, with an f32
+    ring (phase 3's reduced check and tolerance) and, printed, a bf16 one:
+    there a 1e-7 difference in a gradient element can flip its bf16
+    rounding (2^-8 of it), so the two devices part by up to
+    lr x weight x |g| x 2^-8 a tick, which no f32 bound describes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.optim import transform as T
+    from repro_torch.run import RunSpec, run
+    from repro_torch.training import init_params
+
+    cfg = reduced(get_config("stablelm-1.6b"))
+    flat = T.pack_flat(init_params(0, cfg, "cpu"))
+    draws = np.random.default_rng(0).random((4, W)).astype(np.float32)
+    out = {}
+    for ring_dtype in (None, "bfloat16"):
+        finals = {}
+        for device in ("cpu", "cuda"):
+            it = iter(draws)
+            pipe, adapt = sharded_setup(0.05, W, 4, "cpu")
+            spec = RunSpec(cfg=cfg, pipeline=pipe, mode="sharded_async", num_steps=4,
+                           batch_size=2, seq_len=64, ring=4, ring_dtype=ring_dtype, adapt=adapt,
+                           fuse=True, params=flat, refresh_every=2, seed=0, device=device,
+                           tau_source=lambda: torch.from_numpy(next(it)))
+            s = run(spec).state
+            finals[device] = (s.params.cpu(), s.adapt.hist.cpu(), s.adapt.alpha_table.cpu())
+        d = (finals["cuda"][0] - finals["cpu"][0]).abs().max().item()
+        check(torch.equal(finals["cuda"][1], finals["cpu"][1])
+              and torch.equal(finals["cuda"][2], finals["cpu"][2]),
+              f"histograms or alpha tables differ between card and CPU (ring {ring_dtype})")
+        out[ring_dtype or "float32"] = d
+    log(f"[sharded agreement] reduced stablelm, W {W}, 4 fused sharded ticks: card vs CPU "
+        f"max |dp| = {out['float32']:.3e} with an f32 ring (gate 1e-5), {out['bfloat16']:.3e} "
+        f"with a bf16 ring (not gated); histograms and tables equal")
+    check(out["float32"] <= 1e-5, f"card and CPU disagree by {out['float32']}")
+    return out
+
+
+def cnn_agreement():
+    """The Fig.-1 CNN at 32x32x3, batch 16, m 16, through the exact simulator
+    on the card and on the CPU, over the first 100 commits, in f64 and f32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.async_engine import simulate_async_sgd
+    from repro_torch.experiments.async_vs_sync_cnn import cnn_batches
+    from repro_torch.experiments.common import event_order
+    from repro_torch.models.cnn import cnn_loss, init_cnn
+    from repro_torch.tree import tree_map
+
+    T_, m, alpha = 100, 16, 0.01
+    _, order = event_order(m, T_, seed=1)
+    params = init_cnn(torch.Generator().manual_seed(0), image=32, device="cpu")
+    batches = cnn_batches(T_, 16, 32, "cpu")
+    table = np.full(256, alpha, np.float32)
+    out, secs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        for device in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.to(device, dtype), params)
+            b = {"images": batches["images"].to(device, dtype), "labels": batches["labels"].to(device)}
+            t0 = time.perf_counter()
+            tr = simulate_async_sgd(cnn_loss, p, b, order, table, m)
+            out[dtype, device] = {k: getattr(tr, k).cpu().numpy()
+                                  for k in ("taus", "alphas", "losses")}
+            secs[dtype, device] = time.perf_counter() - t0
+
+    def rel(a, b):
+        return np.abs(a - b) / np.abs(b).max()
+
+    row = {}
+    for dtype in (torch.float64, torch.float32):
+        a, b = out[dtype, "cuda"], out[dtype, "cpu"]
+        check(np.array_equal(a["taus"], b["taus"]) and np.array_equal(a["alphas"], b["alphas"]),
+              f"CNN ({dtype}): taus or alphas differ between card and CPU")
+        check(np.isfinite(a["losses"]).all(), f"CNN ({dtype}): non-finite loss on the card")
+        row[str(dtype).split(".")[-1]] = rel(a["losses"], b["losses"])
+    f64, f32 = row["float64"], row["float32"]
+    check(f64.max() <= 1e-4, f"CNN f64 losses differ card vs CPU by {f64.max():.3e} relative")
+    drift = rel(out[torch.float32, "cpu"]["losses"], out[torch.float64, "cpu"]["losses"])
+    past = np.nonzero(drift > 1e-5)[0]
+    horizon = int(past[0]) if past.size else T_
+    check(horizon > 0 and f32[:horizon].max() <= 1e-4,
+          f"CNN f32 losses differ card vs CPU by {f32[:horizon].max():.3e} relative within the "
+          f"first {horizon} commits")
+    f32_past = np.nonzero(f32 > 1e-4)[0]
+    res = dict(commits=T_, alpha=alpha, f64_max_rel=float(f64.max()),
+               f32_max_rel_within_horizon=float(f32[:horizon].max()), horizon=horizon,
+               f32_max_rel=float(f32.max()),
+               f32_first_past_1e4=int(f32_past[0]) if f32_past.size else None,
+               seconds={f"{str(k[0]).split('.')[-1]}/{k[1]}": v for k, v in secs.items()},
+               commits_per_s={f"{str(k[0]).split('.')[-1]}/{k[1]}": T_ / v for k, v in secs.items()})
+    log(f"[cnn] Fig.-1 CNN 32x32x3, batch 16, m 16, alpha {alpha}, {T_} commits: card vs CPU "
+        f"taus and alphas equal; f64 losses within {res['f64_max_rel']:.3e} relative; f32 "
+        f"within {res['f32_max_rel_within_horizon']:.3e} over the first {horizon} commits (the "
+        f"CPU's f32 run leaves its f64 run by 1e-5 at commit {horizon}), {res['f32_max_rel']:.3e} "
+        f"over all; commits/s " + ", ".join(f"{k} {v:.1f}" for k, v in res["commits_per_s"].items()))
+    return res
+
+
+def cnn_experiments():
+    import torch
+
+    from repro_torch.experiments import async_vs_sync_cnn, convergence
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    conv = convergence.run(T=2500, repeats=1, workers=(16,), device="cuda")
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    convergence.print_table(conv, logger=log)
+    row = {k: v for k, v in conv["rows"][0].items() if k != "losses"}
+    log(f"[convergence] m 16, T 2500, one repeat, 5 strategies: {conv_s:.2f} s on the card "
+        f"({5 * 2500 / conv_s:.1f} commits/s)")
+    ex = async_vs_sync_cnn.run(steps=600, device="cuda")
+    async_vs_sync_cnn.print_report(ex, logger=log)
+    example = {tag: {k: v for k, v in ex[tag].items() if k != "losses"}
+               for tag in ("const", "mindthestep")}
+    for tag in ("const", "mindthestep"):
+        check(math.isfinite(example[tag]["final_smoothed"]), f"CNN example ({tag}): non-finite loss")
+    return dict(convergence=row, convergence_s=conv_s, example=example)
+
+
 def main() -> int:
     import torch
 
@@ -1221,9 +1469,22 @@ def main() -> int:
     # -- phase 8: the exact simulator on the card against the CPU ----------------
     exact = exact_simulator()
 
+    # -- phase 9: the sharded async engine at full width --------------------------
+    free_cuda()
+    sharded, sharded_counts = sharded_path(full, n)
+    log("[sharded] " + json.dumps({k: v for k, v in sharded.items() if k != "losses"}))
+    free_cuda()
+    sharded["agreement"] = {W: sharded_agreement(W) for W in (2, 4)}
+    free_cuda()
+
+    # -- phase 10: the paper's CNN and its experiments ----------------------------
+    cnn = cnn_agreement()
+    cnn.update(cnn_experiments())
+    free_cuda()
+
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
-        "fused_chain": ("sync_fuse", path_counts["sync_fuse"]["fused_chain"]),
+        "fused_chain": ("sharded_async (phase 9)", sharded_counts["fused_chain"]),
         "fused_combine": ("async_fuse_clip", path_counts["async_fuse_clip"]["fused_combine"]),
         "fused_update": ("async_fused_apply", path_counts["async_fused_apply"]["fused_update"]),
     }
@@ -1254,8 +1515,12 @@ def main() -> int:
             bound_set_by=r.get("bound_set_by", r.get("bound_by", "bytes")),
             library_ms=r.get("library_ms"), variant=key, path=path,
         ))
+    kernels[[k["name"] for k in kernels].index("fused_chain")]["launches_by_path"] = {
+        "sharded_async": sharded_counts["fused_chain"],
+        "sync_fuse": path_counts["sync_fuse"]["fused_chain"],
+        "async_fuse_clip": path_counts["async_fuse_clip"]["fused_chain"]}
     log(json.dumps({"variants": results, "main": summary, "serving": serving, "resume": resume,
-                    "exact": exact}))
+                    "exact": exact, "sharded": sharded, "cnn": cnn}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,11 @@ exported as numpy, become the port's tensors here.
 * :func:`adapt_from_jax` and :func:`delayed_from_jax` do the same for an
   ``AdaptState``'s tables and histogram and for a flat delayed ring (a bf16
   ring arrives as numpy's ``bfloat16`` extension type and keeps its bits).
+* :func:`worker_adapt_from_jax` and :func:`worker_ring_from_jax` carry the
+  sharded engine's ``WorkerAdaptState`` and per-worker ``(W, K, ...)``
+  rings (flat, or a dict keyed by the params' key-path names).
+* :func:`cnn_params_from_jax` turns the reference's CNN or MLP classifier
+  params (key-path names, HWIO convolution weights) into the port's tree.
 * :func:`cache_from_jax` turns the reference's decode cache (from
   ``prefill`` or ``init_decode_state``, keyed by key path the same way) into
   the port's, dtypes and bf16 bits kept, so a decode step can be compared
@@ -23,16 +28,19 @@ Nothing here imports the JAX package: the caller does the export.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
-from repro_torch.async_engine.delayed import DelayedGradients
+from repro_torch.async_engine.delayed import DelayedGradients, WorkerRing
 from repro_torch.models.transformer import init_stack_cache
-from repro_torch.training.adapt import AdaptState
+from repro_torch.training.adapt import AdaptState, WorkerAdaptState
 from repro_torch.training.steps import param_template
 from repro_torch.tree import keystr, tree_paths
 
 __all__ = ["params_from_jax", "params_to_numpy", "adapt_from_jax", "delayed_from_jax",
+           "worker_adapt_from_jax", "worker_ring_from_jax", "cnn_params_from_jax",
            "cache_from_jax", "to_torch"]
 
 
@@ -87,6 +95,53 @@ def delayed_from_jax(ring, step, device="cpu") -> DelayedGradients:
     """A flat ``(K, N)`` delayed ring and its step counter."""
     return DelayedGradients(ring=to_torch(ring, device),
                             step=torch.tensor(int(step), dtype=torch.int32, device=device))
+
+
+def worker_adapt_from_jax(alpha_table, tau_cdf, tau_trace, use_trace, hist,
+                          device="cpu") -> WorkerAdaptState:
+    """A WorkerAdaptState from the reference's five arrays (f32, f32, int32,
+    int32, int32)."""
+    return WorkerAdaptState(
+        alpha_table=to_torch(np.asarray(alpha_table, np.float32), device),
+        tau_cdf=to_torch(np.asarray(tau_cdf, np.float32), device),
+        tau_trace=to_torch(np.asarray(tau_trace, np.int32), device),
+        use_trace=to_torch(np.asarray(use_trace, np.int32), device),
+        hist=to_torch(np.asarray(hist, np.int32), device),
+    )
+
+
+def _nest(np_tree: dict, device) -> dict:
+    """``{"['a']['b']": array}`` -> ``{"a": {"b": tensor}}``."""
+    out: dict = {}
+    for name, a in np_tree.items():
+        keys = re.findall(r"\['([^']*)'\]", name)
+        if not keys or "".join(f"['{k}']" for k in keys) != name:
+            raise ValueError(f"not a key-path name: {name!r}")
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = to_torch(a, device)
+    return out
+
+
+def worker_ring_from_jax(ring, step, cfg=None, device="cpu") -> WorkerRing:
+    """Per-worker rings and their step: a flat ``(W, K, N)`` array, or (with
+    ``cfg``) a dict of ``(W, K, ...)`` arrays keyed by the params' key-path
+    names; bf16 bits are kept."""
+    if isinstance(ring, dict):
+        _check_names("worker ring", ring, param_template(cfg))
+        ring = _nest(ring, device)
+    else:
+        ring = to_torch(ring, device)
+    return WorkerRing(ring=ring, step=torch.tensor(int(step), dtype=torch.int32, device=device))
+
+
+def cnn_params_from_jax(np_tree: dict, device="cpu") -> dict:
+    """The reference's CNN (or MLP classifier) params, keyed by key-path
+    name (``['conv1']['w']`` ...), as the port's nested dict on ``device``;
+    the layouts are the same (HWIO convolution weights), so nothing is
+    transposed."""
+    return _nest(np_tree, device)
 
 
 def cache_from_jax(np_tree: dict, cfg, device="cpu") -> dict:

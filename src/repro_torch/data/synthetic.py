@@ -1,8 +1,13 @@
-"""Deterministic synthetic LM data (port of ``src/repro/data/synthetic.py``).
+"""Deterministic synthetic data (port of ``src/repro/data/synthetic.py``).
 
-Numpy inside, exactly as the reference, so both packages see the same tokens
+Numpy inside, exactly as the reference, so both packages see the same arrays
 for the same seed; the batches come out as torch tensors on ``device``.
 Tokens and labels are int64, the index type PyTorch's gathers take.
+
+* ``lm_batches``             — token streams with a planted bigram structure;
+* ``classification_batches`` — Gaussian-blob classification;
+* ``cifar_like_batches``     — 32x32x3 images with class-dependent means, the
+  CIFAR-10 stand-in of the paper's Fig. 3 protocol.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-__all__ = ["lm_batches", "make_batch_for"]
+__all__ = ["lm_batches", "classification_batches", "cifar_like_batches", "make_batch_for"]
 
 
 def _lm_arrays(vocab: int, batch: int, seq: int, seed: int, step: int,
@@ -48,6 +53,41 @@ def lm_batches(
     while True:
         toks, labels = _lm_arrays(vocab, batch, seq, seed, step, next_tok, structure)
         yield {"tokens": _to(toks, device), "labels": _to(labels, device)}
+        step += 1
+
+
+def classification_batches(
+    d: int, num_classes: int, batch: int, *, seed: int = 0, scale: float = 2.0,
+    device: str | torch.device = "cpu",
+) -> Iterator[dict]:
+    """Gaussian blobs: class c has mean ``scale * mu_c`` (a fixed random unit
+    vector); ``x`` is f32, ``labels`` int64."""
+    rng = np.random.default_rng(seed)
+    mus = rng.normal(size=(num_classes, d))
+    mus = scale * mus / np.linalg.norm(mus, axis=1, keepdims=True)
+    step = 0
+    while True:
+        r = np.random.default_rng((seed, 1, step))
+        y = r.integers(0, num_classes, size=batch)
+        x = mus[y] + r.normal(size=(batch, d))
+        yield {"x": _to(x.astype(np.float32), device), "labels": _to(y, device)}
+        step += 1
+
+
+def cifar_like_batches(
+    batch: int, *, image: int = 32, num_classes: int = 10, seed: int = 0, scale: float = 1.5,
+    device: str | torch.device = "cpu",
+) -> Iterator[dict]:
+    """NHWC ``(batch, image, image, 3)`` f32 images whose per-class mean
+    patterns are fixed random blobs, and int64 labels."""
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(num_classes, image, image, 3)).astype(np.float32)
+    step = 0
+    while True:
+        r = np.random.default_rng((seed, 2, step))
+        y = r.integers(0, num_classes, size=batch)
+        x = scale * protos[y] + r.normal(size=(batch, image, image, 3)).astype(np.float32)
+        yield {"images": _to(x.astype(np.float32), device), "labels": _to(y, device)}
         step += 1
 
 

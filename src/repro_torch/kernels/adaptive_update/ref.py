@@ -71,8 +71,10 @@ def fused_chain_ref(kind: str, p, g, bufs, s):
 
 def fused_combine_ref(g, ring, step, taus, weights):
     """Ring push + weighted combine on a bare ``(K, N)`` ring:
-    ``(g_eff, live, new_ring)``."""
-    g_eff, live, new = delayed_combine(DelayedGradients(ring=ring, step=step), g, taus, weights)
+    ``(g_eff, live, new_ring)``; ``new_ring`` is a pushed copy (the ring
+    combine itself pushes in place)."""
+    g_eff, live, new = delayed_combine(DelayedGradients(ring=ring.clone(), step=step), g, taus,
+                                       weights)
     return g_eff, live, new.ring
 
 

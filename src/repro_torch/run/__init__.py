@@ -8,7 +8,13 @@
 """
 
 from repro_torch.run.ckpt import refresh_link_of, restore_checkpoint, save_checkpoint
-from repro_torch.run.engine import AsyncEngine, PrebuiltEngine, SyncEngine, make_engine
+from repro_torch.run.engine import (
+    AsyncEngine,
+    PrebuiltEngine,
+    ShardedAsyncEngine,
+    SyncEngine,
+    make_engine,
+)
 from repro_torch.run.hooks import BenchHook, CheckpointHook, EvalHook, Hook, LogHook
 from repro_torch.run.orchestrator import RunContext, RunResult, run
 from repro_torch.run.spec import MODES, RunSpec
@@ -17,6 +23,7 @@ __all__ = [
     "RunSpec",
     "MODES",
     "AsyncEngine",
+    "ShardedAsyncEngine",
     "SyncEngine",
     "PrebuiltEngine",
     "make_engine",

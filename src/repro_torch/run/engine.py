@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.run.spec import RunSpec
 
-__all__ = ["SyncEngine", "AsyncEngine", "PrebuiltEngine", "make_engine"]
+__all__ = ["SyncEngine", "AsyncEngine", "ShardedAsyncEngine", "PrebuiltEngine", "make_engine"]
 
 
 def _refresher_of(pipeline):
@@ -142,6 +142,48 @@ class AsyncEngine(_EngineBase):
         assert spec.adapt is not None, "async mode needs RunSpec.adapt (see make_adapt)"
 
 
+class ShardedAsyncEngine(_EngineBase):
+    """The W-worker simulation with per-worker rings and samplers, the
+    workers split over the processes of ``spec.mesh``."""
+
+    mode = "sharded_async"
+
+    def __init__(self, spec: RunSpec):
+        super().__init__(spec)
+        assert spec.ring > 0, "sharded_async mode needs RunSpec.ring"
+        assert spec.adapt is not None, (
+            "sharded_async mode needs RunSpec.adapt (a WorkerAdaptState; see make_worker_adapt)")
+        self.mesh = spec.mesh
+        if self.mesh is None:
+            from repro_torch.launch.mesh import make_workers_mesh
+
+            self.mesh = make_workers_mesh(device=spec.device)
+
+    def _build(self, params, adapt):
+        from repro_torch.training.steps import init_sharded_async_state
+
+        spec = self.spec
+        return init_sharded_async_state(
+            spec.cfg, spec.pipeline, ring=spec.ring, adapt=adapt, seed=spec.seed,
+            device=spec.device, params=params, mesh=self.mesh, fuse=spec.fuse,
+            ring_dtype=spec.ring_dtype,
+        )
+
+    def _make_step(self) -> Callable:
+        from repro_torch.training.steps import make_step
+
+        spec = self.spec
+        return make_step(spec.cfg, spec.pipeline, mode=self.mode, alpha_c=spec.alpha_c,
+                         fuse=spec.fuse, tau_source=spec.tau_source, mesh=self.mesh)
+
+    def refresh(self, state):
+        from repro_torch.training.adapt import worker_host_refresh
+
+        self.require_refreshable(state)
+        worker_host_refresh(state.adapt, _refresher_of(self.pipeline), group=self.mesh.group)
+        return state
+
+
 class PrebuiltEngine(_EngineBase):
     """Adapter for a hand-built ``(step_fn, state)`` pair: ``build()`` and
     ``build_template()`` return that state, ``tick`` calls ``step_fn``."""
@@ -160,7 +202,7 @@ class PrebuiltEngine(_EngineBase):
         return self._state
 
 
-_ENGINES = {"sync": SyncEngine, "async": AsyncEngine}
+_ENGINES = {"sync": SyncEngine, "async": AsyncEngine, "sharded_async": ShardedAsyncEngine}
 
 
 def make_engine(spec: RunSpec) -> Any:

@@ -1,5 +1,5 @@
 """RunSpec: the declarative description of one training run (port of
-``src/repro/run/spec.py``, modes ``sync`` and ``async``).
+``src/repro/run/spec.py``, modes ``sync``, ``async`` and ``sharded_async``).
 
 One dataclass captures everything the orchestrator needs to *reconstruct* a
 run from nothing, which is what makes resume possible: ``run(spec,
@@ -17,8 +17,11 @@ Data source (resolved in this order):
   ``lm_batches(cfg.vocab_size, batch_size, seq_len, seed=seed)`` on ``device``.
 
 ``device`` defaults to the card; tests pass ``device="cpu"``.
-``tau_source`` (async) hands the step its workers' uniforms instead of the
-state's generator, so a run can replay another's draws.
+``tau_source`` (async modes) hands the step its workers' uniforms instead of
+the state's generator, so a run can replay another's draws.  ``mesh``
+(``sharded_async``) is the :class:`~repro_torch.launch.mesh.WorkersMesh`
+(default: one process on ``device``); ``adapt`` is then a
+``WorkerAdaptState``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Iterable, Iterator
 
-MODES = ("sync", "async")
+MODES = ("sync", "async", "sharded_async")
 
 __all__ = ["RunSpec", "MODES"]
 
@@ -49,6 +52,7 @@ class RunSpec:
     ring: int = 0
     ring_dtype: Any = None  # torch dtype or name; None: f32 for all-f32 params
     adapt: Any = None
+    mesh: Any = None
     fuse: bool = False
     alpha_c: float | None = None
     params: Any = None  # tree or packed (N,) buffer (default: init from seed)

@@ -1,5 +1,4 @@
-"""Train and serve step factories (port of ``src/repro/training/steps.py``:
-training modes ``sync`` and ``async``, and ``make_serve_step``).
+"""Train and serve step factories (port of ``src/repro/training/steps.py``).
 
 One factory, :func:`make_step`, produces the training step from a single
 gradient-transform pipeline:
@@ -10,15 +9,22 @@ gradient-transform pipeline:
   matching delayed gradients are combined from the ring with weights
   ``alpha(tau_w) / (alpha_c W)`` (the pipeline's ``scale_by_staleness`` and
   ``drop_stale`` links are absorbed into these weights) and the rest of the
-  pipeline runs on the combined gradient.
+  pipeline runs on the combined gradient;
+* ``mode="sharded_async"`` — the same W-worker simulation with per-worker
+  rings, heterogeneous tau samplers (CDF rows or replayed traces) and
+  per-worker histograms (:class:`~repro_torch.training.adapt.WorkerAdaptState`),
+  the workers split over the processes of a
+  :class:`~repro_torch.launch.mesh.WorkersMesh`; each rank combines its own
+  workers and one ``all_reduce`` sums the partial combines.
 
 ``fuse=True`` lowers the pipeline to the fused kernels
 (:mod:`repro_torch.optim.fuse`): the ring is one flat ``(K, N)`` buffer, f32
 params are flat-NATIVE (``TrainState.params`` is the packed ``(N,)`` buffer,
 viewed leaf-wise only inside the loss, so autograd returns the packed
 gradient) and the async tick is one ``fused_tick`` launch that updates
-params, velocity and ring in place.  Inside the port the fused trajectory is
-bitwise equal (f32, CPU) to the link-by-link one.
+params, velocity and ring in place (in sharded mode the per-worker combine
+stays plain and the apply is one ``fused_chain`` launch).  Inside the port
+the fused trajectory is bitwise equal (f32, CPU) to the link-by-link one.
 
 Nothing in a step waits for the device: taus, weights, the histogram and
 every scalar stay tensors on the state's device, and the metrics come back as
@@ -36,14 +42,26 @@ import torch
 
 from repro_torch.async_engine.delayed import (
     DelayedGradients,
+    WorkerRing,
     delayed_combine,
     init_delayed,
     init_flat_delayed,
+    init_flat_worker_ring,
+    init_worker_ring,
+    worker_ring_combine,
 )
 from repro_torch.models import model as M
 from repro_torch.models.layers import dtype_of
 from repro_torch.optim import transform as T
-from repro_torch.training.adapt import AdaptState, alpha_lookup, record_taus, sample_taus
+from repro_torch.training.adapt import (
+    AdaptState,
+    WorkerAdaptState,
+    alpha_lookup,
+    record_taus,
+    record_worker_taus,
+    sample_taus,
+    sample_worker_taus,
+)
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
@@ -52,11 +70,13 @@ __all__ = [
     "param_template",
     "param_view",
     "init_train_state",
+    "init_sharded_async_state",
     "make_step",
+    "make_sharded_async_train_step",
     "make_serve_step",
 ]
 
-MODES = ("sync", "async")
+MODES = ("sync", "async", "sharded_async")
 f32 = torch.float32
 
 
@@ -66,8 +86,8 @@ class TrainState:
     opt_state: Any
     step: torch.Tensor  # int32 0-d, on the params' device
     rng: torch.Generator | None  # draws the workers' uniforms (async mode)
-    delayed: DelayedGradients | None = None
-    adapt: AdaptState | None = None
+    delayed: DelayedGradients | WorkerRing | None = None
+    adapt: AdaptState | WorkerAdaptState | None = None
 
 
 def init_params(seed: int, cfg, device="cuda") -> Any:
@@ -184,12 +204,16 @@ def make_step(
     num_workers: int = 1,
     fuse: bool = False,
     tau_source: Callable[[], torch.Tensor] | None = None,
+    mesh=None,
 ) -> Callable:
     """``(TrainState, batch) -> (TrainState, metrics)`` for ``mode``.
 
-    ``tau_source`` (async) returns the tick's ``(W,)`` uniforms; by default
-    they are drawn from ``state.rng`` on the state's device.  A test hands in
-    the reference's own draws here.  A pipeline the fusion compiler cannot
+    ``tau_source`` (async modes) returns the tick's ``(W,)`` uniforms; by
+    default they are drawn from ``state.rng`` on the state's device (in
+    sharded mode every rank draws all ``W`` and keeps its own workers').  A
+    test hands in the reference's own draws here.  ``mesh`` (sharded mode)
+    is the :class:`~repro_torch.launch.mesh.WorkersMesh`; the sharded mode
+    takes W from ``state.adapt``.  A pipeline the fusion compiler cannot
     classify falls back to link-by-link execution with a warning.
     """
     assert mode in MODES, f"mode must be one of {MODES}, got {mode!r}"
@@ -243,6 +267,62 @@ def make_step(
             return dataclasses.replace(
                 state, params=new_params, opt_state=new_opt, step=state.step + 1
             ), {"loss": loss, **metrics}
+
+        return train_step
+
+    if mode == "sharded_async":
+        if mesh is None:
+            from repro_torch.launch.mesh import make_workers_mesh
+
+            mesh = make_workers_mesh()
+        group = mesh.group
+
+        def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+            adapt, ring = state.adapt, state.delayed
+            assert isinstance(adapt, WorkerAdaptState), (
+                "sharded async step needs a WorkerAdaptState (see make_worker_adapt)")
+            assert isinstance(ring, WorkerRing), (
+                "sharded async step needs per-worker rings (see init_sharded_async_state)")
+            assert isinstance(ring.ring, torch.Tensor) == fused_flat, (
+                f"worker ring layout does not match make_step(fuse={fuse}) — initialize the "
+                "state with the same fuse= flag (init_sharded_async_state)"
+            )
+            W = adapt.num_workers
+            lo, hi = mesh.local_workers(W)
+            loss, metrics, grads = loss_and_grads(state.params, batch)
+            with torch.no_grad():
+                if fused_flat:
+                    grads = _flat_grads(grads)
+                dev = state.step.device
+                u = tau_source() if tau_source is not None else torch.rand(
+                    W, generator=state.rng, device=dev)
+                u = u.to(dev)[lo:hi]
+                taus = sample_worker_taus(u, adapt.tau_cdf[lo:hi], adapt.tau_trace[lo:hi],
+                                          adapt.use_trace[lo:hi], ring.step)
+                alpha = alpha_lookup(adapt, taus)
+                weights = alpha / np.float32(alpha_c * W)
+                keep = _drop_mask(transform, taus)
+                if keep is not None:
+                    weights = weights * keep
+                g_eff, live, new_ring = worker_ring_combine(
+                    ring.ring, ring.step, grads, taus, weights, group=group)
+                record_worker_taus(adapt.hist[lo:hi], taus)
+                stats = torch.stack([taus.to(f32).sum(), alpha.sum(), live.sum()])
+                if group is not None:
+                    torch.distributed.all_reduce(stats, group=group)
+                ctx = T.StepContext(adapt=adapt, staleness_applied=True)
+                new_params, new_opt = apply_fn(g_eff, state.opt_state, state.params, ctx)
+            new_state = TrainState(
+                params=new_params, opt_state=new_opt, step=state.step + 1, rng=state.rng,
+                delayed=WorkerRing(ring=new_ring, step=ring.step + 1), adapt=adapt,
+            )
+            return new_state, {
+                "loss": loss,
+                "tau_mean": stats[0] / W,
+                "alpha_mean": stats[1] / W,
+                "live_frac": stats[2] / W,
+                **metrics,
+            }
 
         return train_step
 
@@ -301,6 +381,42 @@ def make_step(
         }
 
     return train_step
+
+
+def make_sharded_async_train_step(cfg, opt, *, alpha_c: float, mesh=None) -> Callable:
+    """MindTheStep-AsyncPSGD over the workers of ``mesh``; see
+    :func:`make_step` ``mode="sharded_async"``."""
+    return make_step(cfg, opt, mode="sharded_async", alpha_c=alpha_c, mesh=mesh)
+
+
+def init_sharded_async_state(
+    cfg,
+    opt,
+    *,
+    ring: int,
+    adapt: WorkerAdaptState,
+    seed: int = 0,
+    device="cuda",
+    params: Any | None = None,
+    mesh=None,
+    fuse: bool = False,
+    ring_dtype: Any = None,
+) -> TrainState:
+    """TrainState for the sharded engine: this rank's per-worker rings
+    (``(W_local, K, ...)``, W from ``adapt``) and the WorkerAdaptState.
+    ``fuse=True`` builds the fused layout (flat optimizer state and one
+    ``(W_local, K, N)`` ring buffer) for a fuseable pipeline; pair it with
+    ``make_step(..., fuse=True)``."""
+    if mesh is None:
+        from repro_torch.launch.mesh import make_workers_mesh
+
+        mesh = make_workers_mesh(device=device)
+    state = init_train_state(cfg, opt, seed=seed, device=device, async_ring=0, adapt=adapt,
+                             params=params, fuse=fuse)
+    init_wring = init_flat_worker_ring if fuse and _fused_form(opt) is not None else init_worker_ring
+    lo, hi = mesh.local_workers(adapt.num_workers)
+    return dataclasses.replace(
+        state, delayed=init_wring(state.params, ring, hi - lo, dtype=ring_dtype))
 
 
 def make_serve_step(cfg) -> Callable:
