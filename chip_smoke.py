@@ -44,7 +44,12 @@ Phases, each fatal on failure:
    gemma2-27b-like shape the serving path does not reach (Nq 32, Nkv 16,
    H 128, window 64, softcap 50, S = 1000, f32 and bf16, causal and not) and
    S != T (S 77, T 150, H 256, window 40, non-causal, bf16), so every bf16
-   head width of the tensor-core body runs; the RG-LRU kernel at B 4,
+   head width of the tensor-core body runs, and the three model shapes
+   phase 6 adds: whisper-large-v3's encoder (B 4, S = T = 1500 = 23 x 64 +
+   28 keys, Nq = Nkv = 20, H 64, non-causal: the last key tile's 28 keys
+   are masked by k < T, not by a band), qwen2-moe-a2.7b's prefill (B 4,
+   S 512, 16 x 16 heads of 128, causal) and internvl2-2b's (B 4, S 256 +
+   512, 16 query over 8 KV heads of 128, causal), all bf16; the RG-LRU kernel at B 4,
    S 4096, W 4096.  Tolerance |kernel - plain| <= 3e-5 +
    3e-5 |plain| in f32, the reference's; in bf16 1e-4 + 1e-2 |plain|, one
    bf16 rounding of the output (both sides compute in f32 and round once),
@@ -72,11 +77,25 @@ Phases, each fatal on failure:
    steps, 24 flash launches.  Then full-width falcon-mamba-7b (64 Mamba
    layers, 7.27e9 f32 params): batch 4, prompt 4096, 32 steps, 64
    selective-scan launches (one per layer: its output and its cache come
-   from one scan).  Every serve counts all three serving kernels.  Prints
-   prefill s, decode ms per step, tok/s and peak memory.  Then reduced
-   recurrentgemma and reduced falcon-mamba served on the card (the kernels)
+   from one scan).  Then full-width qwen2-moe-a2.7b (24 MoE layers, 60
+   routed experts padded to 64, top-4, a shared expert: 15.15e9 f32 params,
+   60.59 GB) at prompt 512, 24 flash launches, its peak memory printed
+   before the prefill (params resident) and after the serve, both under the
+   card's 80 GB; full-width internvl2-2b at 256 vision-prefix embeddings +
+   prompt 512 (the cache holds 256 + 512 + 32 positions, decoding starts at
+   768), 24 flash launches; full-width whisper-large-v3 (32 encoder + 32
+   decoder layers) over 1500 encoder frames, 32 flash launches, all in the
+   encoder (as the reference's launcher, no decoder prefill: the steps start
+   from the first prompt token at position 0).  Every serve counts all three
+   serving kernels.  Prints prefill s, decode ms per step, tok/s and peak
+   memory.  Then reduced recurrentgemma, falcon-mamba, qwen2-moe,
+   internvl2, whisper and gemma2-27b served on the card (the kernels)
    against the plain CPU path, same params: prompt 160, 4 steps, logits
-   within 1e-4, ids equal.
+   within 1e-4, ids equal; for qwen2-moe also the first MoE layer's top-k
+   expert ids over the prefill, exactly equal, with the smallest router
+   margins printed beside them.  gemma2-27b, gemma3-27b (~108 GB in f32)
+   and qwen3-moe-235b-a22b (~940 GB) do not fit one card and run reduced
+   only.
 
 7. resume — the configuration of phase 3 with 6 ticks and a refresh every 2:
    run A uninterrupted, checkpointing at step 3 (``CheckpointHook``; its
@@ -840,9 +859,14 @@ def witness_delta_ranges(dev):
                          *SS.selective_scan_ref(*args))
 
 
+CARD_BYTES = 80e9  # the H100's device memory
+
+
 def serve_full(arch, batch, prompt, gen, expect):
     """Serve ``arch`` at full width through the launcher, counts zeroed just
-    before and read just after; check them against ``expect``."""
+    before and read just after; check them against ``expect``.  Peak memory
+    is read when the launcher starts serving (params and batch resident)
+    and after the serve; both must fit the card."""
     import torch
 
     from repro_torch.configs import get_config
@@ -856,22 +880,41 @@ def serve_full(arch, batch, prompt, gen, expect):
     FA.reset_launches()
     RG.reset_launches()
     SS.reset_launches()
-    result = serve.main(["--arch", arch, "--batch", str(batch), "--prompt_len", str(prompt),
-                         "--gen", str(gen), "--device", "cuda"])
+    before = {}
+    inner = serve.serve
+
+    def serve_and_read_peak(*args, **kw):
+        torch.cuda.synchronize()
+        before["peak"] = torch.cuda.max_memory_allocated()
+        return inner(*args, **kw)
+
+    serve.serve = serve_and_read_peak
+    try:
+        result = serve.main(["--arch", arch, "--batch", str(batch), "--prompt_len", str(prompt),
+                             "--gen", str(gen), "--device", "cuda"])
+    finally:
+        serve.serve = inner
     torch.cuda.synchronize()
     counts = {"flash_attention": FA.LAUNCHES["flash_attention"], "rg_lru": RG.LAUNCHES["rg_lru"],
               "selective_scan": SS.LAUNCHES["selective_scan"]}
     peak = torch.cuda.max_memory_allocated()
-    vocab = get_config(arch).vocab_size
-    check(bool(torch.isfinite(result["prefill_logits"]).all())
-          and bool(torch.isfinite(result["logits"]).all()), f"{arch}: non-finite logits")
+    cfg = get_config(arch)
+    if cfg.is_encoder_decoder:  # no decoder prefill, as in the reference's launcher
+        check(result["prefill_logits"] is None, f"{arch}: a decoder prefill ran")
+    else:
+        check(bool(torch.isfinite(result["prefill_logits"]).all()), f"{arch}: non-finite logits")
+    check(bool(torch.isfinite(result["logits"]).all()), f"{arch}: non-finite logits")
     toks = result["tokens"]
     check(tuple(toks.shape) == (batch, gen), f"{arch}: generated ids of shape {tuple(toks.shape)}")
-    check(bool(((toks >= 0) & (toks < vocab)).all()), f"{arch}: generated ids out of range")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{arch}: generated ids out of range")
     check(counts == expect, f"{arch}: launches {counts}, expected {expect} per prefill")
+    check(peak < CARD_BYTES, f"{arch}: peak {peak / 1e9:.2f} GB does not fit the card")
     row = dict(arch=arch, batch=batch, prompt=prompt, gen=gen, prefill_s=result["prefill_s"],
                decode_ms_per_step=result["decode_s"] / gen * 1e3, tok_per_s=result["tok_per_s"],
-               peak_gb=peak / 1e9, launches=counts)
+               peak_gb=peak / 1e9, peak_before_prefill_gb=before["peak"] / 1e9,
+               n_prefix=cfg.num_prefix_embeddings if cfg.frontend == "vision" else 0,
+               encoder_frames=cfg.encoder_positions if cfg.is_encoder_decoder else 0,
+               launches=counts)
     log(f"[serve] {json.dumps(row)}")
     del result
     free_cuda()
@@ -880,30 +923,70 @@ def serve_full(arch, batch, prompt, gen, expect):
 
 def serve_agreement(arch):
     """Reduced ``arch`` served on the card (the kernels) against the plain
-    CPU path, same params and prompts."""
+    CPU path, same params and prompts; for an MoE config also the first MoE
+    layer's top-k expert ids over the prefill, exactly equal."""
     import torch
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import make_batch_for
     from repro_torch.launch.serve import serve
+    from repro_torch.models import moe as MOE
     from repro_torch.training import init_params
     from repro_torch.tree import tree_map
 
     cfg = reduced(get_config(arch))
     params = init_params(0, cfg, "cpu")
     batch = make_batch_for(cfg, batch=2, seq=160, seed=0)
-    want = serve(cfg, params, batch, gen=4)
-    got = serve(dataclasses.replace(cfg, use_pallas=True),
-                tree_map(lambda t: t.to("cuda"), params),
-                {k: v.to("cuda") for k, v in batch.items()}, gen=4)
-    d = max(float((got["prefill_logits"].cpu() - want["prefill_logits"]).abs().max()),
-            float((got["logits"].cpu() - want["logits"]).abs().max()))
+    routes = []  # per serve: the router's output at its first call (layer 0, prefill)
+    inner = MOE.route
+
+    def serve_on(device, c):
+        kept = []
+
+        def keep_first(*args):
+            out = inner(*args)
+            if not kept:
+                kept.append(tuple(t.cpu() for t in out))
+            return out
+
+        MOE.route = keep_first
+        try:
+            res = serve(c, tree_map(lambda t: t.to(device), params),
+                        {k: v.to(device) for k, v in batch.items()}, gen=4)
+        finally:
+            MOE.route = inner
+        routes.append(kept[0] if kept else None)
+        return res
+
+    want = serve_on("cpu", cfg)
+    got = serve_on("cuda", dataclasses.replace(cfg, use_pallas=True))
+    d = float((got["logits"].cpu() - want["logits"]).abs().max())
+    if want["prefill_logits"] is not None:  # whisper has no decoder prefill
+        d = max(d, float((got["prefill_logits"].cpu() - want["prefill_logits"]).abs().max()))
+    row = dict(arch=arch, max_abs_dlogits=d)
+    msg = ""
+    if cfg.num_experts:
+        (probs, _, want_ids), (_, _, got_ids) = routes
+        top = torch.topk(probs, min(cfg.top_k + 1, cfg.experts_padded), dim=-1).values
+        k = cfg.top_k - 1
+        row.update(route_ids_equal=bool(torch.equal(got_ids, want_ids)),
+                   route_flips=int((got_ids != want_ids).any(-1).sum()),
+                   min_top1_minus_topk=float((top[:, 0] - top[:, k]).min()),
+                   min_topk_minus_next=(float((top[:, k] - top[:, k + 1]).min())
+                                        if top.shape[1] > cfg.top_k else None))
+        nxt = row["min_topk_minus_next"]
+        msg = (f", first MoE layer's top-{cfg.top_k} ids over {want_ids.shape[0]} tokens "
+               f"{'equal' if row['route_ids_equal'] else 'DIFFER'} ({row['route_flips']} tokens "
+               f"flipped), smallest margins p1 - p{cfg.top_k} {row['min_top1_minus_topk']:.3e}, "
+               f"p{cfg.top_k} - p{cfg.top_k + 1} {'none' if nxt is None else f'{nxt:.3e}'}")
     log(f"[agreement] reduced {arch}, prefill 160 + 4 steps: card vs CPU max |dlogits| "
-        f"= {d:.3e}, ids {got['tokens'][0].tolist()}")
+        f"= {d:.3e}, ids {got['tokens'][0].tolist()}{msg}")
     check(d <= 1e-4, f"{arch}: served logits: card and CPU disagree by {d}")
     check(torch.equal(got["tokens"].cpu(), want["tokens"]),
           f"{arch}: served ids differ between card and CPU")
-    return d
+    if cfg.num_experts:
+        check(row["route_ids_equal"], f"{arch}: the first MoE layer routes differently on the card")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1417,6 +1500,12 @@ def main() -> int:
         "flash_attention/gemma2-like/noncausal/bf16": (2, 1000, 1000, 32, 16, 128, False, 64,
                                                        50.0, torch.bfloat16),
         "flash_attention/s-ne-t/bf16": (1, 77, 150, 4, 4, 256, False, 40, None, torch.bfloat16),
+        "flash_attention/whisper-large-v3/encoder": (4, 1500, 1500, 20, 20, 64, False, None, None,
+                                                     torch.bfloat16),
+        "flash_attention/qwen2-moe-a2.7b": (4, 512, 512, 16, 16, 128, True, None, None,
+                                            torch.bfloat16),
+        "flash_attention/internvl2-2b": (4, 768, 768, 16, 8, 128, True, None, None,
+                                         torch.bfloat16),
     }
     for tag, shape in flash_shapes.items():
         results[tag] = r = check_flash(*shape, dev)
@@ -1457,9 +1546,17 @@ def main() -> int:
                    {"flash_attention": 24, "rg_lru": 0, "selective_scan": 0}),
         serve_full("falcon-mamba-7b", 4, 4096, 32,
                    {"flash_attention": 0, "rg_lru": 0, "selective_scan": 64}),
+        serve_full("qwen2-moe-a2.7b", 4, 512, 32,
+                   {"flash_attention": 24, "rg_lru": 0, "selective_scan": 0}),
+        serve_full("internvl2-2b", 4, 512, 32,
+                   {"flash_attention": 24, "rg_lru": 0, "selective_scan": 0}),
+        serve_full("whisper-large-v3", 4, 32, 32,
+                   {"flash_attention": 32, "rg_lru": 0, "selective_scan": 0}),
     ]
-    for arch in ("recurrentgemma-9b", "falcon-mamba-7b"):
-        serve_agreement(arch)
+    agreement = {}
+    for arch in ("recurrentgemma-9b", "falcon-mamba-7b", "qwen2-moe-a2.7b", "internvl2-2b",
+                 "whisper-large-v3", "gemma2-27b"):
+        agreement[arch] = serve_agreement(arch)
         free_cuda()
 
     # -- phase 7: checkpoint and resume on the main path, full width ------------
@@ -1515,11 +1612,15 @@ def main() -> int:
             bound_set_by=r.get("bound_set_by", r.get("bound_by", "bytes")),
             library_ms=r.get("library_ms"), variant=key, path=path,
         ))
+    kernels[[k["name"] for k in kernels].index("flash_attention")]["launches_by_path"] = {
+        f"serve {row['arch']} (one prefill)": row["launches"]["flash_attention"]
+        for row in serving if row["launches"]["flash_attention"]}
     kernels[[k["name"] for k in kernels].index("fused_chain")]["launches_by_path"] = {
         "sharded_async": sharded_counts["fused_chain"],
         "sync_fuse": path_counts["sync_fuse"]["fused_chain"],
         "async_fuse_clip": path_counts["async_fuse_clip"]["fused_chain"]}
-    log(json.dumps({"variants": results, "main": summary, "serving": serving, "resume": resume,
+    log(json.dumps({"variants": results, "main": summary, "serving": serving,
+                    "agreement": agreement, "resume": resume,
                     "exact": exact, "sharded": sharded, "cnn": cnn}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

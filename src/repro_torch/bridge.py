@@ -19,9 +19,13 @@ exported as numpy, become the port's tensors here.
 * :func:`cnn_params_from_jax` turns the reference's CNN or MLP classifier
   params (key-path names, HWIO convolution weights) into the port's tree.
 * :func:`cache_from_jax` turns the reference's decode cache (from
-  ``prefill`` or ``init_decode_state``, keyed by key path the same way) into
-  the port's, dtypes and bf16 bits kept, so a decode step can be compared
-  from the same cache.
+  ``prefill`` or ``init_decode_state``, keyed by key path the same way;
+  whisper's ``self`` / ``cross`` K/V too) into the port's, dtypes and bf16
+  bits kept, so a decode step can be compared from the same cache.
+
+:func:`params_from_jax` takes every arch's tree, the MoE's ``moe`` leaves,
+whisper's ``encoder`` / ``decoder`` stacks and an untied ``unembed``
+included: the names and shapes come from the port's own template.
 
 Nothing here imports the JAX package: the caller does the export.
 """
@@ -148,10 +152,14 @@ def cache_from_jax(np_tree: dict, cfg, device="cpu") -> dict:
     """The reference's decode cache -> the port's cache tree on ``device``.
 
     The names must be the port's own (``pos{j}`` / ``rem{i}`` groups, ``k`` /
-    ``v`` or ``conv`` / ``h`` leaves) and each leaf of the rank the port
-    expects; batch, capacity and dtypes are the arrays' own.
+    ``v`` or ``conv`` / ``h`` leaves; whisper's ``self`` / ``cross`` groups)
+    and each leaf of the rank the port expects; batch, capacity and dtypes are the arrays' own.
     """
-    template = init_stack_cache(cfg, 1, 1, torch.float32, "meta")
+    if cfg.is_encoder_decoder:  # whisper: {"self", "cross"} x {"k", "v"}, (L, B, T, N, H)
+        kv = {"k": torch.empty((1,) * 5, device="meta"), "v": torch.empty((1,) * 5, device="meta")}
+        template = {"self": kv, "cross": dict(kv)}
+    else:
+        template = init_stack_cache(cfg, 1, 1, torch.float32, "meta")
     _check_names("cache", np_tree, template)
     cache: dict = {}
     for path, leaf in tree_paths(template):

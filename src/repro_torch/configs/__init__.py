@@ -1,11 +1,29 @@
 from repro_torch.configs import (  # noqa: F401  (register the archs)
+    codeqwen1_5_7b,
     falcon_mamba_7b,
+    gemma2_27b,
+    gemma3_27b,
+    internvl2_2b,
+    qwen2_moe_a2_7b,
+    qwen3_moe_235b_a22b,
     recurrentgemma_9b,
     stablelm_1_6b,
+    whisper_large_v3,
 )
 from repro_torch.configs.base import ModelConfig, get_config, list_configs, reduced, register
 
-# The archs the port runs so far (the reference registers ten).
-ASSIGNED_ARCHS = ("stablelm-1.6b", "recurrentgemma-9b", "falcon-mamba-7b")
+# The reference's ten archs, in the reference's order.
+ASSIGNED_ARCHS = (
+    "gemma2-27b",
+    "codeqwen1.5-7b",
+    "internvl2-2b",
+    "gemma3-27b",
+    "falcon-mamba-7b",
+    "recurrentgemma-9b",
+    "stablelm-1.6b",
+    "qwen2-moe-a2.7b",
+    "qwen3-moe-235b-a22b",
+    "whisper-large-v3",
+)
 
 __all__ = ["ModelConfig", "get_config", "list_configs", "reduced", "register", "ASSIGNED_ARCHS"]

@@ -93,8 +93,18 @@ def cifar_like_batches(
 
 def make_batch_for(cfg, *, batch: int, seq: int, seed: int = 0,
                    device: str | torch.device = "cpu") -> dict:
-    """One concrete batch for a decoder-only text config."""
+    """One concrete batch for ``cfg``: tokens and labels, plus the vlm's
+    ``prefix_embeds`` (B, P, D) or the audio encoder's ``enc_embeds``
+    (B, T_enc, D), f32, drawn from the same generator in the reference's
+    order, so both packages see the same arrays."""
     r = np.random.default_rng(seed)
     toks = r.integers(0, cfg.vocab_size, size=(batch, seq))
     labels = np.concatenate([toks[:, 1:], -np.ones((batch, 1), np.int64)], axis=1)
-    return {"tokens": _to(toks, device), "labels": _to(labels, device)}
+    out = {"tokens": _to(toks, device), "labels": _to(labels, device)}
+    if cfg.frontend == "vision":
+        pre = r.normal(size=(batch, cfg.num_prefix_embeddings, cfg.d_model)).astype(np.float32)
+        out["prefix_embeds"] = _to(pre, device)
+    if cfg.is_encoder_decoder:
+        enc = r.normal(size=(batch, cfg.encoder_positions, cfg.d_model)).astype(np.float32)
+        out["enc_embeds"] = _to(enc, device)
+    return out

@@ -2,13 +2,16 @@
 on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        [--arch recurrentgemma-9b|falcon-mamba-7b|stablelm-1.6b] \\
+        [--arch recurrentgemma-9b|falcon-mamba-7b|qwen2-moe-a2.7b|...] \\
         [--batch 4] [--prompt_len 4096] [--steps 8] [--out trace_prefix]
 
 Builds the serve launcher's run at full width (random params from the seed,
 ``use_pallas=True``, an f32 decode cache), warms up with one prefill and two
 decode steps, then profiles one prefill and, separately, ``--steps`` decode
-steps.  For each it prints the wall time, the device-busy share (summed
+steps.  As the launcher, a vlm's cache also holds its prefix and its steps
+start after it, and whisper's "prefill" is its encoder and cross K/V
+(``init_decode_state``: the launcher prefills no decoder), its steps starting
+from the first prompt token at position 0.  For each it prints the wall time, the device-busy share (summed
 device-op time over wall time; ops on one stream do not overlap), the device
 ops, the kernels that took the most device time and the host ops that took
 the most CPU time.  ``--out`` also writes ``<out>_prefill.json`` and
@@ -48,8 +51,17 @@ def main(argv=None):
     cfg = dataclasses.replace(get_config(args.arch), use_pallas=True)
     params = init_params(0, cfg, "cuda")
     batch = make_batch_for(cfg, batch=args.batch, seq=args.prompt_len, seed=0, device="cuda")
-    capacity = args.prompt_len + 2 + args.steps
+    n_prefix = cfg.num_prefix_embeddings if cfg.frontend == "vision" else 0
+    capacity = n_prefix + args.prompt_len + 2 + args.steps
     step = make_serve_step(cfg)
+
+    def prefill():
+        if cfg.is_encoder_decoder:
+            cache = M.init_decode_state(params, cfg, args.batch, capacity,
+                                        cache_dtype=torch.float32, batch=batch)
+            return batch["tokens"][:, 0].to(torch.int32), cache, 0
+        logits, cache = M.prefill(params, batch, cfg, capacity, cache_dtype=torch.float32)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache, n_prefix + args.prompt_len
 
     def decode(cache, token, start, n):
         for i in range(n):
@@ -57,9 +69,8 @@ def main(argv=None):
             token, cache = out["next_token"], out["cache"]
         return cache, token
 
-    logits, cache = M.prefill(params, batch, cfg, capacity, cache_dtype=torch.float32)
-    token = torch.argmax(logits, dim=-1).to(torch.int32)
-    start = torch.tensor(args.prompt_len, device="cuda")
+    token, cache, start = prefill()
+    start = torch.tensor(start, device="cuda")
     cache, token = decode(cache, token, start, 2)
     torch.cuda.synchronize()
     print(f"arch={cfg.name} layers={cfg.num_layers} batch={args.batch} "
@@ -67,7 +78,7 @@ def main(argv=None):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        M.prefill(params, batch, cfg, capacity, cache_dtype=torch.float32)
+        prefill()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print("-- prefill")

@@ -36,7 +36,7 @@ import numpy as np
 
 from repro_torch.async_engine.events import EventSimConfig, simulate_staleness_trace
 from repro_torch.bench_schema import write_bench_json
-from repro_torch.configs import ASSIGNED_ARCHS, get_config, reduced
+from repro_torch.configs import ASSIGNED_ARCHS, get_config, list_configs, reduced
 from repro_torch.core.staleness import CMP, Geometric, Poisson
 from repro_torch.core.step_size import make_schedule
 from repro_torch.data import make_batch_for
@@ -228,8 +228,9 @@ def main(argv=None) -> list[dict]:
     args.strategies = [s for s in args.strategies.split(",") if s]
     args.optims = [o for o in args.optims.split(",") if o]
     for a in args.archs:
-        if a not in ASSIGNED_ARCHS:
-            ap.error(f"arch {a!r} is not ported; the port runs {', '.join(ASSIGNED_ARCHS)}")
+        if a not in list_configs():
+            ap.error(f"arch {a!r} is not ported (no such registered arch); the port runs "
+                     f"{', '.join(ASSIGNED_ARCHS)}")
     for s in args.staleness:
         if s not in STALENESS_FAMILIES:
             ap.error(f"unknown staleness family {s!r}; choose from {STALENESS_FAMILIES}")

@@ -5,19 +5,31 @@ prefill a batch of prompts, then greedy-decode.
         --batch 4 --prompt_len 4096 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --batch 4 --prompt_len 4096 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+        --batch 4 --prompt_len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
-Runs on the card by default, and there with ``use_pallas=True``: the
-attention of every local or global layer runs the hand-written flash kernel,
-every RG-LRU layer the hand-written RG-LRU kernel and every Mamba layer the
-hand-written selective-scan kernel, the counterpart of the reference's TPU
-fast path.  Decode runs none of them: its step is plain PyTorch, as the
-reference's is plain jnp.  ``--device cpu`` keeps the config's value (the
+Any of the ten archs (``--arch``).  Runs on the card by default, and there
+with ``use_pallas=True``: the self-attention of every local or global layer
+(and of whisper's encoder) runs the hand-written flash kernel, every RG-LRU
+layer the hand-written RG-LRU kernel and every Mamba layer the hand-written
+selective-scan kernel, the counterpart of the reference's TPU fast path.
+Decode runs none of them: its step is plain PyTorch, as the reference's is
+plain jnp.  ``--device cpu`` keeps the config's value (the
 plain PyTorch path).  Params are random, drawn from ``--seed``; the decode
 cache is f32, as the reference launcher's.  Prints the prefill and decode
 times, tok/s and the ids generated for the first prompt; ``--json PATH``
 also writes them as the reference's three bench.v1 rows
 (:mod:`repro_torch.bench_schema`).
+
+A vlm prompt is its ``num_prefix_embeddings`` vision embeddings and its
+tokens: the cache holds ``P + S + gen`` positions and decoding starts at
+``P + S``.  (The reference launcher sizes the cache ``S + gen`` and starts at
+``S``, which trips its prefill's capacity check for ``gen < P`` and
+otherwise decodes over the prompt's slots; the port does not copy that.)
+Whisper follows the reference launcher: no decoder prefill, a cache whose
+cross-attention K/V come from encoding ``enc_embeds``, and greedy steps from
+position 0 starting with the first prompt token.
 """
 
 from __future__ import annotations
@@ -42,22 +54,31 @@ def _sync(device) -> None:
 def serve(cfg, params, batch: dict, *, gen: int, cache_dtype=torch.float32) -> dict:
     """Prefill ``batch["tokens"]`` (B, S), then ``gen`` batched greedy steps.
 
-    Returns the prefill's last logits (B, V), the decode steps' logits
-    (B, gen, V), the generated ids (B, gen) and the host-clock times of the
-    prefill and the decode (each ending in a device synchronize).
+    Returns the prefill's last logits (B, V; None for whisper, which has no
+    decoder prefill), the decode steps' logits (B, gen, V), the generated ids
+    (B, gen) and the host-clock times of the prefill (for whisper: the
+    encoder and the cross K/V) and the decode (each ending in a device
+    synchronize).
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
     _sync(dev)
     t0 = time.perf_counter()
-    prefill_logits, cache = M.prefill(params, batch, cfg, S + gen, cache_dtype=cache_dtype)
-    last = torch.argmax(prefill_logits, dim=-1).to(torch.int32)
+    if cfg.is_encoder_decoder:
+        prefill_logits = None
+        cache = M.init_decode_state(params, cfg, B, S + gen, cache_dtype=cache_dtype, batch=batch)
+        last, start = tokens[:, 0].to(torch.int32), 0
+    else:
+        pre = batch.get("prefix_embeds") if cfg.frontend == "vision" else None
+        start = S + (0 if pre is None else pre.shape[1])
+        prefill_logits, cache = M.prefill(params, batch, cfg, start + gen, cache_dtype=cache_dtype)
+        last = torch.argmax(prefill_logits, dim=-1).to(torch.int32)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
     step = make_serve_step(cfg)
-    start = torch.tensor(S, device=dev)  # positions stay on the device: no sync per step
+    start = torch.tensor(start, device=dev)  # positions stay on the device: no sync per step
     ids, logits = [], []
     t0 = time.perf_counter()
     for i in range(gen):

@@ -14,6 +14,9 @@ token against a full or ring KV cache.
 Under ``cfg.use_pallas`` the attention of a self-attention layer runs the
 hand-written flash kernel (:mod:`repro_torch.kernels.flash_attention`; the
 plain version on a CPU tensor), as the reference runs its Pallas kernel.
+Cross-attention (``kv_source``: whisper's decoder attending to the encoder
+memory) takes no RoPE, key positions ``0..T-1`` and no causal mask, and runs
+the plain path, as in the reference.
 
 The cache writers update the cache IN PLACE (the reference returns a new
 one): a full-width decode would otherwise copy every layer's cache each step.
@@ -31,8 +34,10 @@ NEG_INF = -2.0e38
 f32 = torch.float32
 
 
-def init_attention(gen, cfg, device) -> Params:
+def init_attention(gen, cfg, device, *, cross: bool = False) -> Params:
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cross:
+        hkv = hq  # whisper's cross-attention (and encoder) is plain MHA
     s = 1.0 / np.sqrt(d)
     return {
         "wq": truncated_normal(gen, (d, hq, hd), s, device),
@@ -235,32 +240,39 @@ def fill_cache_from_prefill(k, v, capacity: int, ring: bool) -> Params:
 # ---------------------------------------------------------------------------
 
 def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,
-                       use_rope: bool = True):
+                       kv_source: torch.Tensor | None = None, use_rope: bool = True):
     """Projections + rope + attention + output projection -> (y, k, v), with
-    ``k`` roped: prefill fills its decode cache from the same projections."""
+    ``k`` roped: prefill fills its decode cache from the same projections.
+    ``kv_source`` (B, T, D): cross-attention memory, K and V projected from
+    it."""
     dt = x.dtype
+    cross = kv_source is not None
+    src = kv_source if cross else x
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
-    k = torch.einsum("btd,dnh->btnh", x, p["wk"].to(dt))
-    v = torch.einsum("btd,dnh->btnh", x, p["wv"].to(dt))
-    if use_rope:
+    k = torch.einsum("btd,dnh->btnh", src, p["wk"].to(dt))
+    v = torch.einsum("btd,dnh->btnh", src, p["wv"].to(dt))
+    if use_rope and not cross:
         q = apply_rope(q, io.positions, cfg.rope_theta)
         k = apply_rope(k, io.positions, cfg.rope_theta)
     scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim**-0.5
     q = q * torch.tensor(scale, dtype=dt)
-    if cfg.use_pallas:
+    if cfg.use_pallas and not cross:
         # the flash kernel (contiguous positions); q is pre-scaled above
         out = flash_attention(q, k, v, causal=io.causal, window=window,
                               softcap=cfg.attn_logit_softcap, scale=1.0)
     else:
+        B, T = src.shape[0], src.shape[1]
+        kpos = torch.arange(T, device=x.device)[None].expand(B, T) if cross else io.positions
         out = blockwise_attention(
-            q, k, v, io.positions, io.positions,
-            causal=io.causal, window=window, softcap=cfg.attn_logit_softcap,
+            q, k, v, io.positions, kpos,
+            causal=io.causal and not cross, window=window, softcap=cfg.attn_logit_softcap,
             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
         )
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(dt)), k, v
 
 
 def attention_layer(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,
-                    use_rope: bool = True) -> torch.Tensor:
+                    kv_source: torch.Tensor | None = None, use_rope: bool = True) -> torch.Tensor:
     """Projections + rope + attention + output projection."""
-    return attention_layer_kv(p, x, io, cfg, window=window, use_rope=use_rope)[0]
+    return attention_layer_kv(p, x, io, cfg, window=window, kv_source=kv_source,
+                              use_rope=use_rope)[0]

@@ -155,6 +155,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """Whisper-style fixed sinusoidal position table ``(n, d)``: angles in
+    float64, stored as float32, exactly the reference's numpy."""
+    pos = np.arange(n)[:, None].astype(np.float64)
+    dim = np.arange(0, d, 2)[None, :].astype(np.float64)
+    angle = pos / np.power(10000.0, dim / d)
+    out = np.zeros((n, d), dtype=np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return out
+
+
+_POSITION_TABLES: dict = {}
+
+
+def position_table(n: int, d: int, device, dtype) -> torch.Tensor:
+    """:func:`sinusoidal_positions` as a tensor on ``device`` in ``dtype``,
+    built once per (n, d, device, dtype): a decode step reads a row of it
+    and would otherwise copy the table in, and wait for it, every step."""
+    key = (n, d, str(torch.device(device)), dtype)
+    if key not in _POSITION_TABLES:
+        _POSITION_TABLES[key] = torch.from_numpy(sinusoidal_positions(n, d)).to(device, dtype)
+    return _POSITION_TABLES[key]
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
 @dataclasses.dataclass(frozen=True)
 class LayerIO:
     """What a mixing layer needs to know about the token geometry."""

@@ -1,12 +1,23 @@
-"""Top-level model API for decoder-only LMs (port of
-``src/repro/models/model.py``): embedding -> block stack -> final norm ->
-(tied) unembed, the masked cross-entropy loss, and serving — ``prefill`` of a
-prompt into a decode cache, then one ``decode_step`` per token.
+"""Top-level model API, one entry point for every arch (port of
+``src/repro/models/model.py``).
 
-A batch is ``{"tokens": (B, S) int, "labels": (B, S) int}``; ``-1`` labels are
-masked.  Vision prefixes and the whisper encoder-decoder are not ported yet.
-Serving runs without autograd; a decode step updates the cache in place and
-returns it.
+``init_model`` / ``forward`` / ``loss_fn`` / ``init_decode_state`` /
+``decode_step`` / ``prefill`` dispatch on the config's family:
+
+* decoder-only (dense, moe, ssm, hybrid): embedding -> block stack
+  (:mod:`repro_torch.models.transformer`) -> final norm -> (tied) unembed;
+* vlm: the same trunk, with ``prefix_embeds`` ``(B, P, D)`` (the vision
+  projector stub's output) ahead of the token embeddings at positions
+  ``0..P-1``; their rows leave the logits, so the logits align with the
+  tokens;
+* audio (whisper): the encoder-decoder of :mod:`repro_torch.models.whisper`,
+  fed ``enc_embeds`` ``(B, T_enc, D)`` by the conv frontend stub.
+
+A batch is a dict: ``tokens`` (B, S) int, always; ``labels`` (B, S) int for
+training, ``-1`` masking a position; ``prefix_embeds`` (vlm) and
+``enc_embeds`` (audio).  The loss adds ``router_aux_coef`` x the router's
+load-balance loss for configs with experts.  Serving runs without autograd;
+a decode step updates the cache in place and returns it.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 from repro_torch.models.layers import (
     LayerIO,
     Params,
@@ -31,13 +43,9 @@ __all__ = ["init_model", "forward", "cross_entropy", "loss_fn", "init_decode_sta
 f32 = torch.float32
 
 
-def _check_decoder_only(cfg) -> None:
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.family} models are not ported yet")
-
-
 def init_model(gen, cfg, device) -> Params:
-    _check_decoder_only(cfg)
+    if cfg.is_encoder_decoder:
+        return W.init_whisper(gen, cfg, device)
     params: Params = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, device),
         "stack": T.init_stack(gen, cfg, device),
@@ -48,23 +56,41 @@ def init_model(gen, cfg, device) -> Params:
     return params
 
 
-def _embed(params: Params, tokens: torch.Tensor, cfg) -> tuple[torch.Tensor, LayerIO]:
-    """Token embeddings and the causal geometry of positions 0..S-1."""
+def _embed_with_prefix(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, LayerIO, int]:
+    """Token embeddings, behind the vlm prefix if the config has one ->
+    (x, the causal geometry of positions 0..P+S-1, P)."""
+    act_dt = dtype_of(cfg.activation_dtype)
+    tokens = batch["tokens"]
     B, S = tokens.shape
-    x = apply_embedding(params["embed"], tokens, scale=cfg.embed_scale,
-                        act_dtype=dtype_of(cfg.activation_dtype))
-    positions = torch.arange(S, device=tokens.device).unsqueeze(0).expand(B, S)
-    return x, LayerIO(positions=positions, causal=True)
+    x = apply_embedding(params["embed"], tokens, scale=cfg.embed_scale, act_dtype=act_dt)
+    n_prefix = 0
+    if cfg.frontend == "vision" and "prefix_embeds" in batch:
+        pre = batch["prefix_embeds"].to(act_dt)
+        n_prefix = pre.shape[1]
+        x = torch.cat([pre, x], dim=1)
+    total = n_prefix + S
+    positions = torch.arange(total, device=tokens.device).unsqueeze(0).expand(B, total)
+    return x, LayerIO(positions=positions, causal=True), n_prefix
+
+
+def _encode(params: Params, batch: dict[str, Any], cfg) -> torch.Tensor:
+    return W.encode(params, batch["enc_embeds"].to(dtype_of(cfg.activation_dtype)), cfg)
 
 
 def forward(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence pass -> (logits (B, S, V), aux_loss scalar)."""
-    x, io = _embed(params, batch["tokens"], cfg)
-    x = T.apply_stack(params["stack"], x, io, cfg)
+    """Full-sequence pass -> (logits (B, S, V) aligned with the tokens,
+    aux_loss f32 scalar)."""
+    if cfg.is_encoder_decoder:
+        logits = W.decode_train(params, batch["tokens"], _encode(params, batch, cfg), cfg)
+        return logits, torch.zeros((), dtype=f32, device=logits.device)
+    x, io, n_prefix = _embed_with_prefix(params, batch, cfg)
+    x, aux = T.apply_stack(params["stack"], x, io, cfg)
     x = T._norm(cfg, params["final_norm"], x)
+    if n_prefix:
+        x = x[:, n_prefix:]
     logits = apply_unembed(params.get("unembed", params["embed"]), x,
                            softcap=cfg.final_logit_softcap)
-    return logits, torch.zeros((), dtype=f32, device=logits.device)
+    return logits, aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -86,18 +112,25 @@ def loss_fn(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, d
         tokens = batch["tokens"]
         labels = torch.cat([tokens[:, 1:], -torch.ones_like(tokens[:, :1])], dim=1)
     ce, n_tok = cross_entropy(logits, labels)
-    return ce, {"ce": ce, "aux": aux, "n_tokens": n_tok}
+    loss = ce + cfg.router_aux_coef * aux if cfg.num_experts else ce
+    return loss, {"ce": ce, "aux": aux, "n_tokens": n_tok}
 
 
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def init_decode_state(params: Params, cfg, batch_size: int, capacity: int, *,
-                      cache_dtype=torch.bfloat16) -> Params:
+                      cache_dtype=torch.bfloat16, batch: dict[str, Any] | None = None) -> Params:
     """Fresh decode cache sized for ``capacity`` positions, on the params'
-    device."""
-    _check_decoder_only(cfg)
+    device.  Whisper's holds the encoder memory's cross K/V, so ``batch``
+    with ``enc_embeds`` must be given for encoder-decoder configs."""
+    if cfg.is_encoder_decoder:
+        if batch is None or "enc_embeds" not in batch:
+            raise ValueError("an encoder-decoder cache needs batch['enc_embeds']")
+        return W.init_whisper_cache(params, _encode(params, batch, cfg), cfg, capacity,
+                                    cache_dtype)
     device = params["embed"]["embedding"].device
     return T.init_stack_cache(cfg, batch_size, capacity, cache_dtype, device)
 
@@ -109,7 +142,8 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor, pos, cfg):
 
     Returns (logits (B, V), cache), the cache updated in place.
     """
-    _check_decoder_only(cfg)
+    if cfg.is_encoder_decoder:
+        return W.whisper_decode_step(params, cache, token, pos, cfg)
     act_dt = dtype_of(cfg.activation_dtype)
     x = apply_embedding(params["embed"], token[:, None], scale=cfg.embed_scale, act_dtype=act_dt)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
@@ -123,9 +157,13 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor, pos, cfg):
 @torch.no_grad()
 def prefill(params: Params, batch: dict[str, Any], cfg, capacity: int, *,
             cache_dtype=torch.bfloat16):
-    """Process a prompt -> (last-position logits (B, V), decode cache)."""
-    _check_decoder_only(cfg)
-    x, io = _embed(params, batch["tokens"], cfg)
+    """Process a prompt -> (last-position logits (B, V), decode cache).  A
+    vlm prompt is its prefix and its tokens, so ``capacity`` counts both."""
+    if cfg.is_encoder_decoder:
+        memory = _encode(params, batch, cfg)
+        logits = W.decode_train(params, batch["tokens"], memory, cfg)
+        return logits[:, -1], W.init_whisper_cache(params, memory, cfg, capacity, cache_dtype)
+    x, io, _ = _embed_with_prefix(params, batch, cfg)
     x, cache = T.prefill_stack(params["stack"], x, io, cfg, capacity, cache_dtype)
     # the norm is row-wise: normalizing the last position alone is the same
     x = T._norm(cfg, params["final_norm"], x[:, -1])

@@ -19,7 +19,11 @@ Each layer type owns its decode cache, stacked like the params:
   ssm        -> (conv window, selective-scan state h)
 A decode step updates the cache in place and returns it.  A Mamba (``ssm``)
 block is its mixer and the residual alone (no MLP, no post-norm), as in the
-reference.  MoE is not ported yet.
+reference.  With ``cfg.num_experts`` every other block's MLP is a
+Mixture-of-Experts layer (:mod:`repro_torch.models.moe`), whose router
+load-balance loss the full-sequence path returns beside ``x`` and sums over
+the stack in layer order; a block without experts contributes no term (the
+reference's zero, not materialised, so a dense stack runs no extra op).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
@@ -57,11 +62,8 @@ def _norm(cfg, p, x):
 
 
 def _check_supported(layer_type: str, cfg) -> None:
-    if layer_type not in ("global", "local", "recurrent", "ssm") or cfg.num_experts:
-        raise NotImplementedError(
-            f"layer type {layer_type!r} (experts={cfg.num_experts}) is not ported yet; "
-            "the port runs global, local, recurrent and ssm blocks, without experts"
-        )
+    if layer_type not in ("global", "local", "recurrent", "ssm"):
+        raise ValueError(f"unknown layer type {layer_type!r}")
 
 
 def _window_for(layer_type: str, cfg) -> int | None:
@@ -81,14 +83,18 @@ def init_block(gen, layer_type: str, cfg, device) -> Params:
     if cfg.use_post_norms:
         p["post_norm"] = _norm_init(cfg, device)
     p["mlp_pre_norm"] = _norm_init(cfg, device)
-    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, device)
+    if cfg.num_experts:
+        p["moe"] = MOE.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, device)
     if cfg.use_post_norms:
         p["mlp_post_norm"] = _norm_init(cfg, device)
     return p
 
 
 def _mlp_residual(p: Params, x, pre, h, cfg):
-    """The block's second half: post-norm of the mixer output, residual, MLP."""
+    """The block's second half: post-norm of the mixer output, residual, MLP
+    (or MoE) -> (x, the MoE's aux loss or None)."""
     if cfg.use_post_norms:
         h = _norm(cfg, p["post_norm"], h)
     if cfg.parallel_residual:
@@ -96,18 +102,23 @@ def _mlp_residual(p: Params, x, pre, h, cfg):
     else:
         x = x + h
         m_in = _norm(cfg, p["mlp_pre_norm"], x)
-    m = apply_mlp(p["mlp"], m_in, cfg.act)
+    aux = None
+    if cfg.num_experts:
+        m, aux = MOE.apply_moe(p["moe"], m_in, cfg)
+    else:
+        m = apply_mlp(p["mlp"], m_in, cfg.act)
     if cfg.use_post_norms:
         m = _norm(cfg, p["mlp_post_norm"], m)
-    return (x + h + m) if cfg.parallel_residual else (x + m)
+    return ((x + h + m) if cfg.parallel_residual else (x + m)), aux
 
 
-def apply_block(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg) -> torch.Tensor:
-    """Full-sequence (train / prefill) path of one pre-norm residual block."""
+def apply_block(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg):
+    """Full-sequence (train / prefill) path of one pre-norm residual block ->
+    (x, aux): the MoE's load-balance loss, None for a block without experts."""
     _check_supported(layer_type, cfg)
     pre = _norm(cfg, p["pre_norm"], x)
     if layer_type == "ssm":
-        return x + S.apply_ssm(p["ssm"], pre, cfg)
+        return x + S.apply_ssm(p["ssm"], pre, cfg), None
     if layer_type == "recurrent":
         h = R.apply_rglru(p["rglru"], pre, cfg)
     else:
@@ -166,7 +177,7 @@ def apply_block_step(p: Params, x: torch.Tensor, cache: Params, layer_type: str,
         h, cache = R.apply_rglru_step(p["rglru"], pre, cache, cfg)
     else:
         h, cache = _attn_decode(p["attn"], pre, cache, layer_type, pos, cfg)
-    return _mlp_residual(p, x, pre, h, cfg), cache
+    return _mlp_residual(p, x, pre, h, cfg)[0], cache
 
 
 def prefill_block_cache(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg,
@@ -191,7 +202,7 @@ def prefill_block_cache(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO
         ring = layer_type == "local"
         cap = min(cfg.window_size, capacity) if ring else capacity
         cache = A.fill_cache_from_prefill(k.to(cache_dtype), v.to(cache_dtype), cap, ring)
-    return _mlp_residual(p, x, pre, h, cfg), cache
+    return _mlp_residual(p, x, pre, h, cfg)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -216,15 +227,19 @@ def _stack_trees(trees: list) -> Params:
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
-def _init_stacked(gen, layer_type: str, n: int, cfg, device) -> Params:
-    """``n`` blocks stacked on a leading axis, each drawn straight into its
-    slot: stacking a list of blocks would hold the period twice (2 x 27 GB
-    for falcon-mamba-7b's 64 layers)."""
-    first = init_block(gen, layer_type, cfg, device)
-    out = tree_map(lambda leaf: leaf.new_empty((n,) + tuple(leaf.shape)), first)
+def init_stacked_blocks(n: int, init_one) -> Params:
+    """``n`` blocks from ``init_one()`` stacked on a leading axis, each drawn,
+    copied into its slot and dropped: stacking a list of blocks would hold
+    the period twice (2 x 27 GB for falcon-mamba-7b's 64 layers), and
+    keeping earlier blocks alive while the next is drawn holds two more
+    (5.04 GB at qwen2-moe-a2.7b's width)."""
+    block = init_one()
+    out = tree_map(lambda leaf: leaf.new_empty((n,) + tuple(leaf.shape)), block)
     for i in range(n):
-        block = first if i == 0 else init_block(gen, layer_type, cfg, device)
+        if i:
+            block = init_one()
         tree_map(lambda dst, src, i=i: dst[i].copy_(src), out, block)
+        del block
     return out
 
 
@@ -233,7 +248,8 @@ def init_stack(gen, cfg, device) -> Params:
     n_per = cfg.num_periods
     if _stacked(cfg):
         for j, t in enumerate(cfg.block_pattern):
-            params[f"pos{j}"] = _init_stacked(gen, t, n_per, cfg, device)
+            params[f"pos{j}"] = init_stacked_blocks(
+                n_per, lambda t=t: init_block(gen, t, cfg, device))
     else:
         for i, t in enumerate(cfg.block_pattern * n_per):
             params[f"layer{i}"] = init_block(gen, t, cfg, device)
@@ -256,16 +272,23 @@ def _per_layer(tree: Params, cfg) -> list[tuple[str, str, Params]]:
     return [(g, t, tree[g] if i is None else views[g][i]) for g, t, i in _layers(cfg)]
 
 
-def apply_stack(params: Params, x: torch.Tensor, io: LayerIO, cfg) -> torch.Tensor:
+def apply_stack(params: Params, x: torch.Tensor, io: LayerIO, cfg):
+    """-> (x, aux_total): the blocks' aux losses summed in layer order (f32;
+    zero for a stack without experts)."""
     def layer(p, x, t):
         if cfg.remat:
             return checkpoint(functools.partial(apply_block, p, layer_type=t, io=io, cfg=cfg),
                               x, use_reentrant=False)
         return apply_block(p, x, t, io, cfg)
 
+    aux_total = None
     for _, t, p in _per_layer(params, cfg):
-        x = layer(p, x, t)
-    return x
+        x, a = layer(p, x, t)
+        if a is not None:  # 0 + a is a exactly: the reference's sum from zero
+            aux_total = a if aux_total is None else aux_total + a
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def init_stack_cache(cfg, batch: int, capacity: int, dtype, device) -> Params:

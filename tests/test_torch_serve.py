@@ -1,9 +1,14 @@
 """Port parity, serving: prefill and greedy decode of reduced
 recurrentgemma-9b (6 layers: recurrent, recurrent, local x 2; d_model 256,
 window 64, f32; also 8 layers, for the two remainder layers ``rem0``/``rem1``),
-reduced stablelm-1.6b and reduced falcon-mamba-7b (2 Mamba layers, d_inner
-512), on the reference's own params carried over by ``repro_torch.bridge``,
-with the same numpy prompts.
+reduced stablelm-1.6b, reduced falcon-mamba-7b (2 Mamba layers, d_inner
+512), reduced codeqwen1.5-7b (untied unembed, rope theta 1e6), reduced
+gemma2-27b (local/global x 2, window 64: softcaps 50 and 30, post-norms,
+query scale, scaled embeddings, GeGLU) and reduced gemma3-27b at 8 layers
+(one 5 local + 1 global period and 2 remainder local layers), on the
+reference's own params carried over by ``repro_torch.bridge``, with the same
+numpy prompts.  The full-width param and decode-cache templates of all ten
+archs are held against the reference's ``jax.eval_shape``.
 
 Tolerances (f32 on both sides; the frameworks sum in other orders): last
 prefill logits, every cache leaf and every decode step's logits within 1e-4
@@ -40,6 +45,9 @@ MODELS = {  # name -> (arch, layers of the reduced config)
     "recurrentgemma-rem": ("recurrentgemma-9b", 8),
     "stablelm": ("stablelm-1.6b", 2),
     "falcon-mamba": ("falcon-mamba-7b", 2),
+    "codeqwen": ("codeqwen1.5-7b", 2),
+    "gemma2": ("gemma2-27b", 4),
+    "gemma3-rem": ("gemma3-27b", 8),
 }
 
 
@@ -163,7 +171,8 @@ def test_serve_launcher_runs_falcon_mamba_on_cpu(capsys):
 def _assert_full_width_templates_match(arch):
     """Full ``arch`` on the meta device against the reference's
     ``jax.eval_shape``: same key paths in the same order, same shapes —
-    params and decode cache.  Returns the param shapes."""
+    params and decode cache (whisper's from encoding a (4, 1500, D) batch).
+    Returns the param shapes."""
     jcfg, tcfg = j_get_config(arch), get_config(arch)
     jshapes = jax.eval_shape(lambda k: JM.init_model(k, jcfg), jax.random.PRNGKey(0))
     want = [(jax.tree_util.keystr(p), tuple(s.shape))
@@ -171,12 +180,20 @@ def _assert_full_width_templates_match(arch):
     got = [(keystr(p), tuple(shape)) for p, (shape, _) in tree_paths(param_template(tcfg))]
     assert got == want
 
-    jcache = jax.eval_shape(lambda: JM.init_decode_state(None, jcfg, 4, 4128,
-                                                         cache_dtype=jnp.float32))
+    enc = (4, jcfg.encoder_positions, jcfg.d_model)
+    jbatch = {"enc_embeds": jax.ShapeDtypeStruct(enc, jnp.float32)} if jcfg.is_encoder_decoder \
+        else None
+    jcache = jax.eval_shape(lambda p, b: JM.init_decode_state(p, jcfg, 4, 4128, batch=b,
+                                                              cache_dtype=jnp.float32),
+                            jshapes, jbatch)
     want_cache = [(jax.tree_util.keystr(p), tuple(s.shape), s.dtype.name)
                   for p, s in jax.tree_util.tree_flatten_with_path(jcache)[0]]
-    meta = {"embed": {"embedding": torch.empty(0, device="meta")}}
-    tcache = TM.init_decode_state(meta, tcfg, 4, 4128, cache_dtype=torch.float32)
+    if tcfg.is_encoder_decoder:
+        meta = TM.init_model(None, tcfg, "meta")
+        tbatch = {"enc_embeds": torch.empty(enc, device="meta")}
+    else:
+        meta, tbatch = {"embed": {"embedding": torch.empty(0, device="meta")}}, None
+    tcache = TM.init_decode_state(meta, tcfg, 4, 4128, cache_dtype=torch.float32, batch=tbatch)
     got_cache = [(keystr(p), tuple(t.shape), str(t.dtype).split(".")[-1])
                  for p, t in tree_paths(tcache)]
     assert got_cache == want_cache
@@ -198,6 +215,31 @@ def test_full_width_falcon_mamba_templates_match_reference():
     assert shapes["['stack']['pos0']['ssm']['in_proj']"] == (64, 4096, 16384)
     assert shapes["['unembed']['embedding']"] == (65_024, 4096)
     assert sum(int(np.prod(s)) for s in shapes.values()) == 7_272_683_520
+
+
+# arch -> (a leaf and its full-width shape, the param count, in f32: GB)
+NEW_ARCHS = {
+    "codeqwen1.5-7b": ("['unembed']['embedding']", (92_416, 4096), 8_189_644_800),  # 32.76
+    "gemma2-27b": ("['stack']['pos1']['mlp_post_norm']['scale']", (23, 4608), 27_227_128_320),
+    "gemma3-27b": ("['stack']['rem1']['attn']['wq']", (5376, 32, 128), 27_008_986_368),
+    "internvl2-2b": ("['stack']['pos0']['attn']['wk']", (24, 2048, 8, 128), 1_889_146_880),
+    # 60 routed experts padded to 64: 60.59 GB, past param_count()'s 14.32e9
+    "qwen2-moe-a2.7b": ("['stack']['pos0']['moe']['w_gate_e']", (24, 64, 2048, 1408),
+                        15_146_305_536),
+    "qwen3-moe-235b-a22b": ("['stack']['pos0']['moe']['w_down_e']", (94, 128, 1536, 4096),
+                            235_093_610_496),  # 940.37 GB
+    "whisper-large-v3": ("['encoder']['attn']['wk']", (32, 1280, 20, 64), 1_534_809_600),
+}
+
+
+@pytest.mark.parametrize("arch", list(NEW_ARCHS))
+def test_full_width_templates_of_the_other_archs_match_reference(arch):
+    """The seven archs ported last, at full width: params and decode cache
+    against the reference's templates, one named leaf and the total."""
+    shapes = _assert_full_width_templates_match(arch)
+    leaf, shape, total = NEW_ARCHS[arch]
+    assert shapes[leaf] == shape
+    assert sum(int(np.prod(s)) for s in shapes.values()) == total
 
 
 def test_cache_from_jax_keeps_dtypes_and_bits(model):
