@@ -138,6 +138,26 @@ Phases, each fatal on failure:
    row (not gated on speedup: the paper's claim is a trend), and the CNN
    example's constant and MindTheStep runs at 600 commits, printing both
    iterations-to-threshold and seconds.
+11. live parameter server — ``run(RunSpec(mode="distributed", fuse=True,
+   transport="inproc", num_workers=2, ...))`` on full-width stablelm-1.6b:
+   two worker threads compute real gradients on the card and the server
+   applies each push with one ``fused_chain`` launch (momentum, the eq.-26
+   table, batch 4 x seq 512, 8 ticks, a refresh every 4, the trace under
+   ``build/``); counts zeroed just before and read just after.  Checks 8
+   ``fused_chain`` launches = 8 applies and no other kernel, 8 trace records
+   whose taus are the version at each push less the version at its pull
+   (read from the records' own pull and push stamps), finite losses, and a
+   refresh that rewrote the alpha table in place.  Prints the median tick, the server's host time
+   per apply (the enqueue; the card runs it asynchronously), the median gap
+   between applies, the ``fused_chain`` time at this path's buffers (timed
+   alone after the run), the tau histogram and peak memory.  Then reduced
+   stablelm: a W = 1 live run on the card against the serial
+   pull/grad/apply loop on the CPU (same params and batches), max |dp| <=
+   1e-5 and every tau 0; and a W = 2 run over the socket transport, its
+   workers spawned processes on the card: it completes, the server's
+   ``fused_chain`` launches equal its applies and the taus agree with the
+   stamps.  W - 1 bounds the batches in flight, not tau: a slow worker is
+   lapped (a spawned worker's first gradient carries its CUDA start-up).
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
 ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
@@ -1407,6 +1427,242 @@ def cnn_experiments():
     return dict(convergence=row, convergence_s=conv_s, example=example)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the live parameter server
+# ---------------------------------------------------------------------------
+
+LIVE_W = 2
+
+
+class LiveLog:
+    """Per-tick host line of the live run (synchronizes to time each tick:
+    measurement only): loss, measured tau, the alpha table after the tick."""
+
+    def __init__(self):
+        import torch
+
+        self._torch, self.rows, self._t = torch, [], None
+
+    def on_start(self, ctx):
+        self._torch.cuda.synchronize()
+        self._t = time.perf_counter()
+        self.table_ptr = ctx.state.adapt.alpha_table.data_ptr()
+
+    def on_refresh(self, ctx):
+        pass
+
+    def on_tick(self, ctx):
+        self._torch.cuda.synchronize()
+        now = time.perf_counter()
+        m = {k: v.item() for k, v in ctx.metrics.items()}
+        row = dict(step=ctx.step, ms=(now - self._t) * 1e3, loss=m["loss"], tau=m["tau"],
+                   table=ctx.state.adapt.alpha_table.clone())
+        self._t = now
+        self.rows.append(row)
+        log(f"[live] tick {ctx.step:3d}  loss {row['loss']:.4f}  last tau {row['tau']:.0f}  "
+            f"{row['ms']:.1f} ms")
+
+    def on_end(self, ctx):
+        pass
+
+
+def check_stamps(taus, t_pull, t_push, what):
+    """Each trace record's tau is the version at its push less the version
+    at its pull.  Record k is applied at version k; the version at its pull
+    is the number of applies stamped before its dispatch (one server thread
+    stamps both, applies in order).  W - 1 does not bound tau: the engine
+    bounds the batches in flight, and a slow worker can be lapped."""
+    import numpy as np
+
+    pulled_at = np.searchsorted(t_push, t_pull, side="left")
+    want = np.arange(len(taus)) - pulled_at
+    check(bool(np.all(np.diff(t_push) >= 0)), f"{what}: applies stamped out of order")
+    check(bool(np.all(t_push >= t_pull)), f"{what}: a record was pushed before its pull")
+    check(taus.tolist() == want.tolist(),
+          f"{what}: taus {taus.tolist()}, but the stamps give {want.tolist()}")
+
+
+def live_path(cfg, n_expected, trace_root):
+    """Full-width stablelm-1.6b through ``run(RunSpec(mode="distributed",
+    fuse=True, transport="inproc", num_workers=2))``: 8 ticks, a refresh
+    every 4; counts zeroed just before and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.async_engine.events import load_trace
+    from repro_torch.distributed import server as S
+    from repro_torch.kernels.adaptive_update import cuda as C
+    from repro_torch.optim import transform as T
+    from repro_torch.optim.fuse import flat_chain_step, plan_fusion
+    from repro_torch.run import RunSpec, run
+
+    pipe, adapt = lm_pipeline(0.01, LIVE_W, K_RING)
+    trace_path = str(trace_root / "live_phase11.trace")
+    spec = RunSpec(cfg=cfg, pipeline=pipe, mode="distributed", num_steps=8, batch_size=4,
+                   seq_len=512, num_workers=LIVE_W, adapt=adapt, fuse=True, refresh_every=4,
+                   transport="inproc", trace_path=trace_path, seed=0, device="cuda")
+    hook = LiveLog()
+    apply_host_ms = []
+    inner = S.ParameterServer._apply
+
+    def timed_apply(self, g_flat, tau):  # host time of one apply (the card runs it async)
+        t0 = time.perf_counter()
+        out = inner(self, g_flat, tau)
+        apply_host_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    S.ParameterServer._apply = timed_apply
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = run(spec, hooks=[hook])
+    finally:
+        S.ParameterServer._apply = inner
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(C.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    state = result.state
+    n = state.params.numel()
+    applies = int(state.step)
+    taus, who, t_pull, t_push = load_trace(trace_path, return_workers=True, return_times=True)
+    hist = np.bincount(taus, minlength=LIVE_W).tolist()
+    log(f"[live] N={n} params  W={LIVE_W}  wall {wall:.2f}s  peak memory {peak / 1e9:.2f} GB  "
+        f"applies {applies}  launches {counts}")
+    check(n == n_expected, f"unexpected parameter count {n}")
+    check(all(math.isfinite(r["loss"]) for r in hook.rows), "non-finite loss on the live path")
+    check(counts["fused_chain"] == applies == spec.num_steps,
+          f"live path: {counts['fused_chain']} fused_chain launches for {applies} applies, "
+          f"expected {spec.num_steps} of each")
+    check(counts["fused_tick"] == counts["fused_combine"] == counts["fused_update"] == 0,
+          "the live path launched a kernel other than fused_chain")
+    check(len(taus) == spec.num_steps, f"{len(taus)} trace records for {spec.num_steps} applies")
+    check_stamps(taus, t_pull, t_push, "live path")
+    check(state.adapt.alpha_table.data_ptr() == hook.table_ptr,
+          "the refresh replaced the alpha table tensor instead of writing into it")
+    check(not torch.equal(hook.rows[3]["table"], hook.rows[2]["table"])
+          or not torch.equal(hook.rows[7]["table"], hook.rows[6]["table"]),
+          "no refresh changed the alpha table")
+    check(bool(torch.isfinite(state.params).all()), "non-finite params after the live run")
+    # the chain kernel at this path's buffers (the run's final p and momentum),
+    # timed alone after the run; its launches above are the path's
+    plan = plan_fusion(pipe)
+    g = torch.full_like(state.params, 1e-6)
+    ctx = T.StepContext(tau=torch.zeros((), dtype=torch.int32, device="cuda"), adapt=state.adapt)
+    chain_ms = cuda_ms(lambda: flat_chain_step(plan, g, state.opt_state["bufs"], state.params,
+                                               ctx))
+    del g
+    steady = [r["ms"] for r in hook.rows[1:]]
+    gaps = np.diff(t_push) * 1e3
+    summary = dict(workers=LIVE_W, ticks=spec.num_steps, applies=applies,
+                   first_tick_ms=hook.rows[0]["ms"],
+                   median_tick_ms=sorted(steady)[len(steady) // 2],
+                   apply_host_ms_median=sorted(apply_host_ms)[len(apply_host_ms) // 2],
+                   apply_interval_ms_median=float(np.median(gaps)) if len(gaps) else None,
+                   fused_chain_ms=chain_ms, tau_hist=hist, taus=taus.tolist(),
+                   workers_seen=sorted(set(who.tolist())), peak_gb=peak / 1e9,
+                   losses=[r["loss"] for r in hook.rows], launches=counts)
+    log(f"[live] losses {summary['losses']}; taus {summary['taus']} (histogram {hist}); "
+        f"median tick {summary['median_tick_ms']:.1f} ms (first {summary['first_tick_ms']:.1f} "
+        f"ms); server apply {summary['apply_host_ms_median']:.3f} ms host (median, enqueue), "
+        f"applies every {summary['apply_interval_ms_median']:.1f} ms (median t_push gap); "
+        f"fused_chain {chain_ms:.3f} ms at this path's buffers; peak {peak / 1e9:.2f} GB")
+    return summary, counts
+
+
+def live_serial_oracle(cfg, flat, batch_fn, steps, device):
+    """The serial pull/grad/apply loop of one worker (the live W = 1 run's
+    oracle): the fused pipeline at tau 0 on ``device``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed import make_grad_fn
+    from repro_torch.optim import transform as T
+    from repro_torch.optim.fuse import fuse_pipeline
+    from repro_torch.training import init_train_state
+    from repro_torch.training.adapt import record_taus
+
+    pipe, adapt = lm_pipeline(0.05, 1, 4)
+    fused = fuse_pipeline(pipe)
+    state = init_train_state(cfg, pipe, device=device, adapt=adapt.to(device),
+                             params=flat.to(device, copy=True), fuse=True)
+    grad_fn = make_grad_fn(cfg, device)
+    for t in range(steps):
+        _, g = grad_fn(state.params, batch_fn(t))
+        tau = torch.zeros(1, dtype=torch.int32, device=device)
+        record_taus(state.adapt, tau)
+        ctx = T.StepContext(tau=tau[0], adapt=state.adapt, staleness_applied=False)
+        with torch.no_grad():
+            params, opt = T.run_pipeline(fused, g, state.opt_state, state.params, ctx)
+        state = dataclasses.replace(state, params=params, opt_state=opt, step=state.step + 1)
+    return state
+
+
+def live_agreement(trace_root):
+    """Reduced stablelm: a W = 1 live run on the card against the serial
+    oracle on the CPU (same params, same batches), max |dp| <= 1e-5 and all
+    taus 0; then W = 2 spawned socket workers on the card."""
+    import torch
+
+    from repro_torch.async_engine.events import load_trace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels.adaptive_update import cuda as C
+    from repro_torch.optim import transform as T
+    from repro_torch.run import RunSpec, run
+    from repro_torch.training import init_params
+
+    cfg = reduced(get_config("stablelm-1.6b"))
+    flat = T.pack_flat(init_params(0, cfg, "cpu"))
+    steps = 4
+    out = {}
+    path = str(trace_root / "live_w1.trace")
+    pipe, adapt = lm_pipeline(0.05, 1, 4)
+    spec = RunSpec(cfg=cfg, pipeline=pipe, mode="distributed", num_steps=steps, num_workers=1,
+                   batch_fn=lambda t: make_batch_for(cfg, batch=2, seq=64, seed=100 + t,
+                                                     device="cuda"),
+                   adapt=adapt, fuse=True, params=flat, trace_path=path, seed=0, device="cuda")
+    C.reset_launches()
+    card = run(spec).state
+    check(C.LAUNCHES["fused_chain"] == steps, f"W=1 live run: {C.LAUNCHES['fused_chain']} "
+          f"fused_chain launches for {steps} applies")
+    taus = load_trace(path)
+    check(taus.tolist() == [0] * steps, f"W=1 live taus {taus.tolist()}")
+    cpu = live_serial_oracle(cfg, flat, lambda t: make_batch_for(cfg, batch=2, seq=64,
+                                                                 seed=100 + t), steps, "cpu")
+    d = (card.params.cpu() - cpu.params).abs().max().item()
+    out["w1_card_vs_cpu_max_dp"] = d
+    log(f"[live agreement] reduced stablelm, W=1 live on the card vs the serial CPU oracle, "
+        f"{steps} applies: max |dp| = {d:.3e} (gate 1e-5); taus {taus.tolist()}")
+    check(d <= 1e-5, f"card and CPU disagree by {d}")
+    check(torch.equal(card.adapt.hist.cpu(), cpu.adapt.hist), "histograms differ")
+
+    path = str(trace_root / "live_socket.trace")
+    pipe, adapt = lm_pipeline(0.05, 2, 4)
+    spec = RunSpec(cfg=cfg, pipeline=pipe, mode="distributed", num_steps=6, num_workers=2,
+                   batch_size=2, seq_len=64, adapt=adapt, fuse=True, params=flat,
+                   transport="socket", trace_path=path, seed=0, device="cuda")
+    C.reset_launches()
+    t0 = time.perf_counter()
+    res = run(spec)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    applies = int(res.state.step)
+    taus, who, t_pull, t_push = load_trace(path, return_workers=True, return_times=True)
+    log(f"[live socket] reduced stablelm, W=2 spawned workers on the card: {applies} applies, "
+        f"{C.LAUNCHES['fused_chain']} fused_chain launches, taus {taus.tolist()}, workers "
+        f"{who.tolist()}, {secs:.2f} s")
+    check(applies == spec.num_steps == C.LAUNCHES["fused_chain"],
+          f"socket run: {applies} applies, {C.LAUNCHES['fused_chain']} fused_chain launches")
+    check(len(taus) == applies, f"socket run: {len(taus)} trace records for {applies} applies")
+    check_stamps(taus, t_pull, t_push, "socket run")
+    check(bool(torch.isfinite(res.state.params).all()), "non-finite params after the socket run")
+    out.update(socket_applies=applies, socket_taus=taus.tolist(), socket_s=secs)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1579,6 +1835,13 @@ def main() -> int:
     cnn.update(cnn_experiments())
     free_cuda()
 
+    # -- phase 11: the live parameter server ----------------------------------------
+    live, live_counts = live_path(full, n, root / "build")
+    log("[live] " + json.dumps({k: v for k, v in live.items() if k != "losses"}))
+    free_cuda()
+    live["agreement"] = live_agreement(root / "build")
+    free_cuda()
+
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
         "fused_chain": ("sharded_async (phase 9)", sharded_counts["fused_chain"]),
@@ -1618,10 +1881,12 @@ def main() -> int:
     kernels[[k["name"] for k in kernels].index("fused_chain")]["launches_by_path"] = {
         "sharded_async": sharded_counts["fused_chain"],
         "sync_fuse": path_counts["sync_fuse"]["fused_chain"],
-        "async_fuse_clip": path_counts["async_fuse_clip"]["fused_chain"]}
+        "async_fuse_clip": path_counts["async_fuse_clip"]["fused_chain"],
+        "distributed": live_counts["fused_chain"]}
     log(json.dumps({"variants": results, "main": summary, "serving": serving,
                     "agreement": agreement, "resume": resume,
-                    "exact": exact, "sharded": sharded, "cnn": cnn}, default=str))
+                    "exact": exact, "sharded": sharded, "cnn": cnn, "live": live},
+                   default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

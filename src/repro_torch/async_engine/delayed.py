@@ -45,6 +45,9 @@ __all__ = [
     "flat_size",
     "ring_dtype_for",
     "staleness_cdf",
+    "sample_tau",
+    "delayed_apply",
+    "delayed_apply_batch",
     "delayed_combine",
     "worker_ring_combine",
     "slot_live",
@@ -105,6 +108,41 @@ def staleness_cdf(pmf: np.ndarray) -> torch.Tensor:
     p = np.asarray(pmf, dtype=np.float64)
     p = p / p.sum()
     return torch.from_numpy(np.cumsum(p).astype(np.float32))
+
+
+def sample_tau(u: torch.Tensor | torch.Generator, cdf: torch.Tensor) -> torch.Tensor:
+    """Draw one tau ~ the fitted staleness model by inverse CDF (int32 0-d).
+    ``u`` is the uniform itself (a test hands in the reference's draw) or a
+    generator to draw it from on ``cdf``'s device."""
+    if isinstance(u, torch.Generator):
+        u = torch.rand((), generator=u, device=cdf.device)
+    return torch.searchsorted(cdf, torch.as_tensor(u, device=cdf.device).to(cdf.dtype).reshape(1),
+                              out_int32=True)[0]
+
+
+def delayed_apply(state: DelayedGradients, new_grad: Any, tau: torch.Tensor):
+    """Push ``new_grad``; pop the gradient from ``tau`` steps ago.
+
+    Returns ``(delayed_grad, live, new_state)``: ``live`` is 0.0 while the
+    requested slot predates the run or ``tau`` reaches the ring's depth (the
+    caller scales the step by it), and ``new_state`` holds the same ring
+    tensors, pushed in place, and ``step + 1``."""
+    delayed, live, new_state = delayed_apply_batch(state, new_grad, torch.as_tensor(tau).reshape(1))
+    return tree_map(lambda d: d[0], delayed), live[0], new_state
+
+
+def delayed_apply_batch(state: DelayedGradients, new_grad: Any, taus: torch.Tensor):
+    """Push ``new_grad``; pop the ``W`` gradients from ``taus`` steps ago.
+
+    The vectorized :func:`delayed_apply`: every leaf of ``delayed`` carries a
+    leading ``(W,)`` axis (a gather over ring slots, in the ring's dtype) and
+    ``live`` is the ``(W,)`` drop mask."""
+    K = tree_leaves(state.ring)[0].shape[0]
+    src_slot, live = slot_live(state.step, taus, K)
+    ring = tree_map(lambda r, g: _push(r, g, state.step), state.ring, new_grad)
+    idx = src_slot.long()
+    delayed = tree_map(lambda r: r.index_select(0, idx), ring)
+    return delayed, live, DelayedGradients(ring=ring, step=state.step + 1)
 
 
 def slot_live(step: torch.Tensor, taus: torch.Tensor, K: int):

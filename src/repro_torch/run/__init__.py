@@ -10,6 +10,7 @@
 from repro_torch.run.ckpt import refresh_link_of, restore_checkpoint, save_checkpoint
 from repro_torch.run.engine import (
     AsyncEngine,
+    Engine,
     PrebuiltEngine,
     ShardedAsyncEngine,
     SyncEngine,
@@ -22,6 +23,7 @@ from repro_torch.run.spec import MODES, RunSpec
 __all__ = [
     "RunSpec",
     "MODES",
+    "Engine",
     "AsyncEngine",
     "ShardedAsyncEngine",
     "SyncEngine",

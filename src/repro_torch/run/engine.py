@@ -3,10 +3,13 @@
 ``build()`` makes the initial state, ``tick(state, batch)`` runs one step,
 ``refresh(state)`` is the host-side adaptation boundary (drain the
 histogram, refit, write the new table into the same tensors), and
-``finish``/``abort``/``liveness`` close the lifecycle (no-ops here: no engine
-of the port runs live machinery yet).  ``build_template()`` is the resume
-path's shape-only state: its tensors live on ``meta``, so restoring a
-full-width checkpoint never builds the state it is about to overwrite.
+``finish``/``abort``/``liveness`` close the lifecycle (no-ops for the
+engines here; the live parameter server's
+:class:`~repro_torch.distributed.engine.DistributedAsyncEngine` runs them).
+:class:`Engine` is the protocol all of them satisfy.  ``build_template()``
+is the resume path's shape-only state: its tensors live on ``meta``, so
+restoring a full-width checkpoint never builds the state it is about to
+overwrite.
 
 PyTorch runs eagerly, so there is no compile to count: ``retraces`` is None
 and :class:`~repro_torch.run.hooks.BenchHook` leaves out its retrace row,
@@ -17,13 +20,51 @@ from the spec (``spec.params``, ``spec.adapt``) and a run never mutates them.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Protocol, runtime_checkable
 
 import torch
 
 from repro_torch.run.spec import RunSpec
 
-__all__ = ["SyncEngine", "AsyncEngine", "ShardedAsyncEngine", "PrebuiltEngine", "make_engine"]
+__all__ = ["Engine", "SyncEngine", "AsyncEngine", "ShardedAsyncEngine", "PrebuiltEngine",
+           "make_engine"]
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """The execution surface of one run.  The orchestrator calls every one
+    of these without ``hasattr`` probing::
+
+        build (or build_template + checkpoint restore)   # once
+        tick*                                            # the training loop
+        refresh*                                         # at refresh_every
+        finish | abort                                   # exactly one, at exit
+
+    ``finish(state)`` is the success path: an engine running live machinery
+    (worker threads or processes, a trace capture) drains outstanding work
+    and returns the fully applied state.  ``abort()`` is the failure path
+    (any exception escaping the loop): tear down WITHOUT draining, leaving
+    crash evidence (a ``.part`` trace) salvageable.  ``liveness()`` reports
+    the live machinery's health (``{}`` where nothing lives).
+    """
+
+    pipeline: Any
+
+    def build(self) -> Any: ...
+
+    def build_template(self) -> Any: ...
+
+    def tick(self, state: Any, batch: Any) -> tuple[Any, dict]: ...
+
+    def refresh(self, state: Any) -> Any: ...
+
+    def require_refreshable(self, state: Any) -> None: ...
+
+    def finish(self, state: Any) -> Any: ...
+
+    def abort(self) -> None: ...
+
+    def liveness(self) -> dict: ...
 
 
 def _refresher_of(pipeline):
@@ -205,5 +246,11 @@ class PrebuiltEngine(_EngineBase):
 _ENGINES = {"sync": SyncEngine, "async": AsyncEngine, "sharded_async": ShardedAsyncEngine}
 
 
-def make_engine(spec: RunSpec) -> Any:
+def make_engine(spec: RunSpec) -> Engine:
+    """The engine for ``spec.mode``; the live parameter server's engine is
+    imported only for ``mode="distributed"``."""
+    if spec.mode == "distributed":
+        from repro_torch.distributed.engine import DistributedAsyncEngine
+
+        return DistributedAsyncEngine(spec)
     return _ENGINES[spec.mode](spec)

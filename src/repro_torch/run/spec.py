@@ -1,5 +1,6 @@
 """RunSpec: the declarative description of one training run (port of
-``src/repro/run/spec.py``, modes ``sync``, ``async`` and ``sharded_async``).
+``src/repro/run/spec.py``, modes ``sync``, ``async``, ``sharded_async`` and
+``distributed``).
 
 One dataclass captures everything the orchestrator needs to *reconstruct* a
 run from nothing, which is what makes resume possible: ``run(spec,
@@ -21,7 +22,13 @@ Data source (resolved in this order):
 the state's generator, so a run can replay another's draws.  ``mesh``
 (``sharded_async``) is the :class:`~repro_torch.launch.mesh.WorkersMesh`
 (default: one process on ``device``); ``adapt`` is then a
-``WorkerAdaptState``.
+``WorkerAdaptState``.  ``mode="distributed"`` runs the LIVE parameter server
+(:mod:`repro_torch.distributed`): ``num_workers`` real workers over
+``transport`` (``transport_opts`` go to ``make_transport``), measured
+staleness streamed to ``trace_path``; ``faults`` (a FaultPlan, or a
+``--faults`` style string) injects faults, ``worker_timeout`` arms the
+server's liveness sweep and ``retry`` tunes the workers' rpc timeout and
+backoff.
 """
 
 from __future__ import annotations
@@ -29,9 +36,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Iterable, Iterator
 
-MODES = ("sync", "async", "sharded_async")
+MODES = ("sync", "async", "sharded_async", "distributed")
+# The live registry is repro_torch.distributed.transport.transport_kinds();
+# this mirror only validates specs of the simulated modes without importing it.
+TRANSPORTS = ("inproc", "socket")
 
-__all__ = ["RunSpec", "MODES"]
+__all__ = ["RunSpec", "MODES", "TRANSPORTS"]
 
 
 @dataclasses.dataclass
@@ -59,6 +69,14 @@ class RunSpec:
     device: str = "cuda"
     tau_source: Callable[[], Any] | None = None
 
+    # -- live parameter server (mode="distributed") --------------------------
+    transport: str = "inproc"  # worker fabric: threads | TCP + spawned processes
+    transport_opts: dict | None = None  # make_transport(**opts) extras
+    trace_path: str | None = None  # stream measured staleness to this file
+    faults: Any = None  # FaultPlan (or a parse_faults string)
+    worker_timeout: float | None = None  # liveness: silence after taking work
+    retry: Any = None  # RetryPolicy for the workers' rpc timeout/backoff
+
     # -- refresh policy (online adaptation boundary) -------------------------
     refresh_every: int = 0
 
@@ -66,6 +84,19 @@ class RunSpec:
 
     def __post_init__(self):
         assert self.mode in MODES, f"mode must be one of {MODES}, got {self.mode!r}"
+        if self.mode == "distributed":
+            # the live registry, and a --faults string normalized to a FaultPlan
+            from repro_torch.distributed.faults import parse_faults
+            from repro_torch.distributed.transport import transport_kinds
+
+            kinds = transport_kinds()
+            assert self.transport in kinds, (
+                f"transport must be one of {kinds}, got {self.transport!r}")
+            if isinstance(self.faults, str):
+                self.faults = parse_faults(self.faults)
+        else:
+            assert self.transport in TRANSPORTS, (
+                f"transport must be one of {TRANSPORTS}, got {self.transport!r}")
         assert self.num_steps >= 0, f"num_steps must be >= 0, got {self.num_steps}"
 
     def batch_stream(self, start_step: int = 0) -> Iterator[Any]:

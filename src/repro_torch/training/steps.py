@@ -72,6 +72,8 @@ __all__ = [
     "init_train_state",
     "init_sharded_async_state",
     "make_step",
+    "make_train_step",
+    "make_async_train_step",
     "make_sharded_async_train_step",
     "make_serve_step",
 ]
@@ -381,6 +383,19 @@ def make_step(
         }
 
     return train_step
+
+
+def make_train_step(cfg, opt) -> Callable:
+    """Synchronous step: loss -> grad -> pipeline; see :func:`make_step`."""
+    return make_step(cfg, opt, mode="sync")
+
+
+def make_async_train_step(cfg, opt, *, alpha_c: float, num_workers: int = 1,
+                          tau_source: Callable[[], torch.Tensor] | None = None) -> Callable:
+    """MindTheStep-AsyncPSGD step (async-as-delay); see :func:`make_step`
+    ``mode="async"`` (``tau_source`` hands in the workers' uniforms)."""
+    return make_step(cfg, opt, mode="async", alpha_c=alpha_c, num_workers=num_workers,
+                     tau_source=tau_source)
 
 
 def make_sharded_async_train_step(cfg, opt, *, alpha_c: float, mesh=None) -> Callable:
