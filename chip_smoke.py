@@ -158,6 +158,34 @@ Phases, each fatal on failure:
    ``fused_chain`` launches equal its applies and the taus agree with the
    stamps.  W - 1 bounds the batches in flight, not tau: a slow worker is
    lapped (a spawned worker's first gradient carries its CUDA start-up).
+12. planner — ``repro_torch.launch.dryrun`` plans the three configurations
+   the card ran, on shape-only tensors: phase 3's run and phase 9's
+   (``plan_run``: the engine's own state template and step) and phase 6's
+   qwen2-moe-a2.7b serve (``plan_serve``: params and the f32 decode cache
+   of 512 + 32 positions).  Gate: the planned state bytes on one card
+   equal the bytes of the state that phase built on the card.  Printed
+   beside it: the allocator's bytes, the planned peak against the phase's
+   measured peak, and the planned FLOPs against 6 N D (training) or 2 N D
+   (prefill).
+13. expert parallelism — full-width qwen2-moe-a2.7b (64 padded experts,
+   d_model 2048, top-4, the 5632-wide shared expert, 16 heads of 128) at
+   depth 4, in f32 activations (the one-process and the sharded runs sum
+   the experts in other orders, which bf16 would round differently), with
+   ``use_pallas=True`` (flash at H 128).  One process serves it
+   (``launch/serve.py::serve``: batch 4, prompt 512, 8 greedy steps); then
+   2 spawned processes on the one card form a gloo group, data 1 x model 2,
+   each holding 32 of the experts and the rest replicated, and serve the
+   same params (drawn from the same seed) and prompts under
+   ``use_sharding_rules``; each process serves once untimed first.  Gates:
+   every rank's logits within 1e-4 +
+   1e-4 |one process|, greedy ids and every router call's top-k ids equal,
+   4 flash launches in each.  Then 4 processes (data 2 x model 2) run one
+   full-width MoE block weights-stationary (d_ff over data too) at the
+   decode shape (B 4, S 1) and at B 4 x S 512, each rank its two rows:
+   out and aux within 3e-4 of the one-process block (the reference's
+   bound).  Prints each path's ms, the peak memory per process and the
+   bytes its all-reduces took.  A rank that fails, or the group past 300
+   s, fails the phase (every rank is stopped).
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
 ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
@@ -587,16 +615,30 @@ def lm_pipeline(lr, workers, ring, *, clip=None, fused_apply=False, async_mode=T
     return T.chain(link, *base), adapt
 
 
+def state_bytes(tree) -> int:
+    """Bytes of every tensor of a state (a generator holds no device memory)."""
+    from repro_torch.sharding.specs import leaf_paths
+
+    return sum(t.numel() * t.element_size() for _, t in leaf_paths(tree) if hasattr(t, "numel"))
+
+
+def main_spec(cfg, device="cuda"):
+    """Phase 3's run: full-width async fused training, W = K = 8, bf16 ring."""
+    from repro_torch.run import RunSpec
+
+    pipe, adapt = lm_pipeline(0.01, W_WORKERS, K_RING)
+    return RunSpec(cfg=cfg, pipeline=pipe, mode="async", num_steps=12, batch_size=4, seq_len=512,
+                   num_workers=W_WORKERS, ring=K_RING, ring_dtype="bfloat16", adapt=adapt,
+                   fuse=True, refresh_every=5, seed=0, device=device)
+
+
 def main_path(cfg, n_expected):
     import torch
 
     from repro_torch.kernels.adaptive_update import cuda as C
-    from repro_torch.run import RunSpec, run
+    from repro_torch.run import run
 
-    pipe, adapt = lm_pipeline(0.01, W_WORKERS, K_RING)
-    spec = RunSpec(cfg=cfg, pipeline=pipe, mode="async", num_steps=12, batch_size=4, seq_len=512,
-                   num_workers=W_WORKERS, ring=K_RING, ring_dtype="bfloat16", adapt=adapt,
-                   fuse=True, refresh_every=5, seed=0, device="cuda")
+    spec = main_spec(cfg)
     hook = TickLog("main", replay=True)
     torch.cuda.reset_peak_memory_stats()
     C.reset_launches()
@@ -629,7 +671,8 @@ def main_path(cfg, n_expected):
     summary = dict(ticks=spec.num_steps, first_tick_ms=hook.rows[0]["ms"],
                    median_tick_ms=sorted(steady)[len(steady) // 2], peak_gb=peak / 1e9,
                    losses=[r["loss"] for r in hook.rows], launches=counts,
-                   slots_read=[r["slots_read"] for r in hook.rows], tick_kernel_gb=tick_gb)
+                   slots_read=[r["slots_read"] for r in hook.rows], tick_kernel_gb=tick_gb,
+                   state_bytes=state_bytes(state), allocated_bytes=torch.cuda.memory_allocated())
     return summary, counts
 
 
@@ -908,13 +951,25 @@ def serve_full(arch, batch, prompt, gen, expect):
         before["peak"] = torch.cuda.max_memory_allocated()
         return inner(*args, **kw)
 
+    def prefill_and_keep_state(params, *args, **kw):
+        # a reference only: the bytes are summed after the timed serve (the
+        # decode writes this cache in place, so it holds no extra memory)
+        logits, cache = inner_prefill(params, *args, **kw)
+        before["state"] = (params, cache)
+        return logits, cache
+
     serve.serve = serve_and_read_peak
+    inner_prefill = serve.M.prefill
+    serve.M.prefill = prefill_and_keep_state
     try:
         result = serve.main(["--arch", arch, "--batch", str(batch), "--prompt_len", str(prompt),
                              "--gen", str(gen), "--device", "cuda"])
     finally:
         serve.serve = inner
+        serve.M.prefill = inner_prefill
     torch.cuda.synchronize()
+    if "state" in before:  # whisper runs no decoder prefill
+        before["state_bytes"] = sum(state_bytes(t) for t in before.pop("state"))
     counts = {"flash_attention": FA.LAUNCHES["flash_attention"], "rg_lru": RG.LAUNCHES["rg_lru"],
               "selective_scan": SS.LAUNCHES["selective_scan"]}
     peak = torch.cuda.max_memory_allocated()
@@ -934,7 +989,7 @@ def serve_full(arch, batch, prompt, gen, expect):
                peak_gb=peak / 1e9, peak_before_prefill_gb=before["peak"] / 1e9,
                n_prefix=cfg.num_prefix_embeddings if cfg.frontend == "vision" else 0,
                encoder_frames=cfg.encoder_positions if cfg.is_encoder_decoder else 0,
-               launches=counts)
+               launches=counts, state_bytes=before.get("state_bytes"))
     log(f"[serve] {json.dumps(row)}")
     del result
     free_cuda()
@@ -1230,17 +1285,27 @@ def sharded_setup(lr, W, K, device):
     return T.chain(link, T.scale(-lr), T.trace(0.9)), wadapt
 
 
+def sharded_spec(cfg, device="cuda"):
+    """Phase 9's run: full-width sharded fused training, W 2 x K 4 bf16 rings."""
+    from repro_torch.run import RunSpec
+
+    pipe, adapt = sharded_setup(0.01, SHARDED_W, SHARDED_K, "cpu")
+    return RunSpec(cfg=cfg, pipeline=pipe, mode="sharded_async", num_steps=6, batch_size=4,
+                   seq_len=512, ring=SHARDED_K, ring_dtype="bfloat16", adapt=adapt, fuse=True,
+                   refresh_every=3, seed=0, device=device)
+
+
 def sharded_path(cfg, n_expected):
     import torch
 
     from repro_torch.kernels.adaptive_update import cuda as C
     from repro_torch.optim import transform as T
-    from repro_torch.run import Hook, RunSpec, run
+    from repro_torch.run import Hook, run
     from repro_torch.training import merge_worker_hist
 
     W, K = SHARDED_W, SHARDED_K
-    pipe, adapt = sharded_setup(0.01, W, K, "cpu")
-    est = T.staleness_link(pipe).estimator
+    spec = sharded_spec(cfg)
+    est = T.staleness_link(spec.pipeline).estimator
 
     class Drains(Hook):
         """Per tick (measurement only, it waits for the device): the merged
@@ -1256,9 +1321,6 @@ def sharded_path(cfg, n_expected):
         def on_tick(self, ctx):
             self.hist.append(int(merge_worker_hist(ctx.state.adapt).sum()))
 
-    spec = RunSpec(cfg=cfg, pipeline=pipe, mode="sharded_async", num_steps=6, batch_size=4,
-                   seq_len=512, ring=K, ring_dtype="bfloat16", adapt=adapt, fuse=True,
-                   refresh_every=3, seed=0, device="cuda")
     hook, drains = TickLog("sharded", workers=W), Drains()
     torch.cuda.reset_peak_memory_stats()
     C.reset_launches()
@@ -1295,7 +1357,8 @@ def sharded_path(cfg, n_expected):
     summary = dict(ticks=spec.num_steps, first_tick_ms=hook.rows[0]["ms"],
                    median_tick_ms=sorted(steady)[len(steady) // 2], peak_gb=peak / 1e9,
                    ring_gb=ring_gb, losses=[r["loss"] for r in hook.rows], launches=counts,
-                   drained=drains.drained)
+                   drained=drains.drained, state_bytes=state_bytes(state),
+                   allocated_bytes=torch.cuda.memory_allocated())
     log(f"[sharded] losses {summary['losses']}; median tick {summary['median_tick_ms']:.1f} ms "
         f"(first {summary['first_tick_ms']:.1f} ms); refreshes drained {drains.drained} taus")
     return summary, counts
@@ -1663,6 +1726,317 @@ def live_agreement(trace_root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the planner against the card
+# ---------------------------------------------------------------------------
+
+def plan_against_card(full, main, qwen_row, sharded):
+    """Plan the three configurations the card ran (phases 3, 6 and 9) with
+    ``repro_torch.launch.dryrun`` on shape-only tensors; gate: the planned
+    state bytes on one card equal the bytes of the state that phase built
+    on the card.  Printed beside it: the allocator's bytes, the planned
+    peak against the measured one and the planned FLOPs against 6 N D
+    (training) or 2 N D (prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+
+    t0 = time.perf_counter()
+    qwen = get_config("qwen2-moe-a2.7b")
+    plans = {
+        "main (phase 3)": (D.plan_run(main_spec(full, device="cpu")), main, 6 * 4 * 512),
+        "serve qwen2-moe-a2.7b (phase 6)": (
+            D.plan_serve(qwen, batch=4, prompt=512, gen=32), qwen_row, 2 * 4 * 512),
+        "sharded (phase 9)": (D.plan_run(sharded_spec(full, device="cpu")), sharded, 6 * 4 * 512),
+    }
+    rows = {}
+    for name, (rec, measured, nd) in plans.items():
+        planned, held = rec["memory"]["argument_bytes"], measured["state_bytes"]
+        n_active = rec["active_params"]
+        row = dict(planned_state_bytes=planned, card_state_bytes=held,
+                   allocated_bytes=measured.get("allocated_bytes"),
+                   planned_peak_gb=rec["memory"]["peak_bytes"] / 1e9,
+                   measured_peak_gb=measured["peak_gb"], planned_flops=rec["cost"]["flops"],
+                   model_flops=nd * n_active, planned_hbm_bytes_upper=rec["cost"]["hbm_bytes"],
+                   roofline=rec["roofline"], plan_s=rec["plan_s"])
+        rows[name] = row
+        alloc = "n/a" if row["allocated_bytes"] is None else f"{row['allocated_bytes'] / 1e9:.3f}"
+        log(f"[plan] {name}: planned state {planned / 1e9:.6f} GB, the card's "
+            f"{held / 1e9:.6f} GB ({'equal' if planned == held else 'DIFFER'}); allocated "
+            f"{alloc} GB; planned peak {row['planned_peak_gb']:.2f} GB, measured "
+            f"{row['measured_peak_gb']:.2f} GB; planned {row['planned_flops']:.4e} FLOPs against "
+            f"{'6' if nd == 6 * 4 * 512 else '2'} N D = {row['model_flops']:.4e} "
+            f"({row['planned_flops'] / row['model_flops']:.3f}x); dominant "
+            f"{rec['roofline']['dominant']}; planned in {rec['plan_s']:.1f} s")
+        check(planned == held, f"{name}: planned state bytes {planned} != the card's {held}")
+    log(f"[plan] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: expert parallelism on the card
+# ---------------------------------------------------------------------------
+
+EP_LAYERS, EP_PROMPT, EP_GEN = 4, 512, 8
+EP_TIMEOUT_S = 300  # a rank, or a collective, that takes longer fails the phase
+
+
+def ep_config(**upd):
+    """Full-width qwen2-moe-a2.7b at depth 4, in f32 (the one-process and
+    the sharded run sum the experts in other orders, which bf16 would round
+    differently), on the kernels (flash at H 128)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    return dataclasses.replace(cfg, num_layers=EP_LAYERS, activation_dtype="float32",
+                               use_pallas=True, **upd)
+
+
+def serve_with_routes(cfg, params, batch):
+    """``launch.serve.serve`` with every router call's top-k ids kept."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import moe as MOE
+
+    routes, inner = [], MOE.route
+
+    def keep(*args):
+        out = inner(*args)
+        routes.append(out[2])
+        return out
+
+    MOE.route = keep
+    try:
+        res = serve(cfg, params, batch, gen=EP_GEN)
+    finally:
+        MOE.route = inner
+    return res, routes
+
+
+def serve_warm_up(cfg, params, batch):
+    """One untimed prefill and decode step (the process's first GEMMs,
+    kernel loads and allocations), so the timed serve is warm."""
+    from repro_torch.launch.serve import serve
+
+    serve(cfg, params, batch, gen=1)
+
+
+def ep_rank(rank, world, data, model, what, store, out_dir):
+    """One rank of phase 13 (a spawned process): gloo over the one card."""
+    import datetime
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.kernels.flash_attention import cuda as FA
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding import use_sharding_rules
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
+    mesh = make_mesh((data, model), ("data", "model"), device="cuda")
+    torch.cuda.set_device(mesh.device)
+    out = {}
+    if what == "serve":
+        from repro_torch.data import make_batch_for
+        from repro_torch.training import init_params
+
+        cfg = ep_config()
+        params = init_params(0, cfg, mesh.device)
+        pos0 = params["stack"]["pos0"]
+        pos0["moe"] = MOE.local_expert_params(pos0["moe"], cfg, mesh)
+        free_cuda()
+        batch = make_batch_for(cfg, batch=4, seq=EP_PROMPT, seed=0, device=mesh.device)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad(), use_sharding_rules(mesh):
+            serve_warm_up(cfg, params, batch)
+            MOE.reset_collective_bytes()
+            FA.reset_launches()
+            dist.barrier()
+            res, routes = serve_with_routes(cfg, params, batch)
+        torch.cuda.synchronize()
+        out.update(prefill_logits=res["prefill_logits"].cpu().numpy(),
+                   logits=res["logits"].cpu().numpy(), tokens=res["tokens"].cpu().numpy(),
+                   routes=np.stack([r.cpu().numpy() for r in routes[:EP_LAYERS]]),
+                   decode_routes=np.stack([r.cpu().numpy() for r in routes[EP_LAYERS:]]),
+                   prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+                   flash=FA.LAUNCHES["flash_attention"],
+                   expert_shape=np.array(pos0["moe"]["w_up_e"].shape))
+    else:
+        cfg = ep_config(moe_weights_stationary=True)
+        p, x = ep_block_inputs(cfg, mesh.device)
+        p = MOE.local_expert_params(p, cfg, mesh)
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        MOE.reset_collective_bytes()
+        d = mesh.index("data")
+        for S in (1, EP_PROMPT):
+            rows = x[S].shape[0] // data
+            xl = x[S][d * rows:(d + 1) * rows]
+            with torch.no_grad(), use_sharding_rules(mesh):
+                MOE.apply_moe(p, xl, cfg)  # warm-up
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                o, a = MOE.apply_moe(p, xl, cfg)
+                torch.cuda.synchronize()
+                out[f"ms_{S}"] = (time.perf_counter() - t0) * 1e3
+            out[f"out_{S}"], out[f"aux_{S}"] = o.cpu().numpy(), float(a)
+        out["expert_shape"] = np.array(p["w_up_e"].shape)
+    out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, data=mesh.index("data"),
+               model=mesh.index("model"),
+               collective_bytes=np.array([MOE.COLLECTIVE_BYTES[k] for k in ("combine", "gather",
+                                                                           "aux")]))
+    np.savez(f"{out_dir}/{what}_{rank}.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ep_block_inputs(cfg, device):
+    """One full-width MoE block's params (all 64 experts) and x at the
+    decode shape (4, 1, D) and at (4, 512, D), from seeds."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    p = MOE.init_moe(gen, cfg, device)
+    x = {S: torch.randn((4, S, cfg.d_model), generator=gen, device=device) for S in (1, EP_PROMPT)}
+    return p, x
+
+
+def run_ranks(world, data, model, what, out_dir):
+    """Spawn ``world`` ranks of :func:`ep_rank` and wait for them; a rank
+    that fails, or the group past ``EP_TIMEOUT_S``, fails the phase (every
+    rank is stopped)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    store = out_dir / f"store_{what}"
+    procs = [ctx.Process(target=ep_rank, args=(r, world, data, model, what, str(store),
+                                               str(out_dir)), daemon=True)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for pr in procs:
+        pr.start()
+    try:
+        for pr in procs:
+            pr.join(max(1.0, EP_TIMEOUT_S - (time.perf_counter() - t0)))
+        alive = [i for i, pr in enumerate(procs) if pr.is_alive()]
+        check(not alive, f"{what}: ranks {alive} still running after {EP_TIMEOUT_S} s")
+        codes = [pr.exitcode for pr in procs]
+        check(all(c == 0 for c in codes), f"{what}: ranks exited with {codes}")
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join(10)
+    return time.perf_counter() - t0
+
+
+def expert_parallel(root):
+    """Phase 13 (module docstring): the expert-parallel serve on 2 ranks and
+    the weights-stationary block on 4, each against one process."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels.flash_attention import cuda as FA
+    from repro_torch.models import moe as MOE
+    from repro_torch.training import init_params
+
+    t_phase = time.perf_counter()
+    out_dir = root / "build" / "expert_parallel"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    # one process: the same model, params and prompts
+    cfg = ep_config()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(0, cfg, "cuda")
+    batch = make_batch_for(cfg, batch=4, seq=EP_PROMPT, seed=0, device="cuda")
+    serve_warm_up(cfg, params, batch)
+    FA.reset_launches()
+    ref, ref_routes = serve_with_routes(cfg, params, batch)
+    ref_flash = FA.LAUNCHES["flash_attention"]
+    one = dict(prefill_s=ref["prefill_s"], decode_ms_per_step=ref["decode_s"] / EP_GEN * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, flash=ref_flash)
+    ref = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in ref.items()}
+    ref_routes = [r.cpu() for r in ref_routes]
+    del params, batch
+    free_cuda()
+
+    wall = run_ranks(2, 1, 2, "serve", out_dir)
+    ranks = [dict(np.load(out_dir / f"serve_{r}.npz")) for r in range(2)]
+    for r in ranks[1:]:
+        for k in ("prefill_logits", "logits", "tokens"):
+            check(np.array_equal(r[k], ranks[0][k]), f"expert-parallel ranks disagree on {k}")
+    got = ranks[0]
+    want_pre, want = ref["prefill_logits"].numpy(), ref["logits"].numpy()
+    d_pre = float(np.max(np.abs(got["prefill_logits"] - want_pre) / (1e-4 + 1e-4 * np.abs(want_pre))))
+    d_dec = float(np.max(np.abs(got["logits"] - want) / (1e-4 + 1e-4 * np.abs(want))))
+    routes_equal = (np.array_equal(got["routes"], np.stack([r.numpy() for r in ref_routes[:EP_LAYERS]]))
+                    and np.array_equal(got["decode_routes"],
+                                       np.stack([r.numpy() for r in ref_routes[EP_LAYERS:]])))
+    ids_equal = np.array_equal(got["tokens"], ref["tokens"].numpy())
+    serve_row = dict(
+        layers=EP_LAYERS, batch=4, prompt=EP_PROMPT, gen=EP_GEN, experts_per_rank=int(
+            got["expert_shape"][1]), one_process=one,
+        two_ranks=dict(prefill_s=[float(r["prefill_s"]) for r in ranks],
+                       decode_ms_per_step=[float(r["decode_s"]) / EP_GEN * 1e3 for r in ranks],
+                       peak_gb=[float(r["peak_gb"]) for r in ranks],
+                       collective_bytes=[r["collective_bytes"].tolist() for r in ranks],
+                       flash=[int(r["flash"]) for r in ranks], wall_s=wall),
+        logits_err_over_bound=max(d_pre, d_dec), ids_equal=ids_equal, routes_equal=routes_equal)
+    log(f"[ep] serve {json.dumps(serve_row)}")
+    check(max(d_pre, d_dec) <= 1.0, f"expert-parallel logits miss 1e-4 + 1e-4|ref| "
+          f"({max(d_pre, d_dec):.3f} of the bound)")
+    check(ids_equal, "expert-parallel greedy ids differ from one process")
+    check(routes_equal, "expert-parallel routes differ from one process")
+    check(one["flash"] == EP_LAYERS and all(int(r["flash"]) == EP_LAYERS for r in ranks),
+          f"flash launches: one process {one['flash']}, ranks {[int(r['flash']) for r in ranks]}")
+    check(int(got["expert_shape"][1]) == 32, f"a rank holds {got['expert_shape']} experts")
+
+    # weights-stationary block, data 2 x model 2, against one process
+    wcfg = ep_config(moe_weights_stationary=True)
+    p, x = ep_block_inputs(wcfg, "cuda")
+    block = {}
+    with torch.no_grad():
+        for S in (1, EP_PROMPT):
+            MOE.apply_moe(p, x[S], wcfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, a = MOE.apply_moe(p, x[S], wcfg)
+            torch.cuda.synchronize()
+            block[S] = (o.cpu().numpy(), float(a), (time.perf_counter() - t0) * 1e3)
+    del p, x
+    free_cuda()
+    wall = run_ranks(4, 2, 2, "block", out_dir)
+    ranks = [dict(np.load(out_dir / f"block_{r}.npz")) for r in range(4)]
+    ws_row = dict(one_process_ms={S: block[S][2] for S in block}, wall_s=wall,
+                  ms={S: [float(r[f"ms_{S}"]) for r in ranks] for S in block},
+                  peak_gb=[float(r["peak_gb"]) for r in ranks],
+                  collective_bytes=[r["collective_bytes"].tolist() for r in ranks],
+                  expert_shape=ranks[0]["expert_shape"].tolist())
+    for S, (want_o, want_a, _) in block.items():
+        rows = want_o.shape[0] // 2
+        d_out = max(float(np.max(np.abs(r[f"out_{S}"] - want_o[int(r["data"]) * rows:
+                                                          (int(r["data"]) + 1) * rows])))
+                    for r in ranks)
+        d_aux = max(abs(float(r[f"aux_{S}"]) - want_a) for r in ranks)
+        ws_row[f"max_abs_dout_{S}"], ws_row[f"max_abs_daux_{S}"] = d_out, d_aux
+        check(d_out <= 3e-4 and d_aux <= 3e-4,
+              f"weights-stationary block at S {S}: out {d_out:.3e}, aux {d_aux:.3e} past 3e-4")
+    log(f"[ep] weights-stationary block {json.dumps(ws_row)}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[ep] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"serve": serve_row, "weights_stationary": ws_row}
+
+
 def main() -> int:
     import torch
 
@@ -1842,6 +2216,13 @@ def main() -> int:
     live["agreement"] = live_agreement(root / "build")
     free_cuda()
 
+    # -- phase 12: the planner against the card -----------------------------------
+    plan = plan_against_card(full, summary, serving[3], sharded)
+
+    # -- phase 13: expert parallelism on the card ---------------------------------
+    ep = expert_parallel(root)
+    free_cuda()
+
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
         "fused_chain": ("sharded_async (phase 9)", sharded_counts["fused_chain"]),
@@ -1875,9 +2256,12 @@ def main() -> int:
             bound_set_by=r.get("bound_set_by", r.get("bound_by", "bytes")),
             library_ms=r.get("library_ms"), variant=key, path=path,
         ))
-    kernels[[k["name"] for k in kernels].index("flash_attention")]["launches_by_path"] = {
-        f"serve {row['arch']} (one prefill)": row["launches"]["flash_attention"]
-        for row in serving if row["launches"]["flash_attention"]}
+    flash_paths = {f"serve {row['arch']} (one prefill)": row["launches"]["flash_attention"]
+                   for row in serving if row["launches"]["flash_attention"]}
+    flash_paths["expert-parallel serve, qwen2-moe-a2.7b at 4 layers (each of 2 ranks)"] = \
+        ep["serve"]["two_ranks"]["flash"][0]
+    kernels[[k["name"] for k in kernels].index("flash_attention")]["launches_by_path"] = \
+        flash_paths
     kernels[[k["name"] for k in kernels].index("fused_chain")]["launches_by_path"] = {
         "sharded_async": sharded_counts["fused_chain"],
         "sync_fuse": path_counts["sync_fuse"]["fused_chain"],
@@ -1885,7 +2269,8 @@ def main() -> int:
         "distributed": live_counts["fused_chain"]}
     log(json.dumps({"variants": results, "main": summary, "serving": serving,
                     "agreement": agreement, "resume": resume,
-                    "exact": exact, "sharded": sharded, "cnn": cnn, "live": live},
+                    "exact": exact, "sharded": sharded, "cnn": cnn, "live": live,
+                    "plan": plan, "expert_parallel": ep},
                    default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

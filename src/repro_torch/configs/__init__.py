@@ -26,4 +26,13 @@ ASSIGNED_ARCHS = (
     "whisper-large-v3",
 )
 
-__all__ = ["ModelConfig", "get_config", "list_configs", "reduced", "register", "ASSIGNED_ARCHS"]
+# The four input shapes the planner covers: name -> (seq_len, global_batch, kind)
+INPUT_SHAPES = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
+
+__all__ = ["ModelConfig", "get_config", "list_configs", "reduced", "register", "ASSIGNED_ARCHS",
+           "INPUT_SHAPES"]

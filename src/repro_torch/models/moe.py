@@ -16,11 +16,45 @@
 * **Shared expert** (qwen2-moe): a gated MLP on every token, scaled by a
   sigmoid gate, added to the routed output.
 
-The reference's ``shard_map`` branches (experts over a ``model`` mesh axis,
-and its weights-stationary variant) are not ported: they need a mesh of
-several devices, and the port runs on one card.  The expert products are
-plain matrix products in the reference too (outside any Pallas kernel), so
-``torch.bmm`` is their counterpart.
+Under :func:`~repro_torch.sharding.use_sharding_rules` with a running
+:class:`~repro_torch.launch.mesh.Mesh` whose ``model`` axis has more than
+one process, :func:`apply_moe` takes the reference's two ``shard_map``
+branches, written as explicit collectives over the mesh's process groups.
+Each process holds its own batch rows and its own block of the expert
+stacks (:func:`local_expert_params` slices them); router and shared expert
+are replicated.
+
+* **Expert-parallel**: the stacks hold ``E / n_model`` experts.  Each rank
+  routes its own tokens over all experts, runs its experts
+  (``_routed_local`` with its ``e_start``) and the partial outputs are summed
+  over ``model`` (one all-reduce); aux is averaged over every rank.  The
+  dispatch needs no communication, since tokens are replicated over
+  ``model``.
+* **Weights-stationary** (``cfg.moe_weights_stationary``, a ``data`` axis
+  that divides d_ff): the stacks also split d_ff over ``data``.  The tokens
+  of the ``data`` group are gathered, each rank runs its f-slice of its
+  experts on all of them, the outputs are summed over every rank, and each
+  rank keeps its own rows.  Expert weights never move.
+
+The gather is an all-reduce of a zero-filled ``(n_data, T_loc, D)`` buffer in
+which each rank fills its own rows: gloo reduces CUDA tensors but does not
+gather them, and NCCL refuses two ranks on one card, so this one form runs on
+gloo with several processes on one card and on NCCL with one card each.
+
+Gradients (when one is asked for) follow the data-parallel convention: the
+step's loss is the SUM over data groups of each group's loss, which the
+model ranks of a group compute alike (and count once); the caller sums the
+gradients of the leaves replicated over the batch axes (router, shared
+expert, and the expert stacks unless weights-stationary) over those axes,
+as data-parallel training does.  Each collective's backward follows from
+that: a sum over ``model`` of partial outputs passes its cotangent through;
+a sum over the batch axes (the token gather, the weights-stationary
+combine, aux) sums the cotangents over them; and the replicated inputs of
+the partial expert computation (the tokens and the router) sum their
+cotangents over ``model``.  ``tests/test_torch_moe_ep.py`` holds every
+rank's gradient to the one-process gradient.
+The expert products are plain matrix products in the reference too
+(outside any Pallas kernel), so ``torch.bmm`` is their counterpart.
 """
 
 from __future__ import annotations
@@ -32,9 +66,19 @@ import torch
 
 from repro_torch.models.layers import Params, _act, truncated_normal
 
-__all__ = ["init_moe", "capacity_for", "route", "apply_moe"]
+__all__ = ["init_moe", "capacity_for", "route", "apply_moe", "local_expert_params",
+           "COLLECTIVE_BYTES", "reset_collective_bytes"]
 
 f32 = torch.float32
+
+# Bytes handed to all-reduce by the sharded branches, by purpose (a
+# measurement count: it adds each buffer's size, and never waits for it).
+COLLECTIVE_BYTES = {"combine": 0, "gather": 0, "aux": 0, "backward": 0}
+
+
+def reset_collective_bytes() -> None:
+    for k in COLLECTIVE_BYTES:
+        COLLECTIVE_BYTES[k] = 0
 
 
 def init_moe(gen, cfg, device) -> Params:
@@ -99,30 +143,36 @@ def route(xt: torch.Tensor, p: Params, cfg):
 
 
 def _expert_ffn(xin: torch.Tensor, p: Params, act: str) -> torch.Tensor:
-    """xin: (E, C, D) -> (E, C, D) through the (E, D, F) / (E, F, D) stacks,
-    cast to xin's dtype."""
+    """xin: (E_loc, C, D) -> (E_loc, C, D) through the (E_loc, D, F) /
+    (E_loc, F, D) stacks, cast to xin's dtype."""
     dt = xin.dtype
     gate = torch.bmm(xin, p["w_gate_e"].to(dt))
     up = torch.bmm(xin, p["w_up_e"].to(dt))
     return torch.bmm(_act(act, gate) * up, p["w_down_e"].to(dt))
 
 
-def _routed_local(xt: torch.Tensor, p: Params, cfg, C: int):
-    """Dispatch -> expert FFN -> weighted combine over all E experts.
-    xt: (T, D) -> (out (T, D), aux f32 scalar)."""
+def _routed_local(xt: torch.Tensor, p: Params, cfg, C: int, e_start: int = 0,
+                  e_local: int | None = None):
+    """Dispatch -> expert FFN -> weighted combine for experts
+    ``[e_start, e_start + e_local)`` (default: all E), whose stacks are
+    exactly ``p``'s.  xt: (T, D) -> (partial out (T, D), zero rows where the
+    token's experts live elsewhere; aux f32 scalar)."""
     dt = xt.dtype
     T, D = xt.shape
     E, K, n = cfg.experts_padded, cfg.top_k, cfg.num_experts
+    e_local = E if e_local is None else e_local
 
     probs, topk_p, topk_idx = route(xt, p, cfg)
     pos, counts = _slot_assignment(topk_idx, E)
-    keep = pos < C
-    dest = torch.where(keep, topk_idx * C + pos, E * C)  # dropped -> the trash row
+    keep = (topk_idx >= e_start) & (topk_idx < e_start + e_local) & (pos < C)
+    # dropped or elsewhere -> the trash row
+    dest = torch.where(keep, (topk_idx - e_start) * C + pos, e_local * C)
 
-    buf = torch.zeros((E * C + 1, D), dtype=dt, device=xt.device)
+    buf = torch.zeros((e_local * C + 1, D), dtype=dt, device=xt.device)
     for kk in range(K):  # K scatters, each to distinct rows but the trash row
         buf = buf.index_copy(0, dest[:, kk], xt)
-    eout = _expert_ffn(buf[:E * C].reshape(E, C, D), p, cfg.act).reshape(E * C, D)
+    eout = _expert_ffn(buf[:e_local * C].reshape(e_local, C, D), p,
+                       cfg.act).reshape(e_local * C, D)
     eout = torch.cat([eout, torch.zeros((1, D), dtype=dt, device=xt.device)], dim=0)
 
     out = torch.zeros((T, D), dtype=dt, device=xt.device)
@@ -137,12 +187,144 @@ def _routed_local(xt: torch.Tensor, p: Params, cfg, C: int):
     return out, aux
 
 
+def _all_reduce(t: torch.Tensor, group, what: str) -> torch.Tensor:
+    """Sum contiguous ``t`` over the ranks of ``group``, in place."""
+    import torch.distributed as dist
+
+    COLLECTIVE_BYTES[what] += t.numel() * t.element_size()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class _SumOver(torch.autograd.Function):
+    """Sum over ``group`` (None: the identity); the backward sums the
+    cotangent over ``back`` (None: passes it through)."""
+
+    @staticmethod
+    def forward(ctx, t, group, back, what):
+        ctx.back = back
+        if group is None:
+            return t.view_as(t)
+        return _all_reduce(t.clone(memory_format=torch.contiguous_format), group, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.back is not None:
+            g = _all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.back,
+                            "backward")
+        return g, None, None, None
+
+
+def _sum_over(t: torch.Tensor, group, what: str, back=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group``; differentiated, the cotangent is
+    summed over ``back`` (module docstring).  Without a gradient to carry
+    the sum is in place."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _SumOver.apply(t, group, back, what)
+    return _all_reduce(t.contiguous(), group, what)
+
+
+def _to_model(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A replicated input of the partial expert computation: the identity,
+    whose backward sums the cotangent over ``model``."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _SumOver.apply(t, None, mesh.group("model"), "backward")
+    return t
+
+
+def _moe_layout(cfg, mesh):
+    """``(batch axes, n_model, n_data, weights-stationary?)`` of a running
+    layout (the reference's branch condition; its ``(B * S) % n_data`` test
+    holds by construction here, since each rank holds whole batch rows)."""
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    n_data = mesh.size(batch_axes) if batch_axes else 1
+    stationary = bool(cfg.moe_weights_stationary and batch_axes
+                      and cfg.d_ff_expert % n_data == 0)
+    return batch_axes, mesh.shape["model"], n_data, stationary
+
+
+def _sharded_mesh():
+    """The running mesh when the sharded branches apply, else None."""
+    from repro_torch.sharding.ctx import current_rules
+
+    rules = current_rules()
+    if rules is None or "model" not in rules.mesh.axis_names:
+        return None
+    mesh = rules.mesh
+    return mesh if getattr(mesh, "running", False) and mesh.shape["model"] > 1 else None
+
+
+def local_expert_params(p: Params, cfg, mesh) -> Params:
+    """This rank's block of an MoE param tree (any tree holding ``*_e``
+    stacks, stacked layers included): the expert axis (dim -3) sliced over
+    ``model``, and for the weights-stationary layout d_ff sliced over the
+    batch axes; everything else is returned as is (replicated)."""
+    batch_axes, n_model, n_data, stationary = _moe_layout(cfg, mesh)
+    E = cfg.experts_padded
+    if E % n_model:
+        raise ValueError(f"experts {E} must divide the model axis {n_model}")
+    e_local = E // n_model
+    f_local = cfg.d_ff_expert // n_data if stationary else cfg.d_ff_expert
+    e0 = mesh.index("model") * e_local
+    f0 = mesh.index(batch_axes) * f_local if stationary else 0
+
+    def one(name, t):
+        if not name.endswith("_e"):
+            return t
+        t = t.narrow(-3, e0, e_local)
+        f_dim = -2 if name == "w_down_e" else -1
+        return t.narrow(f_dim, f0, f_local).contiguous()
+
+    def walk(node):
+        return {k: (walk(v) if isinstance(v, dict) else one(k, v)) for k, v in node.items()}
+
+    return walk(p)
+
+
+def _apply_sharded(p: Params, x: torch.Tensor, cfg, mesh):
+    """The reference's two ``shard_map`` branches (module docstring).  x is
+    this rank's rows (B_loc, S, D); returns (out (B_loc, S, D), aux)."""
+    Bl, S, D = x.shape
+    E = cfg.experts_padded
+    batch_axes, n_model, n_data, stationary = _moe_layout(cfg, mesh)
+    e_local = E // n_model
+    e_start = mesh.index("model") * e_local
+    world = mesh.group(("model",) + batch_axes)
+    data = mesh.group(batch_axes) if batch_axes else None
+    p = {**p, "router": _to_model(p["router"], mesh)}
+    T_loc = Bl * S
+    xt = x.reshape(T_loc, D)
+    if stationary:
+        # gather the data group's tokens: each rank fills its own rows of a
+        # zero buffer and the buffer is summed (module docstring)
+        d_idx = mesh.index(batch_axes)
+        xg = torch.zeros((n_data, T_loc, D), dtype=x.dtype, device=x.device)
+        xg[d_idx] = xt
+        xg = _sum_over(xg, data, "gather", back=data).reshape(n_data * T_loc, D)
+        C = capacity_for(n_data * T_loc, E, cfg.top_k, cfg.capacity_factor)
+        out, aux = _routed_local(_to_model(xg, mesh), p, cfg, C, e_start, e_local)
+        out = _sum_over(out, world, "combine", back=data)
+        out = out.reshape(n_data, T_loc, D)[d_idx]
+    else:
+        C = capacity_for(T_loc, E, cfg.top_k, cfg.capacity_factor)
+        out, aux = _routed_local(_to_model(xt, mesh), p, cfg, C, e_start, e_local)
+        out = _sum_over(out, mesh.group("model"), "combine")
+    aux = _sum_over(aux.reshape(1), world, "aux", back=data)[0] / (n_model * n_data)
+    return out.reshape(Bl, S, D), aux
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss)."""
+    """x: (B, S, D) -> (out, aux_loss).  Under a running mesh with a
+    ``model`` axis of more than one process, x and the expert stacks are
+    this rank's blocks (module docstring)."""
     B, S, D = x.shape
-    C = capacity_for(B * S, cfg.experts_padded, cfg.top_k, cfg.capacity_factor)
-    out, aux = _routed_local(x.reshape(B * S, D), p, cfg, C)
-    out = out.reshape(B, S, D)
+    mesh = _sharded_mesh()
+    if mesh is not None:
+        out, aux = _apply_sharded(p, x, cfg, mesh)
+    else:
+        C = capacity_for(B * S, cfg.experts_padded, cfg.top_k, cfg.capacity_factor)
+        out, aux = _routed_local(x.reshape(B * S, D), p, cfg, C)
+        out = out.reshape(B, S, D)
     if "shared" in p:
         dt = x.dtype
         sp = p["shared"]

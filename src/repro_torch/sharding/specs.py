@@ -1,0 +1,350 @@
+"""Parameter / state / batch / cache specs on a 2-D ``data x model`` layout
+(port of ``src/repro/sharding/specs.py``).
+
+Megatron-style tensor parallelism over ``model`` and FSDP-style storage
+sharding over ``data`` (and ``pod`` when present):
+
+* attention projections shard heads over ``model``, d_model over ``data``;
+* the MLP shards d_ff over ``model``; the MoE shards the expert axis over
+  ``model`` (expert parallelism) and the expert d_ff over ``data``;
+* embedding / unembedding shard vocab over ``model``;
+* the SSM and RG-LRU shard their inner width over ``model``;
+* norm scales and other small vectors replicate.
+
+Every function is a pure function of a leaf's path, its shape and the
+layout, held exactly to the reference's (``tests/test_torch_sharding.py``).
+A spec is a :class:`~repro_torch.sharding.ctx.PartitionSpec`, a tuple with
+one entry per dimension; the rules key on the LAST dims of a leaf,
+so a leading stacked-layer axis gets ``None``.  A leaf's path is its keys
+joined by ``/`` (dict keys, tuple indices, dataclass field names), the
+reference's ``_path_str`` of the same tree.
+
+The reference's ``*_shardings`` functions wrap each spec in a
+``NamedSharding`` for ``jax.jit``; the port has no partitioner to hand them
+to, so :func:`local_shape` and :func:`local_shard` give this card's block of
+a leaf instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.sharding.ctx import PartitionSpec as P
+
+__all__ = [
+    "param_spec_for",
+    "tree_specs",
+    "leaf_paths",
+    "batch_shape_structs",
+    "batch_specs",
+    "worker_specs",
+    "cache_spec_for",
+    "cache_specs",
+    "auto_spec_for",
+    "auto_specs",
+    "local_shape",
+    "local_shard",
+    "P",
+    "SPEC_OPTIONS",
+]
+
+# Layout variants (set by the planner's flags).
+SPEC_OPTIONS = {
+    # Decode caches whose kv-head axis cannot shard over `model` normally
+    # replicate; this instead shards the cache's capacity (sequence) axis.
+    "seq_shard_cache": False,
+    # Serving layout: params sharded over `model` only, replicated over `data`.
+    "replicate_params_over_data": False,
+}
+
+
+def _axis_sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _data_axes(mesh):
+    present = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return present if present else None
+
+
+def _fits(dim: int, mesh, axes) -> bool:
+    if axes is None:
+        return True
+    sizes = _axis_sizes(mesh)
+    n = math.prod(sizes[a] for a in axes) if isinstance(axes, tuple) else sizes[axes]
+    return dim % n == 0
+
+
+# (path regex, trailing spec): first match wins.  The spec applies to the
+# LAST len(spec) dims; leading dims (the stacked layers) get None.
+_RULES: list[tuple[str, tuple | None]] = [
+    # attention: wq/wk/wv (d, heads, hd); wo (heads, hd, d)
+    (r"(wq|wk|wv)$", ("data", "model", None)),
+    (r"wo$", ("model", None, "data")),
+    # MoE expert stacks: experts over model, d_ff over data
+    (r"w_(gate|up)_e$", ("model", None, "data")),  # (E, d, f)
+    (r"w_down_e$", ("model", "data", None)),  # (E, f, d)
+    (r"router$", ("data", None)),
+    # dense MLP (d, f) / (f, d)
+    (r"w_(gate|up)$", ("data", "model")),
+    (r"w_down$", ("model", "data")),
+    # embedding (vocab, d)
+    (r"embedding$", ("model", "data")),
+    # mamba: in_proj (d, 2di); out_proj (di, d); x_proj (di, k); dt_proj (r, di)
+    (r"in_proj$", ("data", "model")),
+    (r"out_proj$", ("model", "data")),
+    (r"x_proj$", ("model", None)),
+    (r"dt_proj$", (None, "model")),
+    (r"a_log$", ("model", None)),
+    (r"(d_skip|dt_bias)$", ("model",)),
+    (r"conv_w$", (None, "model")),
+    (r"conv_b$", ("model",)),
+    # rg-lru: in_x/in_gate (d, w); w_a/w_i (w, w); gates (w,)
+    (r"(in_x|in_gate)$", ("data", "model")),
+    (r"(w_a|w_i)$", (None, "model")),
+    (r"(b_a|b_i|lambda_)$", ("model",)),
+    # shared-expert gate (d, 1)
+    (r"gate_proj$", (None, None)),
+    # norms and everything small: replicate
+    (r"(scale|bias)$", None),
+]
+
+
+def _resolve(axis, mesh, dim: int):
+    if axis is None:
+        return None
+    if axis == "data":
+        if SPEC_OPTIONS["replicate_params_over_data"]:
+            return None
+        axes = _data_axes(mesh)
+        return axes if axes is not None and _fits(dim, mesh, axes) else None
+    if axis in mesh.axis_names and _fits(dim, mesh, axis):
+        return axis
+    return None
+
+
+def param_spec_for(path: str, shape: tuple[int, ...], mesh) -> P:
+    """The spec of one parameter leaf, by its path and shape."""
+    for pattern, trailing in _RULES:
+        if re.search(pattern, path):
+            if trailing is None:
+                return P()
+            n = len(trailing)
+            if len(shape) < n:
+                return P()
+            lead = (None,) * (len(shape) - n)
+            tail = tuple(
+                _resolve(ax, mesh, shape[len(shape) - n + i]) for i, ax in enumerate(trailing)
+            )
+            return P(*(lead + tail))
+    return P()  # default: replicate (small or unknown leaves)
+
+
+# ---------------------------------------------------------------------------
+# Trees: nested dicts, tuples, lists and dataclasses (TrainState & co.)
+# ---------------------------------------------------------------------------
+
+def _children(node) -> list[tuple[str, Any]] | None:
+    """``(key, child)`` pairs in the reference's flattening order (dicts by
+    sorted key, sequences by index, dataclasses by field), or None for a
+    leaf."""
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, (tuple, list)):
+        return [(str(i), c) for i, c in enumerate(node)]
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return [(f.name, getattr(node, f.name)) for f in dataclasses.fields(node)]
+    return None
+
+
+def leaf_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(path, leaf)`` for every leaf, in order; ``None`` holds no leaf (as
+    in the reference's trees)."""
+    if tree is None:
+        return []
+    kids = None if isinstance(tree, P) else _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    out = []
+    for k, c in kids:
+        out.extend(leaf_paths(c, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def _map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, tree[k], f"{prefix}/{k}" if prefix else str(k))
+                for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, P):
+        return type(tree)(_map_with_path(fn, c, f"{prefix}/{i}" if prefix else str(i))
+                          for i, c in enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map_with_path(fn, getattr(tree, f.name),
+                                   f"{prefix}/{f.name}" if prefix else f.name)
+            for f in dataclasses.fields(tree) if f.init})
+    return fn(prefix, tree)
+
+
+def _shape(leaf) -> tuple[int, ...]:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def tree_specs(tree: Any, mesh) -> Any:
+    """Every leaf's spec, in a tree of the same structure."""
+    return _map_with_path(lambda path, leaf: param_spec_for(path, _shape(leaf), mesh), tree)
+
+
+# ---------------------------------------------------------------------------
+# Worker-axis specs (sharded async engine)
+# ---------------------------------------------------------------------------
+
+def worker_specs(tree: Any, mesh, axis: str = "workers") -> Any:
+    """Every leaf's LEADING dim over the ``workers`` axis (replicated when
+    the layout has no such axis or the dim does not divide it)."""
+
+    def one(_, leaf) -> P:
+        shape = _shape(leaf)
+        if not shape or axis not in mesh.axis_names or not _fits(shape[0], mesh, axis):
+            return P()
+        return P(axis, *((None,) * (len(shape) - 1)))
+
+    return _map_with_path(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache specs
+# ---------------------------------------------------------------------------
+
+def batch_shape_structs(cfg, *, batch: int, seq: int) -> dict[str, torch.Tensor]:
+    """Shape-only stand-ins (``meta`` tensors) of a training / prefill batch."""
+    meta = torch.device("meta")
+    out = {
+        "tokens": torch.empty((batch, seq), dtype=torch.int32, device=meta),
+        "labels": torch.empty((batch, seq), dtype=torch.int32, device=meta),
+    }
+    if cfg.frontend == "vision":
+        out["prefix_embeds"] = torch.empty((batch, cfg.num_prefix_embeddings, cfg.d_model),
+                                           dtype=torch.bfloat16, device=meta)
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = torch.empty((batch, cfg.encoder_positions, cfg.d_model),
+                                        dtype=torch.bfloat16, device=meta)
+    return out
+
+
+def batch_specs(cfg, mesh, *, batch: int) -> dict[str, P]:
+    """The batch's leading dim over (pod, data) when it divides."""
+    daxes = _data_axes(mesh)
+    b_ax = daxes if daxes is not None and _fits(batch, mesh, daxes) else None
+    spec2, spec3 = P(b_ax, None), P(b_ax, None, None)
+    out = {"tokens": spec2, "labels": spec2}
+    if cfg.frontend == "vision":
+        out["prefix_embeds"] = spec3
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = spec3
+    return out
+
+
+def cache_spec_for(path: str, shape: tuple[int, ...], mesh, batch: int) -> P:
+    """A decode-cache leaf's spec.
+
+    KV caches (..., B, C, n_kv, hd): batch over data, kv heads over model.
+    Conv rings (..., B, K, W) and recurrent states (..., B, W) /
+    (..., B, W, N): batch over data, width over model.
+    """
+    daxes = _data_axes(mesh)
+    b_ax = daxes if daxes is not None and _fits(batch, mesh, daxes) else None
+    leaf = path.rsplit("/", 1)[-1]
+    if leaf in ("k", "v"):
+        head_ax = _resolve("model", mesh, shape[-2])
+        if head_ax is None and SPEC_OPTIONS["seq_shard_cache"]:
+            # kv heads do not shard: shard the capacity axis instead
+            tail = (b_ax, _resolve("model", mesh, shape[-3]), None, None)
+        elif b_ax is None and SPEC_OPTIONS["seq_shard_cache"]:
+            # batch 1: the data axis idles, so the capacity goes on it
+            cap_ax = daxes if daxes is not None and _fits(shape[-3], mesh, daxes) else None
+            tail = (None, cap_ax, head_ax, None)
+        else:
+            tail = (b_ax, None, head_ax, None)
+    elif leaf == "conv":
+        tail = (b_ax, None, _resolve("model", mesh, shape[-1]))
+    elif leaf == "h":
+        if len(shape) >= 3 and shape[-1] <= 64:  # ssm state (B, Di, N)
+            tail = (b_ax, _resolve("model", mesh, shape[-2]), None)
+        else:  # rg-lru state (B, W)
+            tail = (b_ax, _resolve("model", mesh, shape[-1]))
+    else:
+        return P()
+    lead = (None,) * (len(shape) - len(tail))
+    return P(*(lead + tail))
+
+
+def cache_specs(tree: Any, mesh, batch: int) -> Any:
+    return _map_with_path(lambda path, leaf: cache_spec_for(path, _shape(leaf), mesh, batch),
+                          tree)
+
+
+# ---------------------------------------------------------------------------
+# One rule for every leaf of a step's arguments (params + caches + batches)
+# ---------------------------------------------------------------------------
+
+def auto_spec_for(path: str, shape: tuple[int, ...], mesh, batch: int) -> P:
+    """Any leaf of a step's input or output: cache leaves by name
+    (k/v/conv/h), token and logit tensors by name, parameters by the
+    rules above, everything else replicated."""
+    daxes = _data_axes(mesh)
+    b_ax = daxes if daxes is not None and _fits(batch, mesh, daxes) else None
+    leaf = path.rsplit("/", 1)[-1]
+    if leaf in ("k", "v", "conv", "h") and len(shape) >= 2:
+        return cache_spec_for(path, shape, mesh, batch)
+    if leaf == "logits" and len(shape) >= 2:
+        lead = (None,) * (len(shape) - 2)
+        return P(*(lead + (b_ax, _resolve("model", mesh, shape[-1]))))
+    if leaf == "next_token" and len(shape) == 1:
+        return P(b_ax)
+    if leaf in ("tokens", "labels") and len(shape) == 2:
+        return P(b_ax, None)
+    if leaf in ("prefix_embeds", "enc_embeds") and len(shape) == 3:
+        return P(b_ax, None, None)
+    return param_spec_for(path, shape, mesh)
+
+
+def auto_specs(tree: Any, mesh, batch: int) -> Any:
+    return _map_with_path(lambda path, leaf: auto_spec_for(path, _shape(leaf), mesh, batch), tree)
+
+
+# ---------------------------------------------------------------------------
+# This card's block of a leaf
+# ---------------------------------------------------------------------------
+
+def _axes_of(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
+    """The shape of one card's block of a leaf of ``shape`` under ``spec``."""
+    sizes = _axis_sizes(mesh)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d // math.prod(sizes[a] for a in _axes_of(e)) for d, e in zip(shape, spec))
+
+
+def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (a view); ``mesh.coords``
+    gives the rank's place along each axis."""
+    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+    for dim, e in enumerate(spec):
+        axes = _axes_of(e)
+        if axes:
+            n = mesh.size(axes)
+            block = t.shape[dim] // n
+            t = t.narrow(dim, mesh.index(axes) * block, block)
+    return t

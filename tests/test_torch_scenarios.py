@@ -7,9 +7,13 @@ reference's ``repro.launch.scenarios``, on the CPU.
   bench.v1 rows with the reference's names and config hashes (no retrace
   row: the port runs eagerly);
 * the training loss and gradient of each arch's reduced cell model equal
-  the reference's to f32 round-off (loss 1e-6 relative, gradient 1e-6 of
-  its largest element; measured 2.2e-7 / 9.1e-7 for recurrentgemma-9b,
-  whose training the port had not been held to before);
+  the reference's to f32 round-off: loss 1e-6 relative, gradient 1e-5 of
+  its largest element, the bound ``tests/test_torch_grad_parity.py`` holds
+  the same quantity to, at 2 torch threads as there.  Each f32 gradient is
+  6.6-8.4e-7 of max|g| from the port's float64 gradient, so the two f32
+  gradients part by up to 1.10e-6 of max|g| in reduction order alone
+  (``tests/grad_round_off.py``); a 1e-6 bound sat at that round-off and
+  failed or passed with the machine's BLAS;
 * the same sgd cell from the reference's initial params and uniforms gives
   the reference's loss series to 1e-5 relative.  (An adam cell is not
   compared tick by tick: adam's first update is ``lr * g / (|g| + eps)``, so
@@ -124,7 +128,7 @@ def test_training_loss_and_gradient_match_reference(arch):
                        make_batch_for(tcfg, batch=2, seq=16, seed=0), tcfg)
     (tg,) = torch.autograd.grad(tl, leaf)
     np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-6)
-    np.testing.assert_allclose(tg.numpy(), jg, rtol=0, atol=1e-6 * np.abs(jg).max())
+    np.testing.assert_allclose(tg.numpy(), jg, rtol=0, atol=1e-5 * np.abs(jg).max())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
