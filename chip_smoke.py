@@ -174,18 +174,42 @@ Phases, each fatal on failure:
    ``use_pallas=True`` (flash at H 128).  One process serves it
    (``launch/serve.py::serve``: batch 4, prompt 512, 8 greedy steps); then
    2 spawned processes on the one card form a gloo group, data 1 x model 2,
-   each holding 32 of the experts and the rest replicated, and serve the
-   same params (drawn from the same seed) and prompts under
+   each holding its blocks (32 of the experts, 8 of the 16 heads, half the
+   shared expert's d_ff and of the vocab; router and norms replicated), and
+   serve the same params (drawn from the same seed, sliced) and prompts under
    ``use_sharding_rules``; each process serves once untimed first.  Gates:
-   every rank's logits within 1e-4 +
-   1e-4 |one process|, greedy ids and every router call's top-k ids equal,
-   4 flash launches in each.  Then 4 processes (data 2 x model 2) run one
+   every rank's logits (its vocab block) within 1e-4 + 1e-4 |one process|,
+   greedy ids and every router call's top-k ids equal, 4 flash launches in
+   each, and the bytes each rank handed to all-reduce equal to the plan
+   (``launch.analysis.port_collective_bytes``).  Then 4 processes (data 2 x model 2) run one
    full-width MoE block weights-stationary (d_ff over data too) at the
    decode shape (B 4, S 1) and at B 4 x S 512, each rank its two rows:
    out and aux within 3e-4 of the one-process block (the reference's
    bound).  Prints each path's ms, the peak memory per process and the
    bytes its all-reduces took.  A rank that fails, or the group past 300
    s, fails the phase (every rank is stopped).
+14. tensor parallelism — Megatron-style over ``model``, data parallelism
+   over ``data``, as gloo processes sharing the one card (NCCL refuses two
+   ranks on one card), each under ``use_sharding_rules`` with its blocks.
+   First 2 ranks (data 1 x model 2): phase 3's run on full-width
+   stablelm-1.6b for 4 ticks, a refresh every 2 (gates: 4 ``fused_tick``
+   launches a rank and no other adaptive_update kernel, finite losses,
+   losses, taus, tables, CDFs and histograms bitwise equal across ranks, a
+   refresh that rewrote the table in place, each rank's state bytes equal
+   to ``plan_run`` for the layout and its all-reduce bytes to
+   ``port_collective_bytes``); then full width at depth 2 in f32 without
+   remat against one process (loss within 1e-5 relative, the gathered
+   gradient within 1e-4 of max |g|, and after 3 fused ticks with the same
+   uniforms and an f32 ring the gathered params within 1e-5); then the
+   full-depth f32 serve on the flash kernel (batch 4, prompt 512, 8 greedy
+   steps) against one process: logits within 1e-4 + 1e-4 |one process|,
+   ids equal, 24 flash launches a rank, bytes equal to the plan.  Then 4
+   ranks (data 2 x model 2) train depth 6 of 24 for 3 ticks: 3
+   ``fused_tick`` launches a rank, bytes (the data-parallel gradient sum
+   included) equal to the plan, the data replicas' params, momentum and
+   ring bitwise equal (SHA-256).  Prints ticks, prefill and decode times,
+   peaks and bytes; a rank that fails, or a group past 300 s, fails the
+   phase.
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
 ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
@@ -578,9 +602,12 @@ class TickLog:
         self._torch.cuda.synchronize()
         now = time.perf_counter()
         m = {k: v.item() for k, v in ctx.metrics.items()}
+        adapt = ctx.state.adapt
         row = dict(step=ctx.step, ms=(now - self._t) * 1e3, loss=m["loss"],
                    tau_mean=m.get("tau_mean"), alpha_mean=m.get("alpha_mean"),
-                   table=ctx.state.adapt.alpha_table.clone() if ctx.state.adapt is not None else None)
+                   table=adapt.alpha_table.clone() if adapt is not None else None,
+                   cdf=adapt.tau_cdf.clone() if adapt is not None else None,
+                   hist=adapt.hist.clone() if adapt is not None else None)
         self._t = now
         t0 = time.perf_counter()
         if self._snap is not None:
@@ -1844,9 +1871,11 @@ def ep_rank(rank, world, data, model, what, store, out_dir):
         from repro_torch.training import init_params
 
         cfg = ep_config()
-        params = init_params(0, cfg, mesh.device)
+        with use_sharding_rules(mesh):
+            # the rank's blocks: its experts, query / kv heads, shared-expert
+            # d_ff and vocab (drawn whole from the seed, sliced, freed)
+            params = init_params(0, cfg, mesh.device)
         pos0 = params["stack"]["pos0"]
-        pos0["moe"] = MOE.local_expert_params(pos0["moe"], cfg, mesh)
         free_cuda()
         batch = make_batch_for(cfg, batch=4, seq=EP_PROMPT, seed=0, device=mesh.device)
         torch.cuda.reset_peak_memory_stats()
@@ -1863,7 +1892,9 @@ def ep_rank(rank, world, data, model, what, store, out_dir):
                    decode_routes=np.stack([r.cpu().numpy() for r in routes[EP_LAYERS:]]),
                    prefill_s=res["prefill_s"], decode_s=res["decode_s"],
                    flash=FA.LAUNCHES["flash_attention"],
-                   expert_shape=np.array(pos0["moe"]["w_up_e"].shape))
+                   expert_shape=np.array(pos0["moe"]["w_up_e"].shape),
+                   head_shape=np.array(pos0["attn"]["wq"].shape),
+                   shared_shape=np.array(pos0["moe"]["shared"]["w_up"].shape))
     else:
         cfg = ep_config(moe_weights_stationary=True)
         p, x = ep_block_inputs(cfg, mesh.device)
@@ -1887,11 +1918,48 @@ def ep_rank(rank, world, data, model, what, store, out_dir):
         out["expert_shape"] = np.array(p["w_up_e"].shape)
     out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, data=mesh.index("data"),
                model=mesh.index("model"),
-               collective_bytes=np.array([MOE.COLLECTIVE_BYTES[k] for k in ("combine", "gather",
-                                                                           "aux")]))
+               collective_bytes=json.dumps(counted_bytes()))
     np.savez(f"{out_dir}/{what}_{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def counted_bytes() -> dict:
+    """The byte counter's non-zero entries: the bytes this process handed to
+    all-reduce, by purpose (``repro_torch.sharding.collectives``)."""
+    from repro_torch.sharding.collectives import COLLECTIVE_BYTES
+
+    return {k: v for k, v in COLLECTIVE_BYTES.items() if v}
+
+
+def bytes_by_key(saved) -> dict:
+    """A rank's :func:`counted_bytes`, as it saved them (a JSON string)."""
+    return json.loads(str(saved))
+
+
+def serve_plan(cfg, batch, prompt, gen, shape) -> dict:
+    """The all-reduce bytes a rank of the ``shape`` (data, model) layout
+    hands over in one serve (a prefill and ``gen`` greedy steps), by
+    purpose: ``launch.analysis.port_collective_bytes``."""
+    from repro_torch.launch.analysis import port_collective_bytes
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(shape, ("data", "model"), device="meta")
+    pre = port_collective_bytes(cfg, "prefill", batch, prompt, mesh)["counted"]
+    dec = port_collective_bytes(cfg, "decode", batch, prompt, mesh)["counted"]
+    out = {k: pre[k] + gen * dec[k] for k in pre}
+    return {k: v for k, v in out.items() if v}
+
+
+def train_plan(cfg, batch, seq, ticks, shape) -> dict:
+    """The all-reduce bytes a rank of the ``shape`` layout hands over in
+    ``ticks`` training ticks, by purpose."""
+    from repro_torch.launch.analysis import port_collective_bytes
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(shape, ("data", "model"), device="meta")
+    one = port_collective_bytes(cfg, "train", batch, seq, mesh)["counted"]
+    return {k: ticks * v for k, v in one.items() if v}
 
 
 def ep_block_inputs(cfg, device):
@@ -1907,25 +1975,25 @@ def ep_block_inputs(cfg, device):
     return p, x
 
 
-def run_ranks(world, data, model, what, out_dir):
-    """Spawn ``world`` ranks of :func:`ep_rank` and wait for them; a rank
-    that fails, or the group past ``EP_TIMEOUT_S``, fails the phase (every
-    rank is stopped)."""
+def run_ranks(world, data, model, what, out_dir, target=None, timeout_s=EP_TIMEOUT_S):
+    """Spawn ``world`` ranks of ``target`` (default :func:`ep_rank`) and wait
+    for them; a rank that fails, or the group past ``timeout_s``, fails the
+    phase (every rank is stopped)."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     store = out_dir / f"store_{what}"
-    procs = [ctx.Process(target=ep_rank, args=(r, world, data, model, what, str(store),
-                                               str(out_dir)), daemon=True)
+    procs = [ctx.Process(target=target or ep_rank, args=(r, world, data, model, what, str(store),
+                                                         str(out_dir)), daemon=True)
              for r in range(world)]
     t0 = time.perf_counter()
     for pr in procs:
         pr.start()
     try:
         for pr in procs:
-            pr.join(max(1.0, EP_TIMEOUT_S - (time.perf_counter() - t0)))
+            pr.join(max(1.0, timeout_s - (time.perf_counter() - t0)))
         alive = [i for i, pr in enumerate(procs) if pr.is_alive()]
-        check(not alive, f"{what}: ranks {alive} still running after {EP_TIMEOUT_S} s")
+        check(not alive, f"{what}: ranks {alive} still running after {timeout_s} s")
         codes = [pr.exitcode for pr in procs]
         check(all(c == 0 for c in codes), f"{what}: ranks exited with {codes}")
     finally:
@@ -1973,12 +2041,20 @@ def expert_parallel(root):
     wall = run_ranks(2, 1, 2, "serve", out_dir)
     ranks = [dict(np.load(out_dir / f"serve_{r}.npz")) for r in range(2)]
     for r in ranks[1:]:
-        for k in ("prefill_logits", "logits", "tokens"):
+        for k in ("tokens", "routes", "decode_routes"):
             check(np.array_equal(r[k], ranks[0][k]), f"expert-parallel ranks disagree on {k}")
     got = ranks[0]
+    # each rank's logits are its vocab block: held to that slice of one process's
     want_pre, want = ref["prefill_logits"].numpy(), ref["logits"].numpy()
-    d_pre = float(np.max(np.abs(got["prefill_logits"] - want_pre) / (1e-4 + 1e-4 * np.abs(want_pre))))
-    d_dec = float(np.max(np.abs(got["logits"] - want) / (1e-4 + 1e-4 * np.abs(want))))
+    d_pre = d_dec = 0.0
+    for r in ranks:
+        v = r["logits"].shape[-1]
+        sl = slice(int(r["model"]) * v, (int(r["model"]) + 1) * v)
+        d_pre = max(d_pre, float(np.max(np.abs(r["prefill_logits"] - want_pre[..., sl])
+                                        / (1e-4 + 1e-4 * np.abs(want_pre[..., sl])))))
+        d_dec = max(d_dec, float(np.max(np.abs(r["logits"] - want[..., sl])
+                                        / (1e-4 + 1e-4 * np.abs(want[..., sl])))))
+    plan = serve_plan(ep_config(), 4, EP_PROMPT, EP_GEN, (1, 2))
     routes_equal = (np.array_equal(got["routes"], np.stack([r.numpy() for r in ref_routes[:EP_LAYERS]]))
                     and np.array_equal(got["decode_routes"],
                                        np.stack([r.numpy() for r in ref_routes[EP_LAYERS:]])))
@@ -1989,8 +2065,10 @@ def expert_parallel(root):
         two_ranks=dict(prefill_s=[float(r["prefill_s"]) for r in ranks],
                        decode_ms_per_step=[float(r["decode_s"]) / EP_GEN * 1e3 for r in ranks],
                        peak_gb=[float(r["peak_gb"]) for r in ranks],
-                       collective_bytes=[r["collective_bytes"].tolist() for r in ranks],
-                       flash=[int(r["flash"]) for r in ranks], wall_s=wall),
+                       collective_bytes=[bytes_by_key(r["collective_bytes"]) for r in ranks],
+                       planned_bytes=plan, flash=[int(r["flash"]) for r in ranks],
+                       head_shape=got["head_shape"].tolist(),
+                       shared_shape=got["shared_shape"].tolist(), wall_s=wall),
         logits_err_over_bound=max(d_pre, d_dec), ids_equal=ids_equal, routes_equal=routes_equal)
     log(f"[ep] serve {json.dumps(serve_row)}")
     check(max(d_pre, d_dec) <= 1.0, f"expert-parallel logits miss 1e-4 + 1e-4|ref| "
@@ -2000,6 +2078,12 @@ def expert_parallel(root):
     check(one["flash"] == EP_LAYERS and all(int(r["flash"]) == EP_LAYERS for r in ranks),
           f"flash launches: one process {one['flash']}, ranks {[int(r['flash']) for r in ranks]}")
     check(int(got["expert_shape"][1]) == 32, f"a rank holds {got['expert_shape']} experts")
+    check(int(got["head_shape"][-2]) == 8 and int(got["shared_shape"][-1]) == 5632 // 2,
+          f"a rank holds heads {got['head_shape']} and shared expert {got['shared_shape']}")
+    for r in ranks:
+        check(bytes_by_key(r["collective_bytes"]) == plan,
+              f"expert-parallel serve: all-reduce bytes {bytes_by_key(r['collective_bytes'])} "
+              f"!= the plan {plan}")
 
     # weights-stationary block, data 2 x model 2, against one process
     wcfg = ep_config(moe_weights_stationary=True)
@@ -2020,7 +2104,7 @@ def expert_parallel(root):
     ws_row = dict(one_process_ms={S: block[S][2] for S in block}, wall_s=wall,
                   ms={S: [float(r[f"ms_{S}"]) for r in ranks] for S in block},
                   peak_gb=[float(r["peak_gb"]) for r in ranks],
-                  collective_bytes=[r["collective_bytes"].tolist() for r in ranks],
+                  collective_bytes=[bytes_by_key(r["collective_bytes"]) for r in ranks],
                   expert_shape=ranks[0]["expert_shape"].tolist())
     for S, (want_o, want_a, _) in block.items():
         rows = want_o.shape[0] // 2
@@ -2035,6 +2119,367 @@ def expert_parallel(root):
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"[ep] phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return {"serve": serve_row, "weights_stationary": ws_row}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: dense tensor parallelism on the card
+# ---------------------------------------------------------------------------
+
+TP_TIMEOUT_S = 300  # a rank, or a collective, that takes longer fails the phase
+TP_TICKS, TP_AGREE_TICKS, TP_DXM_TICKS = 4, 3, 3
+TP_AGREE_LAYERS, TP_DXM_LAYERS, TP_GEN = 2, 6, 8
+
+
+def tp_train_spec(cfg, device="cuda", **upd):
+    """Phase 3's run (momentum, W = K = 8, bf16 ring, batch 4 x seq 512) for
+    ``TP_TICKS`` ticks and a refresh every 2."""
+    return dataclasses.replace(main_spec(cfg, device),
+                               **{"num_steps": TP_TICKS, "refresh_every": 2, **upd})
+
+
+def tp_agree_config(full):
+    """Full width at depth 2, f32 activations, no remat: the one-process and
+    the sharded run sum in other orders, which bf16 would round apart."""
+    return dataclasses.replace(full, num_layers=TP_AGREE_LAYERS, activation_dtype="float32",
+                               remat=False)
+
+
+def tp_agree_spec(cfg, draws, device="cuda"):
+    """``TP_AGREE_TICKS`` fused async ticks with an f32 ring and the uniforms
+    handed in."""
+    import torch
+
+    it = iter(draws)
+    return dataclasses.replace(
+        main_spec(cfg, device), num_steps=TP_AGREE_TICKS, refresh_every=2, ring_dtype=None,
+        tau_source=lambda: torch.from_numpy(next(it)))
+
+
+def tp_serve_config(full):
+    """Full-width stablelm-1.6b in f32 activations on the kernels (flash at
+    H 64 on 32 / model heads)."""
+    return dataclasses.replace(full, activation_dtype="float32", use_pallas=True)
+
+
+def tp_gradient(cfg, device, mesh=None):
+    """(loss, flat gradient) of the first batch of the run's stream at the
+    params drawn from seed 0 (the rank's blocks under the rules)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.optim import transform as T
+    from repro_torch.training import init_params
+    from repro_torch.training.steps import param_view
+
+    spec = main_spec(cfg, device)
+    batch = next(spec.batch_stream())
+    flat = T.pack_flat(init_params(0, cfg, device))
+    leaf = flat.requires_grad_()
+    if mesh is not None:
+        from repro_torch.sharding import collectives as COL
+
+        batch = COL.local_rows(batch, mesh)
+    loss, _ = M.loss_fn(param_view(leaf, cfg), batch, cfg)
+    (g,) = torch.autograd.grad(loss, leaf)
+    return loss.detach(), g
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes (its bits: replicas compared exactly)."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+
+
+def tp_rank(rank, world, data, model, what, store, out_dir):
+    """One rank of phase 14 (a spawned process): gloo over the one card.
+    ``what`` is ``"tp"`` (data 1 x model 2: the full-width training, the
+    depth-2 agreement and the serve, in turn) or ``"dxm"`` (data 2 x model
+    2: depth 6 training)."""
+    import datetime
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.bridge import gather_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adaptive_update import cuda as C
+    from repro_torch.kernels.flash_attention import cuda as FA
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.run import run
+    from repro_torch.sharding import collectives as COL
+    from repro_torch.sharding import use_sharding_rules
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    mesh = make_mesh((data, model), ("data", "model"), device="cuda")
+    torch.cuda.set_device(mesh.device)
+    full = get_config("stablelm-1.6b")
+    out = {"data": mesh.index("data"), "model": mesh.index("model")}
+
+    def train(cfg, spec, tag, replay=True):
+        hook = TickLog(f"tp {tag} rank {rank}", replay=replay)
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        C.reset_launches()
+        COL.reset_collective_bytes()
+        dist.barrier()
+        with use_sharding_rules(mesh):
+            result = run(spec, hooks=[hook])
+        torch.cuda.synchronize()
+        state = result.state
+        steady = [r["ms"] for r in hook.rows[1:]]
+        out.update({
+            f"{tag}_launches": json.dumps(dict(C.LAUNCHES)),
+            f"{tag}_bytes": json.dumps(counted_bytes()),
+            f"{tag}_losses": np.array([r["loss"] for r in hook.rows]),
+            f"{tag}_tables": torch.stack([r["table"] for r in hook.rows]).cpu().numpy(),
+            f"{tag}_cdfs": torch.stack([r["cdf"] for r in hook.rows]).cpu().numpy(),
+            f"{tag}_hists": torch.stack([r["hist"] for r in hook.rows]).cpu().numpy(),
+            f"{tag}_median_ms": sorted(steady)[len(steady) // 2] if steady else hook.rows[0]["ms"],
+            f"{tag}_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            f"{tag}_state_bytes": state_bytes(state),
+            f"{tag}_n_local": state.params.numel(),
+            f"{tag}_table_in_place": state.adapt.alpha_table.data_ptr() == hook.table_ptr,
+        })
+        if replay:
+            out[f"{tag}_taus"] = np.array([r["taus"] for r in hook.rows])
+        return state
+
+    if what == "tp":
+        # full width and depth, phase 3's configuration
+        state = train(full, tp_train_spec(full), "train")
+        del state
+        # depth 2, f32: loss, gradient and 3 ticks against one process
+        cfg = tp_agree_config(full)
+        free_cuda()
+        with use_sharding_rules(mesh):
+            loss, g = tp_gradient(cfg, "cuda", mesh)
+            g_all = gather_params(g, cfg, mesh)
+        out["agree_loss"] = loss.item()
+        if rank == 0:
+            np.save(f"{out_dir}/tp_grad.npy", g_all.cpu().numpy())
+        del g, g_all
+        draws = np.load(f"{out_dir}/tp_draws.npy")
+        state = train(cfg, tp_agree_spec(cfg, draws), "agree", replay=False)
+        with use_sharding_rules(mesh):
+            p_all = gather_params(state.params, cfg, mesh)
+        if rank == 0:
+            np.save(f"{out_dir}/tp_params.npy", p_all.cpu().numpy())
+        del state, p_all
+        # serving at full width and depth, f32, on the flash kernel
+        from repro_torch.data import make_batch_for
+        from repro_torch.training import init_params
+
+        cfg = tp_serve_config(full)
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad(), use_sharding_rules(mesh):
+            params = init_params(0, cfg, mesh.device)
+            free_cuda()
+            batch = make_batch_for(cfg, batch=4, seq=EP_PROMPT, seed=0, device=mesh.device)
+            serve_warm_up(cfg, params, batch)
+            FA.reset_launches()
+            COL.reset_collective_bytes()
+            dist.barrier()
+            from repro_torch.launch.serve import serve
+
+            res = serve(cfg, params, batch, gen=TP_GEN)
+        torch.cuda.synchronize()
+        out.update(serve_prefill=res["prefill_logits"].cpu().numpy(),
+                   serve_logits=res["logits"].cpu().numpy(),
+                   serve_tokens=res["tokens"].cpu().numpy(), serve_prefill_s=res["prefill_s"],
+                   serve_decode_s=res["decode_s"], serve_flash=FA.LAUNCHES["flash_attention"],
+                   serve_bytes=json.dumps(counted_bytes()),
+                   serve_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params, res
+    else:
+        cfg = dataclasses.replace(full, num_layers=TP_DXM_LAYERS)
+        state = train(cfg, tp_train_spec(cfg, num_steps=TP_DXM_TICKS), "dxm", replay=False)
+        out["dxm_digests"] = json.dumps([digest(state.params), digest(state.opt_state["bufs"]),
+                                         digest(state.delayed.ring)])
+        del state
+    np.savez(f"{out_dir}/{what}_{rank}.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tensor_parallel(root, full, main_summary):
+    """Phase 14 (module docstring): data 1 x model 2 training, agreement and
+    serving on 2 ranks, data 2 x model 2 training on 4, each against one
+    process or the plan."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels.flash_attention import cuda as FA
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.run import run
+    from repro_torch.training import init_params
+
+    t_phase = time.perf_counter()
+    out_dir = root / "build" / "tensor_parallel"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    free_cuda()
+
+    # one process: the depth-2 f32 agreement run and the full-depth f32 serve
+    acfg = tp_agree_config(full)
+    draws = np.random.default_rng(0).random((TP_AGREE_TICKS, W_WORKERS)).astype(np.float32)
+    np.save(out_dir / "tp_draws.npy", draws)
+    loss1, g1 = tp_gradient(acfg, "cuda")
+    one_loss, one_grad = loss1.item(), g1.cpu().numpy()
+    del loss1, g1
+    one_params = run(tp_agree_spec(acfg, draws)).state.params.cpu().numpy()
+    free_cuda()
+    scfg = tp_serve_config(full)
+    params = init_params(0, scfg, "cuda")
+    batch = make_batch_for(scfg, batch=4, seq=EP_PROMPT, seed=0, device="cuda")
+    with torch.no_grad():
+        serve_warm_up(scfg, params, batch)
+        FA.reset_launches()
+        from repro_torch.launch.serve import serve
+
+        ref = serve(scfg, params, batch, gen=TP_GEN)
+    one_serve = dict(prefill=ref["prefill_logits"].cpu().numpy(),
+                     logits=ref["logits"].cpu().numpy(), tokens=ref["tokens"].cpu().numpy(),
+                     prefill_s=ref["prefill_s"], decode_ms_per_step=ref["decode_s"] / TP_GEN * 1e3,
+                     flash=FA.LAUNCHES["flash_attention"])
+    del params, batch, ref
+    free_cuda()
+    t_one = time.perf_counter() - t_phase
+
+    # the plans: per-rank state bytes and all-reduce bytes
+    mesh12 = make_mesh((1, 2), ("data", "model"), device="meta")
+    planned_state = D.plan_run(tp_train_spec(full, device="cpu"), mesh=mesh12)
+    plan_train = train_plan(full, 4, 512, TP_TICKS, (1, 2))
+    plan_agree = train_plan(acfg, 4, 512, TP_AGREE_TICKS, (1, 2))
+    dcfg = dataclasses.replace(full, num_layers=TP_DXM_LAYERS)
+    plan_dxm = train_plan(dcfg, 4, 512, TP_DXM_TICKS, (2, 2))
+    plan_serve = serve_plan(scfg, 4, EP_PROMPT, TP_GEN, (1, 2))
+
+    wall_tp = run_ranks(2, 1, 2, "tp", out_dir, target=tp_rank, timeout_s=TP_TIMEOUT_S)
+    ranks = [dict(np.load(out_dir / f"tp_{r}.npz")) for r in range(2)]
+    rows = {}
+
+    # -- training, full width and depth --------------------------------------
+    for r in ranks:
+        launches = json.loads(str(r["train_launches"]))
+        check(launches["fused_tick"] == TP_TICKS and launches["fused_chain"] ==
+              launches["fused_combine"] == launches["fused_update"] == 0,
+              f"tp training: launches {launches}, expected {TP_TICKS} fused_tick alone")
+        check(bool(np.isfinite(r["train_losses"]).all()), "tp training: a non-finite loss")
+        check(bool(r["train_table_in_place"]), "tp training: the refresh replaced the table")
+        check(int(r["train_state_bytes"]) == planned_state["memory"]["argument_bytes"],
+              f"tp training: state bytes {int(r['train_state_bytes'])} != the plan's "
+              f"{planned_state['memory']['argument_bytes']}")
+        check(bytes_by_key(r["train_bytes"]) == plan_train,
+              f"tp training: all-reduce bytes {bytes_by_key(r['train_bytes'])} != the plan "
+              f"{plan_train}")
+    for k in ("train_losses", "train_taus", "train_tables", "train_cdfs", "train_hists"):
+        check(np.array_equal(ranks[0][k], ranks[1][k]), f"tp training: ranks disagree on {k}")
+    tables = ranks[0]["train_tables"]
+    check(not np.array_equal(tables[1], tables[0]) or not np.array_equal(tables[3], tables[2]),
+          "tp training: no refresh changed the alpha table")
+    rows["train"] = dict(
+        layout="data 1 x model 2", ticks=TP_TICKS,
+        median_tick_ms=[float(r["train_median_ms"]) for r in ranks],
+        peak_gb=[float(r["train_peak_gb"]) for r in ranks],
+        state_bytes=int(ranks[0]["train_state_bytes"]), n_local=int(ranks[0]["train_n_local"]),
+        fused_tick=[json.loads(str(r["train_launches"]))["fused_tick"] for r in ranks],
+        losses=ranks[0]["train_losses"].tolist(),
+        phase3_first_losses=main_summary["losses"][:TP_TICKS],
+        taus=ranks[0]["train_taus"].tolist(), all_reduce_bytes=bytes_by_key(ranks[0]["train_bytes"]))
+    log(f"[tp] training {json.dumps(rows['train'])}")
+
+    # -- agreement at depth 2 in f32 -----------------------------------------
+    got_grad = np.load(out_dir / "tp_grad.npy")
+    got_params = np.load(out_dir / "tp_params.npy")
+    d_loss = max(abs(float(r["agree_loss"]) - one_loss) / abs(one_loss) for r in ranks)
+    d_grad = float(np.abs(got_grad - one_grad).max() / np.abs(one_grad).max())
+    d_params = float(np.abs(got_params - one_params).max())
+    for r in ranks:
+        check(bytes_by_key(r["agree_bytes"]) == plan_agree,
+              f"tp agreement: all-reduce bytes {bytes_by_key(r['agree_bytes'])} != {plan_agree}")
+    rows["agree"] = dict(layers=TP_AGREE_LAYERS, loss_rel=d_loss, grad_over_max=d_grad,
+                         params_max_abs=d_params, one_process_s=t_one)
+    log(f"[tp] agreement {json.dumps(rows['agree'])}")
+    check(d_loss <= 1e-5, f"tp agreement: loss {d_loss:.3e} relative past 1e-5")
+    check(d_grad <= 1e-4, f"tp agreement: gradient {d_grad:.3e} of max |g| past 1e-4")
+    check(d_params <= 1e-5, f"tp agreement: params {d_params:.3e} past 1e-5 after "
+          f"{TP_AGREE_TICKS} ticks")
+    del got_grad, got_params, one_grad, one_params
+
+    # -- serving at full width and depth, f32 ---------------------------------
+    d_pre = d_dec = 0.0
+    for r in ranks:
+        v = r["serve_logits"].shape[-1]
+        sl = slice(int(r["model"]) * v, (int(r["model"]) + 1) * v)
+        for got, want in ((r["serve_prefill"], one_serve["prefill"][..., sl]),
+                          (r["serve_logits"], one_serve["logits"][..., sl])):
+            err = float(np.max(np.abs(got - want) / (1e-4 + 1e-4 * np.abs(want))))
+            if got.ndim == 2:
+                d_pre = max(d_pre, err)
+            else:
+                d_dec = max(d_dec, err)
+        check(np.array_equal(r["serve_tokens"], one_serve["tokens"]),
+              "tp serve: greedy ids differ from one process")
+        check(int(r["serve_flash"]) == full.num_layers,
+              f"tp serve: {int(r['serve_flash'])} flash launches, expected {full.num_layers}")
+        check(bytes_by_key(r["serve_bytes"]) == plan_serve,
+              f"tp serve: all-reduce bytes {bytes_by_key(r['serve_bytes'])} != {plan_serve}")
+    rows["serve"] = dict(
+        layout="data 1 x model 2", batch=4, prompt=EP_PROMPT, gen=TP_GEN,
+        one_process={k: one_serve[k] for k in ("prefill_s", "decode_ms_per_step", "flash")},
+        prefill_s=[float(r["serve_prefill_s"]) for r in ranks],
+        decode_ms_per_step=[float(r["serve_decode_s"]) / TP_GEN * 1e3 for r in ranks],
+        peak_gb=[float(r["serve_peak_gb"]) for r in ranks],
+        flash=[int(r["serve_flash"]) for r in ranks],
+        all_reduce_bytes=bytes_by_key(ranks[0]["serve_bytes"]),
+        logits_err_over_bound=max(d_pre, d_dec))
+    log(f"[tp] serve {json.dumps(rows['serve'])}")
+    check(max(d_pre, d_dec) <= 1.0, f"tp serve: logits miss 1e-4 + 1e-4|ref| "
+          f"({max(d_pre, d_dec):.3f} of the bound)")
+    check(one_serve["flash"] == full.num_layers, f"one-process serve: {one_serve['flash']} flash")
+
+    # -- data 2 x model 2, depth 6 --------------------------------------------
+    wall_dxm = run_ranks(4, 2, 2, "dxm", out_dir, target=tp_rank, timeout_s=TP_TIMEOUT_S)
+    dxm = [dict(np.load(out_dir / f"dxm_{r}.npz")) for r in range(4)]
+    for r in dxm:
+        launches = json.loads(str(r["dxm_launches"]))
+        check(launches["fused_tick"] == TP_DXM_TICKS,
+              f"tp data x model: fused_tick launched {launches['fused_tick']} times")
+        check(bool(np.isfinite(r["dxm_losses"]).all()), "tp data x model: a non-finite loss")
+        check(bytes_by_key(r["dxm_bytes"]) == plan_dxm,
+              f"tp data x model: all-reduce bytes {bytes_by_key(r['dxm_bytes'])} != {plan_dxm}")
+        twins = [o for o in dxm if int(o["model"]) == int(r["model"])]
+        for o in twins:
+            check(str(o["dxm_digests"]) == str(r["dxm_digests"]),
+                  "tp data x model: the data replicas' params, momentum or ring differ")
+        for k in ("dxm_losses", "dxm_tables", "dxm_hists"):
+            check(np.array_equal(r[k], dxm[0][k]), f"tp data x model: ranks disagree on {k}")
+    rows["data_x_model"] = dict(
+        layout="data 2 x model 2", layers=TP_DXM_LAYERS, ticks=TP_DXM_TICKS,
+        median_tick_ms=[float(r["dxm_median_ms"]) for r in dxm],
+        peak_gb=[float(r["dxm_peak_gb"]) for r in dxm],
+        state_bytes=[int(r["dxm_state_bytes"]) for r in dxm],
+        fused_tick=[json.loads(str(r["dxm_launches"]))["fused_tick"] for r in dxm],
+        losses=dxm[0]["dxm_losses"].tolist(), all_reduce_bytes=bytes_by_key(dxm[0]["dxm_bytes"]),
+        wall_s=wall_dxm)
+    log(f"[tp] data x model {json.dumps(rows['data_x_model'])}")
+    rows["wall_s"] = wall_tp
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp] phase 14 took {rows['phase_s']:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -2223,6 +2668,10 @@ def main() -> int:
     ep = expert_parallel(root)
     free_cuda()
 
+    # -- phase 14: dense tensor parallelism on the card ----------------------------
+    tp = tensor_parallel(root, full, summary)
+    free_cuda()
+
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
         "fused_chain": ("sharded_async (phase 9)", sharded_counts["fused_chain"]),
@@ -2260,8 +2709,15 @@ def main() -> int:
                    for row in serving if row["launches"]["flash_attention"]}
     flash_paths["expert-parallel serve, qwen2-moe-a2.7b at 4 layers (each of 2 ranks)"] = \
         ep["serve"]["two_ranks"]["flash"][0]
+    flash_paths["tensor-parallel serve, stablelm-1.6b, data 1 x model 2 (each of 2 ranks)"] = \
+        tp["serve"]["flash"][0]
     kernels[[k["name"] for k in kernels].index("flash_attention")]["launches_by_path"] = \
         flash_paths
+    kernels[[k["name"] for k in kernels].index("fused_tick")]["launches_by_path"] = {
+        "main (phase 3)": main_counts["fused_tick"],
+        "tensor-parallel training, data 1 x model 2 (each of 2 ranks)": tp["train"]["fused_tick"][0],
+        "tensor-parallel training, data 2 x model 2, 6 layers (each of 4 ranks)":
+            tp["data_x_model"]["fused_tick"][0]}
     kernels[[k["name"] for k in kernels].index("fused_chain")]["launches_by_path"] = {
         "sharded_async": sharded_counts["fused_chain"],
         "sync_fuse": path_counts["sync_fuse"]["fused_chain"],
@@ -2270,7 +2726,7 @@ def main() -> int:
     log(json.dumps({"variants": results, "main": summary, "serving": serving,
                     "agreement": agreement, "resume": resume,
                     "exact": exact, "sharded": sharded, "cnn": cnn, "live": live,
-                    "plan": plan, "expert_parallel": ep},
+                    "plan": plan, "expert_parallel": ep, "tensor_parallel": tp},
                    default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

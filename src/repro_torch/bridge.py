@@ -9,7 +9,9 @@ exported as numpy, become the port's tensors here.
   their key-path names — the names of the reference checkpoint's npz arrays,
   ``['embed']['embedding']`` and so on — and packs them, in leaf order, into
   the port's flat ``(N,)`` buffer.  Shapes are checked against the port's own
-  template; a missing or extra name raises.
+  template; a missing or extra name raises.  With a ``mesh`` it packs one
+  rank's blocks instead, and :func:`gather_params` puts every rank's blocks
+  back together into the one-process buffer.
 * :func:`adapt_from_jax` and :func:`delayed_from_jax` do the same for an
   ``AdaptState``'s tables and histogram and for a flat delayed ring (a bf16
   ring arrives as numpy's ``bfloat16`` extension type and keeps its bits).
@@ -43,7 +45,7 @@ from repro_torch.training.adapt import AdaptState, WorkerAdaptState
 from repro_torch.training.steps import param_template
 from repro_torch.tree import keystr, tree_paths
 
-__all__ = ["params_from_jax", "params_to_numpy", "adapt_from_jax", "delayed_from_jax",
+__all__ = ["params_from_jax", "gather_params", "params_to_numpy", "adapt_from_jax", "delayed_from_jax",
            "worker_adapt_from_jax", "worker_ring_from_jax", "cnn_params_from_jax",
            "cache_from_jax", "to_torch"]
 
@@ -64,8 +66,13 @@ def _check_names(what: str, np_tree: dict, template) -> None:
         raise ValueError(f"{what} names disagree: missing {missing}, unexpected {extra}")
 
 
-def params_from_jax(np_tree: dict, cfg, device="cpu") -> tuple[torch.Tensor, dict]:
-    """The reference's params -> ``(flat (N,) f32 buffer, template)``."""
+def params_from_jax(np_tree: dict, cfg, device="cpu", mesh=None) -> tuple[torch.Tensor, dict]:
+    """The reference's params -> ``(flat (N,) f32 buffer, template)``.  With
+    a ``mesh`` (its sizes and this rank's coordinates), this rank's blocks:
+    the flat ``(N_local,)`` buffer and
+    :func:`~repro_torch.sharding.specs.local_template`."""
+    from repro_torch.sharding.specs import local_shard, local_template, storage_spec_for
+
     template = param_template(cfg)
     _check_names("param", np_tree, template)
     parts = []
@@ -73,8 +80,50 @@ def params_from_jax(np_tree: dict, cfg, device="cpu") -> tuple[torch.Tensor, dic
         a = np_tree[keystr(path)]
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"{keystr(path)}: shape {a.shape} != template {shape}")
-        parts.append(to_torch(a).to(dtype).reshape(-1))
+        t = to_torch(a).to(dtype)
+        if mesh is not None:
+            t = local_shard(t, storage_spec_for("/".join(path), tuple(shape), mesh, cfg), mesh)
+        parts.append(t.reshape(-1))
+    if mesh is not None:
+        template = local_template(cfg, mesh)
     return torch.cat(parts).to(device), template
+
+
+def gather_params(local_flat: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """The one-process flat ``(N,)`` buffer from every rank's ``(N_local,)``
+    blocks (a collective: every rank of ``mesh`` calls it and gets the
+    whole).  Each leaf is written into a zero buffer by the one rank that
+    owns its block at coordinate 0 of every axis the leaf is replicated
+    over, and one all-reduce over the whole layout sums the buffer, so
+    every element is its owner's value exactly (gloo reduces CUDA tensors
+    but does not gather them)."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.sharding.specs import _axes_of, local_shape, storage_spec_for
+
+    whole = param_template(cfg)
+    out = torch.zeros((sum(math.prod(s) for _, (s, _) in tree_paths(whole)),),
+                      dtype=local_flat.dtype, device=local_flat.device)
+    src = dst = 0
+    for path, (shape, _) in tree_paths(whole):
+        spec = storage_spec_for("/".join(path), tuple(shape), mesh, cfg)
+        n_local = math.prod(local_shape(tuple(shape), spec, mesh))
+        used = {a for e in spec for a in _axes_of(e)}
+        if all(mesh.coords.get(a, 0) == 0 for a in mesh.axis_names if a not in used):
+            block = local_flat[src:src + n_local].view(local_shape(tuple(shape), spec, mesh))
+            view = out[dst:dst + math.prod(shape)].view(shape)
+            for dim, e in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
+                axes = _axes_of(e)
+                if axes:
+                    size = shape[dim] // mesh.size(axes)
+                    view = view.narrow(dim, mesh.index(axes) * size, size)
+            view.copy_(block)
+        src += n_local
+        dst += math.prod(shape)
+    dist.all_reduce(out, group=mesh.group(mesh.axis_names))
+    return out
 
 
 def params_to_numpy(params, cfg) -> dict:

@@ -353,6 +353,10 @@ class ParameterServer:
                 batch = _to_numpy(batch)
             t_pull = time.time()
             with self._cond:  # liveness() snapshots _inflight under the lock
+                # taking work starts the silence clock: a worker parked longer
+                # than the timeout must not be declared dead the moment it
+                # gets a batch (its batch would then be applied twice)
+                self._last_seen[wid] = t_pull
                 self._inflight[wid] = batch
                 version = self._version
                 p = self._pull_params()

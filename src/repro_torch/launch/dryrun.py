@@ -52,16 +52,20 @@ the card alike; on a card the record also gives the card's own
 (data 2 x model 2).  The reference's ``--multi_pod`` TPU layout has no
 counterpart.
 
-The multi-card layouts plan the REFERENCE's tensor-parallel layout: the
-specs shard heads, d_ff, vocab and the embedding over ``model`` / ``data``,
-the collective term counts per-layer all-reduces and weight all-gathers,
-and the step's temporaries are split evenly over the cards.  The port
-executes only the MoE's expert sharding (:mod:`repro_torch.models.moe`):
-``shard_activation`` is the identity, so each rank of a port run holds
-every other weight whole and the full activations of its batch rows.  A
-multi-card record (its ``layout`` key says so) is what that layout would
-take once the port has dense tensor parallelism, not what a port run on 4
-cards takes today.
+The multi-card layouts plan the PORT's layout for every arch whose layers
+the port shards (the dense decoders and the MoEs:
+:func:`~repro_torch.sharding.specs.tensor_parallel_unsupported` is None):
+Megatron-style tensor parallelism over ``model`` (heads, d_ff, vocab, the
+experts) with every weight whole over ``data`` (the argument bytes per
+card from :func:`~repro_torch.sharding.specs.storage_spec_for`), and as
+collective term the all-reduces a port rank runs
+(:func:`repro_torch.launch.analysis.port_collective_bytes`, the count its
+byte counter is held to).  For the archs with a layer the port does not
+shard (SSM, RG-LRU, whisper, the vision prefix; the port raises on them
+under ``model`` > 1) a multi-card record still plans the REFERENCE's
+layout (FSDP storage over ``data``, all-gathers and reduce-scatters), not a
+run of the port.  Its ``layout`` key says which.  Either way the step's
+temporaries are split evenly over the cards (an estimate).
 """
 
 from __future__ import annotations
@@ -86,6 +90,7 @@ from repro_torch.launch.analysis import (
     collective_bytes,
     model_flops,
     peak_flops_for,
+    port_collective_bytes,
     roofline_terms,
 )
 from repro_torch.launch.input_specs import specs_for_cfg, step_for_cfg
@@ -96,7 +101,14 @@ from repro_torch.launch.mesh import (
     make_production_mesh,
     make_small_mesh,
 )
-from repro_torch.sharding.specs import auto_spec_for, batch_shape_structs, leaf_paths, local_shape
+from repro_torch.sharding.specs import (
+    auto_spec_for,
+    batch_shape_structs,
+    leaf_paths,
+    local_shape,
+    storage_spec_for,
+    tensor_parallel_unsupported,
+)
 
 __all__ = ["SKIPS", "measure_step", "argument_bytes", "plan_extrapolated", "dryrun_extrapolated",
            "plan_run", "plan_serve", "band_pairs", "planning_kernels", "main"]
@@ -191,10 +203,17 @@ def measure_step(step, args, *, flop_mapping: dict | None = None) -> dict:
             "peak_bytes": float(counter.peak)}
 
 
-def argument_bytes(args, mesh, batch: int) -> tuple[int, int]:
+_BATCH_LEAVES = ("k", "v", "conv", "h", "logits", "next_token", "tokens", "labels",
+                 "prefix_embeds", "enc_embeds")
+
+
+def argument_bytes(args, mesh, batch: int, cfg=None) -> tuple[int, int]:
     """``(per card, total)`` bytes of the step's argument tensors under the
     layout's specs (a non-tensor leaf, such as a TrainState's generator,
-    holds no device memory)."""
+    holds no device memory).  With ``cfg``, the port's layout: parameter
+    leaves (and the optimizer state and ring shaped like them) by
+    :func:`~repro_torch.sharding.specs.storage_spec_for`, whole over
+    ``data``."""
     per_card = total = 0
     for path, t in leaf_paths(args):
         if not isinstance(t, torch.Tensor):
@@ -202,8 +221,15 @@ def argument_bytes(args, mesh, batch: int) -> tuple[int, int]:
         shape = tuple(t.shape)
         total += math.prod(shape) * t.element_size()
         spec = auto_spec_for(path, shape, mesh, batch)
+        if cfg is not None and path.rsplit("/", 1)[-1] not in _BATCH_LEAVES:
+            spec = storage_spec_for(path, shape, mesh, cfg)
         per_card += math.prod(local_shape(shape, spec, mesh)) * t.element_size()
     return per_card, total
+
+
+def _port_layout(cfg, mesh) -> bool:
+    """Whether a record on ``mesh`` plans the port's own layout."""
+    return mesh.devices.size == 1 or tensor_parallel_unsupported(cfg) is None
 
 
 # ---------------------------------------------------------------------------
@@ -417,21 +443,25 @@ def dryrun_extrapolated(arch: str, shape_name: str, *, cards: int = 4,
         cfg_full, lambda c: (step_for_cfg(c, shape_name), specs_for_cfg(c, shape_name)))
     with planning_kernels():  # whisper's decode cache runs the encoder
         args = specs_for_cfg(cfg_full, shape_name)
-    args_card, args_total = argument_bytes(args, mesh, batch)
+    port = _port_layout(cfg_full, mesh)
+    args_card, args_total = argument_bytes(args, mesh, batch, cfg_full if port else None)
     return finish_record(arch, cfg_full, shape_name, mesh, core, args_card, args_total)
 
 
-def plan_run(spec) -> dict:
+def plan_run(spec, mesh=None) -> dict:
     """Plan one tick of a training run as ``run(spec)`` builds it: the state
     is the engine's own shape-only template
     (:meth:`~repro_torch.run.engine.AsyncEngine.build_template`, the same
     constructors as the run) and the step the engine's.  The record's
     argument bytes are the STATE's (the batch is made per tick), on one
-    card."""
+    card, or with ``mesh`` (a layout: its sizes are read) one rank's state
+    under ``use_sharding_rules``: built from its blocks
+    (:func:`~repro_torch.sharding.specs.local_template`), so its flat
+    buffers, optimizer state and ring are ``N_local`` long."""
     from repro_torch.run.engine import make_engine
 
     spec = dataclasses.replace(spec, device="cpu", mesh=None)  # shapes only
-    mesh = make_mesh((1, 1), ("data", "model"), device="meta")
+    one_card = make_mesh((1, 1), ("data", "model"), device="meta")
 
     def build(cfg):
         engine = make_engine(dataclasses.replace(spec, cfg=cfg))
@@ -440,9 +470,18 @@ def plan_run(spec) -> dict:
 
     core = plan_extrapolated(spec.cfg, build)
     state = make_engine(spec).build_template()
-    args_card, args_total = argument_bytes(state, mesh, spec.batch_size)
-    return finish_record(spec.cfg.name, spec.cfg, f"run/{spec.mode}", mesh, core, args_card,
-                         args_total, batch=spec.batch_size, seq=spec.seq_len, kind="train")
+    args_card, args_total = argument_bytes(state, one_card, spec.batch_size)
+    if mesh is not None:
+        from repro_torch.sharding.specs import local_template
+        from repro_torch.tree import tree_map
+
+        local = tree_map(lambda st: torch.empty(st[0], dtype=st[1], device="meta"),
+                         local_template(spec.cfg, mesh))
+        rank_state = make_engine(dataclasses.replace(spec, params=local)).build_template()
+        args_card = argument_bytes(rank_state, one_card, spec.batch_size)[0]
+    return finish_record(spec.cfg.name, spec.cfg, f"run/{spec.mode}", mesh or one_card, core,
+                         args_card, args_total, batch=spec.batch_size, seq=spec.seq_len,
+                         kind="train")
 
 
 def plan_serve(cfg, *, batch: int, prompt: int, gen: int) -> dict:
@@ -487,7 +526,17 @@ def finish_record(arch, cfg, shape_name, mesh, core: dict, args_card: int,
     card = HARDWARE["hbm_bytes"]
     temp = max(core["peak_bytes"] - args_total, 0.0)
     peak_card = args_card + temp / n
-    coll = collective_bytes(cfg, kind, batch, seq, mesh)
+    port = _port_layout(cfg, mesh)
+    coll = (port_collective_bytes(cfg, kind, batch, seq, mesh) if port and n > 1
+            else collective_bytes(cfg, kind, batch, seq, mesh))
+    if n == 1:
+        layout = "one card: what the port runs"
+    elif port:
+        layout = ("the port's layout: tensor parallelism over model (heads, d_ff, vocab, "
+                  "experts), every weight whole over data")
+    else:
+        layout = (f"the reference's tensor-parallel layout, not run: the port does not shard "
+                  f"{tensor_parallel_unsupported(cfg)} and raises on it under model > 1")
     flops_card, bytes_card = core["flops"] / n, core["hbm_bytes"] / n
     terms = roofline_terms(flops_card, bytes_card, coll["total"], num_chips=n,
                            peak_flops=peak_flops_for(cfg.activation_dtype))
@@ -496,9 +545,7 @@ def finish_record(arch, cfg, shape_name, mesh, core: dict, args_card: int,
         "arch": arch, "shape": shape_name, "kind": kind,
         "mesh": list(mesh.devices.shape), "axes": list(mesh.axis_names),
         "num_chips": n, "seq": seq, "batch": batch, "status": "ok",
-        "layout": ("one card: what the port runs" if n == 1 else
-                   "the reference's tensor-parallel layout: the port shards only the MoE "
-                   "experts; its dense weights and activations stay whole on every rank"),
+        "layout": layout,
         "hardware": HARDWARE["name"],
         "plan_s": core["plan_s"],
         "memory": {

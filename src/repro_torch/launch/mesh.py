@@ -12,8 +12,8 @@ Two kinds of layout live here:
   workers ``[r W / R, (r + 1) W / R)``: their rings, samplers and histogram
   rows.
 * :func:`make_production_mesh` / :func:`make_small_mesh`, the 2-D
-  ``data x model`` layout of the sharding rules (:mod:`repro_torch.sharding`)
-  and of the expert-parallel MoE.  A :class:`Mesh` carries what the specs
+  ``data x model`` layout of the sharding rules (:mod:`repro_torch.sharding`),
+  of the dense layers' tensor parallelism and of the expert-parallel MoE.  A :class:`Mesh` carries what the specs
   read (``axis_names``, ``shape``, ``devices.shape``) and, when processes
   are running, one process group per axis.  Ranks are laid out row-major
   over the axes, as ``jax.make_mesh`` lays out devices: rank
@@ -125,7 +125,9 @@ class Mesh:
     ``shape`` maps each axis to its size.  ``groups`` maps a tuple of axis
     names to the process group of the ranks that differ only along those
     axes (this rank's group); it is empty when no processes are running.
-    ``coords`` is this rank's index along each axis.
+    ``coords`` is this rank's index along each axis.  ``local_shapes``
+    holds, by config, the shapes of a rank's param blocks once computed
+    (:func:`repro_torch.sharding.specs.check_local_params`).
     """
 
     axis_names: tuple[str, ...]
@@ -134,6 +136,7 @@ class Mesh:
     coords: dict = dataclasses.field(default_factory=dict)
     groups: dict = dataclasses.field(default_factory=dict)
     device: Any = None
+    local_shapes: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def devices(self) -> DeviceGrid:

@@ -43,6 +43,7 @@ import torch
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, reduced
 from repro_torch.data import make_batch_for
 from repro_torch.models import model as M
+from repro_torch.sharding import collectives as C
 from repro_torch.training import init_params, make_serve_step
 
 
@@ -59,7 +60,17 @@ def serve(cfg, params, batch: dict, *, gen: int, cache_dtype=torch.float32) -> d
     (B, gen) and the host-clock times of the prefill (for whisper: the
     encoder and the cross K/V) and the decode (each ending in a device
     synchronize).
+
+    Under ``use_sharding_rules`` with a running sharded mesh, ``params`` are
+    the rank's blocks (:func:`repro_torch.training.init_params` under the
+    same rules), the rank serves its rows of ``batch`` (all of them at data
+    1), its caches hold its kv heads, the logits are its vocab block
+    (``V / model``) and the greedy ids are the global ones, the same on
+    every model rank.
     """
+    mesh = C.sharded_mesh()
+    if mesh is not None:
+        batch = C.local_rows(batch, mesh, strict=False)
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
@@ -73,7 +84,7 @@ def serve(cfg, params, batch: dict, *, gen: int, cache_dtype=torch.float32) -> d
         pre = batch.get("prefix_embeds") if cfg.frontend == "vision" else None
         start = S + (0 if pre is None else pre.shape[1])
         prefill_logits, cache = M.prefill(params, batch, cfg, start + gen, cache_dtype=cache_dtype)
-        last = torch.argmax(prefill_logits, dim=-1).to(torch.int32)
+        last = C.greedy_argmax(prefill_logits, C.vocab_mesh(cfg)).to(torch.int32)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

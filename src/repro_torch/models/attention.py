@@ -20,6 +20,12 @@ the plain path, as in the reference.
 
 The cache writers update the cache IN PLACE (the reference returns a new
 one): a full-width decode would otherwise copy every layer's cache each step.
+
+Under a running ``model`` axis a self-attention layer whose params are this
+rank's head blocks runs Megatron-style (:func:`attention_layer_kv`): the
+rank's ``Nq / model`` query heads and the kv heads they use
+(:func:`local_kv_heads`), one all-reduce after ``wo``; its decode cache
+holds those kv heads only.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.cuda import flash_attention
 from repro_torch.models.layers import LayerIO, Params, apply_rope, truncated_normal
+from repro_torch.sharding import collectives as C
 
 NEG_INF = -2.0e38
 f32 = torch.float32
@@ -239,18 +246,64 @@ def fill_cache_from_prefill(k, v, capacity: int, ring: bool) -> Params:
 # Full attention layer (projections + rope + mix)
 # ---------------------------------------------------------------------------
 
+def head_mesh(cfg):
+    """The running mesh when the layout splits the query heads over
+    ``model`` (:func:`~repro_torch.sharding.collectives.layout_mesh`), else
+    None."""
+    return C.layout_mesh("wq", (cfg.d_model, cfg.num_heads, cfg.head_dim))
+
+
+def local_kv_heads(cfg, mesh) -> tuple[int, int, bool]:
+    """``(first, count, sharded)``: the kv heads this rank's query heads use.
+
+    When ``model`` divides the kv heads they are sharded like the query
+    heads.  Otherwise ``wk`` / ``wv`` replicate (the reference's spec) and
+    each rank takes the kv heads its query heads map to under GQA (query
+    head ``j`` to kv head ``j // (Nq / Nkv)``), which must be the same
+    number for every one of its kv heads."""
+    n = mesh.shape["model"]
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    if nkv % n == 0:
+        return mesh.index("model") * (nkv // n), nkv // n, True
+    g, q_loc = nq // nkv, nq // n
+    if q_loc % g and g % q_loc:
+        raise ValueError(f"{nq} query heads over {nkv} kv heads do not split over model {n}: "
+                         "a rank's query heads would share kv heads unevenly")
+    first = mesh.index("model") * q_loc // g
+    return first, max(q_loc // g, 1), False
+
+
+def _kv_weights(p: Params, cfg, mesh):
+    """``wk`` / ``wv`` as this rank's kv heads use them (see
+    :func:`local_kv_heads`).  Replicated weights are sliced; their gradient
+    is summed over ``model``, since each rank's slice feeds its own heads."""
+    if mesh is None:
+        return p["wk"], p["wv"]
+    first, count, sharded = local_kv_heads(cfg, mesh)
+    if sharded:
+        return p["wk"], p["wv"]
+    return tuple(C.copy_to_model(p[w], mesh).narrow(1, first, count) for w in ("wk", "wv"))
+
+
 def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,
                        kv_source: torch.Tensor | None = None, use_rope: bool = True):
     """Projections + rope + attention + output projection -> (y, k, v), with
     ``k`` roped: prefill fills its decode cache from the same projections.
     ``kv_source`` (B, T, D): cross-attention memory, K and V projected from
-    it."""
+    it.  With this rank's block of the heads (a running ``model`` axis),
+    the projections are column-split over heads, attention runs on the
+    rank's heads, ``wo`` is row-split and one all-reduce over ``model``
+    sums the output; ``k`` and ``v`` are the rank's kv heads."""
     dt = x.dtype
     cross = kv_source is not None
+    mesh = None if cross else head_mesh(cfg)
+    if mesh is not None:
+        x = C.copy_to_model(x, mesh)
     src = kv_source if cross else x
+    wk, wv = _kv_weights(p, cfg, mesh)
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
-    k = torch.einsum("btd,dnh->btnh", src, p["wk"].to(dt))
-    v = torch.einsum("btd,dnh->btnh", src, p["wv"].to(dt))
+    k = torch.einsum("btd,dnh->btnh", src, wk.to(dt))
+    v = torch.einsum("btd,dnh->btnh", src, wv.to(dt))
     if use_rope and not cross:
         q = apply_rope(q, io.positions, cfg.rope_theta)
         k = apply_rope(k, io.positions, cfg.rope_theta)
@@ -268,7 +321,10 @@ def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: 
             causal=io.causal and not cross, window=window, softcap=cfg.attn_logit_softcap,
             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
         )
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(dt)), k, v
+    y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(dt))
+    if mesh is not None:
+        y = C.reduce_from_model(y, mesh, "attn")
+    return y, k, v
 
 
 def attention_layer(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,

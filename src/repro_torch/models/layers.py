@@ -5,6 +5,11 @@ Parameters are nested dicts of tensors, ``init_*`` builds them from a
 reference.  On the ``meta`` device ``init_*`` only allocates shapes — the
 port's ``jax.eval_shape``.  Activations follow the reference's dtypes: every
 matmul takes the activation-dtype cast of the f32 params.
+
+Under a running ``model`` axis (:mod:`repro_torch.sharding.collectives`)
+the embedding, unembedding and MLP take this rank's blocks of their
+weights, the vocab or d_ff split over ``model`` (Megatron-style), when
+their params are blocks; params held whole run the one-process path.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import collectives as C
 
 Params = dict[str, Any]
 f32 = torch.float32
@@ -70,15 +77,33 @@ def init_embedding(gen, vocab: int, d: int, device, dtype=f32) -> Params:
     return {"embedding": truncated_normal(gen, (vocab, d), 1.0 / np.sqrt(d), device, dtype)}
 
 
-def apply_embedding(p: Params, tokens: torch.Tensor, *, scale: bool, act_dtype) -> torch.Tensor:
+def apply_embedding(p: Params, tokens: torch.Tensor, *, scale: bool, act_dtype,
+                    mesh) -> torch.Tensor:
+    """Token embeddings.  With ``mesh`` (the table split over vocab,
+    :func:`~repro_torch.sharding.collectives.vocab_mesh`) ``p`` is the
+    rank's vocab block: each rank looks up the tokens in its range, zeroes
+    the rest, and one all-reduce over ``model`` sums the blocks."""
     emb = p["embedding"].to(act_dtype)
-    x = F.embedding(tokens, emb)
+    if mesh is None:
+        x = F.embedding(tokens, emb)
+    else:
+        v_loc = emb.shape[0]
+        local = tokens - mesh.index("model") * v_loc
+        inside = (local >= 0) & (local < v_loc)
+        x = F.embedding(torch.where(inside, local, 0), emb)
+        x = C.reduce_from_model(torch.where(inside[..., None], x, 0.0), mesh, "embed")
     if scale:
         x = x * torch.tensor(np.sqrt(emb.shape[-1]), dtype=act_dtype)
     return x
 
 
-def apply_unembed(p: Params, x: torch.Tensor, *, softcap: float | None) -> torch.Tensor:
+def apply_unembed(p: Params, x: torch.Tensor, *, softcap: float | None,
+                  mesh) -> torch.Tensor:
+    """Logits; with ``mesh`` (as :func:`apply_embedding`) the logits of the
+    rank's vocab block only, ``(..., V / model)`` (x is the column-parallel
+    input)."""
+    if mesh is not None:
+        x = C.copy_to_model(x, mesh)
     logits = x @ p["embedding"].to(x.dtype).t()
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
@@ -121,14 +146,20 @@ def init_mlp(gen, d: int, f: int, gated: bool, device, dtype=f32) -> Params:
     return p
 
 
-def apply_mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, act: str, *, mesh) -> torch.Tensor:
+    """The (gated) MLP.  With ``mesh`` (d_ff split over ``model``) ``p`` is
+    the rank's d_ff block: ``w_gate`` / ``w_up`` column-split, ``w_down``
+    row-split, and one all-reduce over ``model``."""
     dt = x.dtype
+    if mesh is not None:
+        x = C.copy_to_model(x, mesh)
     up = x @ p["w_up"].to(dt)
     if "w_gate" in p:
         h = _act(act, x @ p["w_gate"].to(dt)) * up
     else:
         h = _act(act, up)
-    return h @ p["w_down"].to(dt)
+    out = h @ p["w_down"].to(dt)
+    return out if mesh is None else C.reduce_from_model(out, mesh, "mlp")
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,16 @@ training, ``-1`` masking a position; ``prefix_embeds`` (vlm) and
 ``enc_embeds`` (audio).  The loss adds ``router_aux_coef`` x the router's
 load-balance loss for configs with experts.  Serving runs without autograd;
 a decode step updates the cache in place and returns it.
+
+Under ``use_sharding_rules`` with a running mesh whose ``model`` axis has
+more than one process, the params are this rank's blocks
+(:func:`repro_torch.training.steps.init_params`) and ``forward`` /
+``prefill`` / ``decode_step`` return the logits of the rank's vocab block
+(``V / model``); :func:`cross_entropy` reduces them over ``model``.  The
+dense decoder shards (attention, MLP, embedding, unembedding, the MoE's
+attention and shared expert); an arch with an SSM, RG-LRU, encoder-decoder
+or vision-prefix layer raises at :func:`init_model`, and params held whole
+raise at ``forward`` / ``prefill`` / ``decode_step``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from repro_torch.models.layers import (
     dtype_of,
     init_embedding,
 )
+from repro_torch.sharding import collectives as C
 
 __all__ = ["init_model", "forward", "cross_entropy", "loss_fn", "init_decode_state", "decode_step",
            "prefill"]
@@ -44,6 +55,13 @@ f32 = torch.float32
 
 
 def init_model(gen, cfg, device) -> Params:
+    """The whole param tree (blocks are sliced from it by the caller:
+    :func:`repro_torch.training.steps.init_params`).  Under a running
+    ``model`` axis an arch with a layer that does not shard raises here."""
+    if C.model_mesh() is not None:
+        from repro_torch.sharding.specs import check_tensor_parallel
+
+        check_tensor_parallel(cfg)
     if cfg.is_encoder_decoder:
         return W.init_whisper(gen, cfg, device)
     params: Params = {
@@ -56,13 +74,28 @@ def init_model(gen, cfg, device) -> Params:
     return params
 
 
-def _embed_with_prefix(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, LayerIO, int]:
+def _vocab_layout(params: Params, cfg):
+    """:func:`~repro_torch.sharding.collectives.vocab_mesh`, once the params
+    are checked to be this rank's blocks under a running ``model`` axis
+    (:func:`~repro_torch.sharding.specs.check_local_params`)."""
+    mesh = C.model_mesh()
+    if mesh is None:
+        return None
+    from repro_torch.sharding.specs import check_local_params
+
+    check_local_params(params, cfg, mesh)
+    return C.vocab_mesh(cfg)
+
+
+def _embed_with_prefix(params: Params, batch: dict[str, Any], cfg, vmesh
+                       ) -> tuple[torch.Tensor, LayerIO, int]:
     """Token embeddings, behind the vlm prefix if the config has one ->
     (x, the causal geometry of positions 0..P+S-1, P)."""
     act_dt = dtype_of(cfg.activation_dtype)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = apply_embedding(params["embed"], tokens, scale=cfg.embed_scale, act_dtype=act_dt)
+    x = apply_embedding(params["embed"], tokens, scale=cfg.embed_scale, act_dtype=act_dt,
+                        mesh=vmesh)
     n_prefix = 0
     if cfg.frontend == "vision" and "prefix_embeds" in batch:
         pre = batch["prefix_embeds"].to(act_dt)
@@ -80,28 +113,56 @@ def _encode(params: Params, batch: dict[str, Any], cfg) -> torch.Tensor:
 def forward(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence pass -> (logits (B, S, V) aligned with the tokens,
     aux_loss f32 scalar)."""
+    vmesh = _vocab_layout(params, cfg)
     if cfg.is_encoder_decoder:
         logits = W.decode_train(params, batch["tokens"], _encode(params, batch, cfg), cfg)
         return logits, torch.zeros((), dtype=f32, device=logits.device)
-    x, io, n_prefix = _embed_with_prefix(params, batch, cfg)
+    x, io, n_prefix = _embed_with_prefix(params, batch, cfg, vmesh)
     x, aux = T.apply_stack(params["stack"], x, io, cfg)
     x = T._norm(cfg, params["final_norm"], x)
     if n_prefix:
         x = x[:, n_prefix:]
     logits = apply_unembed(params.get("unembed", params["embed"]), x,
-                           softcap=cfg.final_logit_softcap)
+                           softcap=cfg.final_logit_softcap, mesh=vmesh)
     return logits, aux
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Masked token-mean CE in float32; labels < 0 are ignored."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked token-mean CE in float32; labels < 0 are ignored.
+
+    With ``mesh`` (the logits are this rank's vocab block,
+    :func:`~repro_torch.sharding.collectives.vocab_mesh`) it takes the
+    vocab-parallel form: the max, the sum of exponentials and the target's
+    logit (from the rank that owns it) are reduced over ``model``, three
+    ``(B, S)`` f32 all-reduces.  With more
+    than one data rank the token count and the loss are summed over
+    ``data``: every rank returns the token mean over the global batch, and
+    its gradient is its rows' share of it (the caller sums the gradients
+    over ``data``)."""
     logits = logits.to(f32)
     mask = (labels >= 0).to(f32)
     safe = torch.clamp(labels, min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    else:
+        v_loc = logits.shape[-1]
+        m = C.max_over_model(torch.amax(logits, dim=-1), mesh, "logits")
+        se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+        lse = torch.log(C.reduce_from_model(se, mesh, "logits")) + m
+        local = safe - mesh.index("model") * v_loc
+        inside = (local >= 0) & (local < v_loc)
+        ll = torch.gather(logits, -1, torch.clamp(local, 0, v_loc - 1)[..., None])[..., 0]
+        ll = C.reduce_from_model(torch.where(inside, ll, 0.0), mesh, "logits")
     nll = (lse - ll) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
+    n_tok = mask.sum()
+    data = C.sharded_mesh()
+    if data is not None and C.data_size(data) > 1:
+        n_tok = C.sum_over_data(n_tok, data, "loss")
+        denom = torch.clamp(n_tok, min=1.0)
+        return C.sum_over_data(nll.sum() / denom, data, "loss"), denom
+    denom = torch.clamp(n_tok, min=1.0)
     return nll.sum() / denom, denom
 
 
@@ -111,9 +172,32 @@ def loss_fn(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, d
     if labels is None:
         tokens = batch["tokens"]
         labels = torch.cat([tokens[:, 1:], -torch.ones_like(tokens[:, :1])], dim=1)
-    ce, n_tok = cross_entropy(logits, labels)
-    loss = ce + cfg.router_aux_coef * aux if cfg.num_experts else ce
+    ce, n_tok = cross_entropy(logits, labels, mesh=C.vocab_mesh(cfg))
+    if cfg.num_experts:
+        aux = _data_parallel_aux(aux)
+        loss = ce + cfg.router_aux_coef * aux
+    else:
+        loss = ce
     return loss, {"ce": ce, "aux": aux, "n_tokens": n_tok}
+
+
+def _data_parallel_aux(aux: torch.Tensor) -> torch.Tensor:
+    """The router's aux loss under :func:`cross_entropy`'s data-parallel
+    convention (every rank holds the global loss, its gradient is its
+    rows' share, the caller sums the gradients over ``data``): the mean over
+    the data ranks, the reference's ``pmean``.  With one model rank the MoE
+    routes each rank's rows alone, and the mean is taken here (one f32
+    all-reduce).  The expert-parallel MoE (``model`` > 1) returns that mean
+    already, but its backward sums aux's cotangent over ``data``
+    (:mod:`repro_torch.models.moe`: the loss is the sum over data groups),
+    so its gradient is divided by the data ranks here."""
+    mesh = C.sharded_mesh()
+    n_data = 1 if mesh is None else C.data_size(mesh)
+    if n_data == 1:
+        return aux
+    if C.model_mesh() is None:
+        return C.sum_over_data(aux.reshape(1), mesh, "aux")[0] / n_data
+    return C.scale_grad(aux, 1.0 / n_data)
 
 
 # ---------------------------------------------------------------------------
@@ -142,15 +226,17 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor, pos, cfg):
 
     Returns (logits (B, V), cache), the cache updated in place.
     """
+    vmesh = _vocab_layout(params, cfg)
     if cfg.is_encoder_decoder:
         return W.whisper_decode_step(params, cache, token, pos, cfg)
     act_dt = dtype_of(cfg.activation_dtype)
-    x = apply_embedding(params["embed"], token[:, None], scale=cfg.embed_scale, act_dtype=act_dt)
+    x = apply_embedding(params["embed"], token[:, None], scale=cfg.embed_scale, act_dtype=act_dt,
+                        mesh=vmesh)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     x, cache = T.apply_stack_step(params["stack"], x, cache, pos, cfg)
     x = T._norm(cfg, params["final_norm"], x)
     logits = apply_unembed(params.get("unembed", params["embed"]), x[:, 0],
-                           softcap=cfg.final_logit_softcap)
+                           softcap=cfg.final_logit_softcap, mesh=vmesh)
     return logits, cache
 
 
@@ -159,14 +245,15 @@ def prefill(params: Params, batch: dict[str, Any], cfg, capacity: int, *,
             cache_dtype=torch.bfloat16):
     """Process a prompt -> (last-position logits (B, V), decode cache).  A
     vlm prompt is its prefix and its tokens, so ``capacity`` counts both."""
+    vmesh = _vocab_layout(params, cfg)
     if cfg.is_encoder_decoder:
         memory = _encode(params, batch, cfg)
         logits = W.decode_train(params, batch["tokens"], memory, cfg)
         return logits[:, -1], W.init_whisper_cache(params, memory, cfg, capacity, cache_dtype)
-    x, io, _ = _embed_with_prefix(params, batch, cfg)
+    x, io, _ = _embed_with_prefix(params, batch, cfg, vmesh)
     x, cache = T.prefill_stack(params["stack"], x, io, cfg, capacity, cache_dtype)
     # the norm is row-wise: normalizing the last position alone is the same
     x = T._norm(cfg, params["final_norm"], x[:, -1])
     logits = apply_unembed(params.get("unembed", params["embed"]), x,
-                           softcap=cfg.final_logit_softcap)
+                           softcap=cfg.final_logit_softcap, mesh=vmesh)
     return logits, cache

@@ -21,8 +21,12 @@ Under :func:`~repro_torch.sharding.use_sharding_rules` with a running
 one process, :func:`apply_moe` takes the reference's two ``shard_map``
 branches, written as explicit collectives over the mesh's process groups.
 Each process holds its own batch rows and its own block of the expert
-stacks (:func:`local_expert_params` slices them); router and shared expert
-are replicated.
+stacks (:func:`local_expert_params` slices them; stacks held whole raise);
+the router is replicated.  The shared expert is the dense MLP of
+:func:`~repro_torch.models.layers.apply_mlp`: column- and row-split over
+``model`` with one all-reduce in the port's storage layout
+(:func:`repro_torch.training.init_params`), whole in the layout of
+:func:`local_expert_params`, which slices the expert stacks alone.
 
 * **Expert-parallel**: the stacks hold ``E / n_model`` experts.  Each rank
   routes its own tokens over all experts, runs its experts
@@ -36,7 +40,9 @@ are replicated.
   experts on all of them, the outputs are summed over every rank, and each
   rank keeps its own rows.  Expert weights never move.
 
-The gather is an all-reduce of a zero-filled ``(n_data, T_loc, D)`` buffer in
+The collectives are :mod:`repro_torch.sharding.collectives`' (one byte
+counter for the MoE's and the dense layers').  The gather is an all-reduce
+of a zero-filled ``(n_data, T_loc, D)`` buffer in
 which each rank fills its own rows: gloo reduces CUDA tensors but does not
 gather them, and NCCL refuses two ranks on one card, so this one form runs on
 gloo with several processes on one card and on NCCL with one card each.
@@ -64,22 +70,19 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.layers import Params, _act, truncated_normal
+from repro_torch.models.layers import Params, apply_mlp, truncated_normal, _act
+from repro_torch.sharding.collectives import (  # noqa: F401  (the counter is re-exported)
+    COLLECTIVE_BYTES,
+    _sum_over,
+    _to_model,
+    model_mesh,
+    reset_collective_bytes,
+)
 
 __all__ = ["init_moe", "capacity_for", "route", "apply_moe", "local_expert_params",
            "COLLECTIVE_BYTES", "reset_collective_bytes"]
 
 f32 = torch.float32
-
-# Bytes handed to all-reduce by the sharded branches, by purpose (a
-# measurement count: it adds each buffer's size, and never waits for it).
-COLLECTIVE_BYTES = {"combine": 0, "gather": 0, "aux": 0, "backward": 0}
-
-
-def reset_collective_bytes() -> None:
-    for k in COLLECTIVE_BYTES:
-        COLLECTIVE_BYTES[k] = 0
-
 
 def init_moe(gen, cfg, device) -> Params:
     d, e, fe = cfg.d_model, cfg.experts_padded, cfg.d_ff_expert
@@ -187,51 +190,6 @@ def _routed_local(xt: torch.Tensor, p: Params, cfg, C: int, e_start: int = 0,
     return out, aux
 
 
-def _all_reduce(t: torch.Tensor, group, what: str) -> torch.Tensor:
-    """Sum contiguous ``t`` over the ranks of ``group``, in place."""
-    import torch.distributed as dist
-
-    COLLECTIVE_BYTES[what] += t.numel() * t.element_size()
-    dist.all_reduce(t, group=group)
-    return t
-
-
-class _SumOver(torch.autograd.Function):
-    """Sum over ``group`` (None: the identity); the backward sums the
-    cotangent over ``back`` (None: passes it through)."""
-
-    @staticmethod
-    def forward(ctx, t, group, back, what):
-        ctx.back = back
-        if group is None:
-            return t.view_as(t)
-        return _all_reduce(t.clone(memory_format=torch.contiguous_format), group, what)
-
-    @staticmethod
-    def backward(ctx, g):
-        if ctx.back is not None:
-            g = _all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.back,
-                            "backward")
-        return g, None, None, None
-
-
-def _sum_over(t: torch.Tensor, group, what: str, back=None) -> torch.Tensor:
-    """Sum ``t`` over the ranks of ``group``; differentiated, the cotangent is
-    summed over ``back`` (module docstring).  Without a gradient to carry
-    the sum is in place."""
-    if torch.is_grad_enabled() and t.requires_grad:
-        return _SumOver.apply(t, group, back, what)
-    return _all_reduce(t.contiguous(), group, what)
-
-
-def _to_model(t: torch.Tensor, mesh) -> torch.Tensor:
-    """A replicated input of the partial expert computation: the identity,
-    whose backward sums the cotangent over ``model``."""
-    if torch.is_grad_enabled() and t.requires_grad:
-        return _SumOver.apply(t, None, mesh.group("model"), "backward")
-    return t
-
-
 def _moe_layout(cfg, mesh):
     """``(batch axes, n_model, n_data, weights-stationary?)`` of a running
     layout (the reference's branch condition; its ``(B * S) % n_data`` test
@@ -241,17 +199,6 @@ def _moe_layout(cfg, mesh):
     stationary = bool(cfg.moe_weights_stationary and batch_axes
                       and cfg.d_ff_expert % n_data == 0)
     return batch_axes, mesh.shape["model"], n_data, stationary
-
-
-def _sharded_mesh():
-    """The running mesh when the sharded branches apply, else None."""
-    from repro_torch.sharding.ctx import current_rules
-
-    rules = current_rules()
-    if rules is None or "model" not in rules.mesh.axis_names:
-        return None
-    mesh = rules.mesh
-    return mesh if getattr(mesh, "running", False) and mesh.shape["model"] > 1 else None
 
 
 def local_expert_params(p: Params, cfg, mesh) -> Params:
@@ -288,6 +235,10 @@ def _apply_sharded(p: Params, x: torch.Tensor, cfg, mesh):
     E = cfg.experts_padded
     batch_axes, n_model, n_data, stationary = _moe_layout(cfg, mesh)
     e_local = E // n_model
+    if E % n_model or p["w_gate_e"].shape[-3] != e_local:
+        raise ValueError(f"under a model axis of {n_model} the expert stacks must hold this "
+                         f"rank's {E} / {n_model} experts (local_expert_params), not "
+                         f"{p['w_gate_e'].shape[-3]}")
     e_start = mesh.index("model") * e_local
     world = mesh.group(("model",) + batch_axes)
     data = mesh.group(batch_axes) if batch_axes else None
@@ -318,7 +269,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tens
     ``model`` axis of more than one process, x and the expert stacks are
     this rank's blocks (module docstring)."""
     B, S, D = x.shape
-    mesh = _sharded_mesh()
+    mesh = model_mesh()
     if mesh is not None:
         out, aux = _apply_sharded(p, x, cfg, mesh)
     else:
@@ -326,11 +277,11 @@ def apply_moe(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tens
         out, aux = _routed_local(x.reshape(B * S, D), p, cfg, C)
         out = out.reshape(B, S, D)
     if "shared" in p:
-        dt = x.dtype
         sp = p["shared"]
-        g = _act(cfg.act, x @ sp["w_gate"].to(dt))
-        u = x @ sp["w_up"].to(dt)
-        sh = (g * u) @ sp["w_down"].to(dt)
-        sgate = torch.sigmoid(x @ sp["gate_proj"].to(dt))
+        # split in the storage layout, whole in local_expert_params' (module
+        # docstring)
+        split = mesh is not None and sp["w_up"].shape[-1] < cfg.shared_expert_ff
+        sh = apply_mlp(sp, x, cfg.act, mesh=mesh if split else None)
+        sgate = torch.sigmoid(x @ sp["gate_proj"].to(x.dtype))
         out = out + sgate * sh
     return out, aux

@@ -24,14 +24,22 @@ Mixture-of-Experts layer (:mod:`repro_torch.models.moe`), whose router
 load-balance loss the full-sequence path returns beside ``x`` and sums over
 the stack in layer order; a block without experts contributes no term (the
 reference's zero, not materialised, so a dense stack runs no extra op).
+
+Under a running ``model`` axis the blocks need nothing of their own: the
+attention, MLP and MoE layers shard themselves (their params are the
+rank's blocks), each ends in an all-reduce over ``model``, and so the norms
+(replicated), the residual stream and the local / global windows see the
+whole ``(B, S, D)`` activations on every rank.  A decode cache holds the
+rank's kv heads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
@@ -48,6 +56,8 @@ from repro_torch.models.layers import (
     init_mlp,
     init_rmsnorm,
 )
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.ctx import current_rules, rules_in_force
 from repro_torch.tree import tree_map
 
 
@@ -106,7 +116,8 @@ def _mlp_residual(p: Params, x, pre, h, cfg):
     if cfg.num_experts:
         m, aux = MOE.apply_moe(p["moe"], m_in, cfg)
     else:
-        m = apply_mlp(p["mlp"], m_in, cfg.act)
+        m = apply_mlp(p["mlp"], m_in, cfg.act,
+                      mesh=C.layout_mesh("w_up", (cfg.d_model, cfg.d_ff)))
     if cfg.use_post_norms:
         m = _norm(cfg, p["mlp_post_norm"], m)
     return ((x + h + m) if cfg.parallel_residual else (x + m)), aux
@@ -138,16 +149,22 @@ def init_block_cache(layer_type: str, batch: int, capacity: int, cfg, dtype, dev
     if layer_type == "recurrent":
         return R.init_rglru_cache(batch, cfg, dtype, device)
     cap = min(cfg.window_size, capacity) if layer_type == "local" else capacity
-    return A.init_kv_cache(batch, cap, cfg.num_kv_heads, cfg.head_dim, dtype, device)
+    mesh = A.head_mesh(cfg)
+    nkv = cfg.num_kv_heads if mesh is None else A.local_kv_heads(cfg, mesh)[1]
+    return A.init_kv_cache(batch, cap, nkv, cfg.head_dim, dtype, device)
 
 
 def _attn_decode(p, x, cache, layer_type, pos, cfg):
     """Project one token, write it into the cache, attend."""
     dt = x.dtype
     B = x.shape[0]
+    mesh = A.head_mesh(cfg)
+    if mesh is not None:
+        x = C.copy_to_model(x, mesh)
+    wk, wv = A._kv_weights(p, cfg, mesh)
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"].to(dt))
+    k = torch.einsum("bsd,dnh->bsnh", x, wk.to(dt))
+    v = torch.einsum("bsd,dnh->bsnh", x, wv.to(dt))
     qpos = pos.reshape(1, 1).expand(B, 1)
     if cfg.use_rope:
         q = apply_rope(q, qpos, cfg.rope_theta)
@@ -163,7 +180,8 @@ def _attn_decode(p, x, cache, layer_type, pos, cfg):
                              softcap=cfg.attn_logit_softcap)
     # the reference's jnp promotion: an f32 cache gives an f32 output
     od = torch.promote_types(out.dtype, dt)
-    return torch.einsum("bsnh,nhd->bsd", out.to(od), p["wo"].to(dt).to(od)), cache
+    y = torch.einsum("bsnh,nhd->bsd", out.to(od), p["wo"].to(dt).to(od))
+    return (y if mesh is None else C.reduce_from_model(y, mesh, "attn")), cache
 
 
 def apply_block_step(p: Params, x: torch.Tensor, cache: Params, layer_type: str, pos, cfg):
@@ -275,10 +293,22 @@ def _per_layer(tree: Params, cfg) -> list[tuple[str, str, Params]]:
 def apply_stack(params: Params, x: torch.Tensor, io: LayerIO, cfg):
     """-> (x, aux_total): the blocks' aux losses summed in layer order (f32;
     zero for a stack without experts)."""
+    # Under a running model axis the recompute runs the whole block: with
+    # early stopping it would end before the block's last all-reduce, so the
+    # collectives of a step would depend on which tensors autograd saved.
+    # And it re-enters the sharding rules: a CUDA backward recomputes on
+    # autograd's device thread, which does not see this thread's rules.
+    rules = current_rules()
+    whole_recompute = cfg.remat and C.model_mesh() is not None
+
+    def block(p, x, t):
+        with rules_in_force(rules):
+            return apply_block(p, x, t, io, cfg)
+
     def layer(p, x, t):
         if cfg.remat:
-            return checkpoint(functools.partial(apply_block, p, layer_type=t, io=io, cfg=cfg),
-                              x, use_reentrant=False)
+            with set_checkpoint_early_stop(False) if whole_recompute else contextlib.nullcontext():
+                return checkpoint(functools.partial(block, p, t=t), x, use_reentrant=False)
         return apply_block(p, x, t, io, cfg)
 
     aux_total = None

@@ -69,7 +69,7 @@ def apply_encoder_block(p: Params, x: torch.Tensor, io: LayerIO, cfg) -> torch.T
     h = A.attention_layer(p["attn"], h, io, cfg, window=None, use_rope=False)
     x = x + h
     m = apply_layernorm(p["mlp_norm"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], m, cfg.act)
+    return x + apply_mlp(p["mlp"], m, cfg.act, mesh=None)
 
 
 def init_decoder_block(gen, cfg, device) -> Params:
@@ -92,7 +92,7 @@ def apply_decoder_block(p: Params, x: torch.Tensor, memory: torch.Tensor, io: La
                           use_rope=False)
     x = x + c
     m = apply_layernorm(p["mlp_norm"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], m, cfg.act)
+    return x + apply_mlp(p["mlp"], m, cfg.act, mesh=None)
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +130,7 @@ def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor, cfg
     """Teacher-forced decoder pass. tokens: (B, S) -> logits (B, S, V)."""
     B, S = tokens.shape
     act_dt = dtype_of(cfg.activation_dtype)
-    x = apply_embedding(params["embed"], tokens, scale=False, act_dtype=act_dt)
+    x = apply_embedding(params["embed"], tokens, scale=False, act_dtype=act_dt, mesh=None)
     x = x + position_table(S, cfg.d_model, x.device, act_dt)[None]
     io = LayerIO(positions=_positions(B, S, x.device), causal=True)
     mem = memory.to(act_dt)
@@ -141,7 +141,7 @@ def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor, cfg
         else:
             x = apply_decoder_block(p, x, mem, io, cfg)
     x = apply_layernorm(params["decoder_norm"], x, cfg.norm_eps)
-    return apply_unembed(params["embed"], x, softcap=cfg.final_logit_softcap)
+    return apply_unembed(params["embed"], x, softcap=cfg.final_logit_softcap, mesh=None)
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +177,8 @@ def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos,
     cache), the self-attention cache updated in place."""
     act_dt = dtype_of(cfg.activation_dtype)
     B = token.shape[0]
-    x = apply_embedding(params["embed"], token[:, None], scale=False, act_dtype=act_dt)
+    x = apply_embedding(params["embed"], token[:, None], scale=False, act_dtype=act_dt,
+                        mesh=None)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     cap = cache["self"]["k"].shape[2]
     # the current token's sinusoidal row, read on the device
@@ -212,7 +213,7 @@ def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos,
         x = x + _proj_out(oc, ca["wo"], dt)
 
         m = apply_layernorm(p["mlp_norm"], x, cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], m, cfg.act)
+        x = x + apply_mlp(p["mlp"], m, cfg.act, mesh=None)
     x = apply_layernorm(params["decoder_norm"], x, cfg.norm_eps)
-    logits = apply_unembed(params["embed"], x[:, 0], softcap=cfg.final_logit_softcap)
+    logits = apply_unembed(params["embed"], x[:, 0], softcap=cfg.final_logit_softcap, mesh=None)
     return logits, cache

@@ -126,7 +126,8 @@ def _family_scalars(plan: FusionPlan, g_flat, bufs, ctx: T.StepContext):
     f_clip = T.scalar(1.0)
     if plan.clip is not None:
         pre = (f_stale * g_flat) * f_keep
-        norm = torch.sqrt(torch.sum(torch.square(pre)))
+        sq = torch.sum(torch.square(pre)) if ctx.sq_norm is None else ctx.sq_norm(pre)
+        norm = torch.sqrt(sq)
         f_clip = torch.clamp(plan.clip / torch.clamp(norm, min=1e-9), max=1.0)
     scalars = {
         "f_stale": f_stale,

@@ -79,13 +79,17 @@ class StepContext:
     ``tau`` (scalar staleness, sync path), ``taus`` ((W,) async), ``scale``
     (extra learning-rate multiplier), ``adapt`` (the AdaptState) and
     ``staleness_applied`` (True when the async step already applied the
-    alpha/drop weighting inside the ring combine)."""
+    alpha/drop weighting inside the ring combine).  ``sq_norm``, when set,
+    is the squared global norm of an update held as this rank's blocks of a
+    sharded layout (:func:`repro_torch.sharding.collectives.make_sq_norm`),
+    which the clip link takes in place of :func:`global_norm`."""
 
     tau: Any = None
     taus: Any = None
     scale: Any = 1.0
     adapt: Any = None
     staleness_applied: bool = False
+    sq_norm: Any = None
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +253,7 @@ def clip_by_global_norm(max_norm: float) -> GradientTransform:
     max_norm = float(max_norm)
 
     def update(u, s, params, ctx):
-        n = global_norm(u)
+        n = global_norm(u) if ctx.sq_norm is None else torch.sqrt(ctx.sq_norm(u))
         factor = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
         return tree_map(lambda leaf: leaf * factor.to(leaf.dtype), u), s
 

@@ -40,7 +40,20 @@ __all__ = [
     "save_checkpoint",
     "restore_checkpoint",
     "refresh_link_of",
+    "refuse_sharded",
 ]
+
+
+def refuse_sharded() -> None:
+    """Raise under a running sharded mesh: a rank's state is its blocks, and
+    a checkpoint of it must not be saved, or restored, as if it were the
+    whole tree.  Sharded checkpoints are ROADMAP Queue 1, item 6."""
+    from repro_torch.sharding.collectives import sharded_mesh
+
+    if sharded_mesh() is not None:
+        raise NotImplementedError(
+            "checkpoints of a sharded state (a running data x model mesh) are not supported "
+            "yet: each rank holds only its blocks (ROADMAP Queue 1, item 6: sharded checkpoints)")
 
 
 def refresh_link_of(pipeline) -> Any | None:
@@ -73,6 +86,7 @@ def save_checkpoint(directory: str, state: Any, pipeline: Any, step: int) -> Non
     :func:`save_train_state`) last, so a crash mid-save can never leave
     ``latest`` naming a checkpoint whose sidecar is missing.
     """
+    refuse_sharded()
     os.makedirs(directory, exist_ok=True)
     link = refresh_link_of(pipeline)
     host: dict[str, np.ndarray] = {}
@@ -105,6 +119,7 @@ def restore_checkpoint(
     staleness link the saved schedule table — so the next refresh boundary
     refits from exactly the observations the interrupted run had.
     """
+    refuse_sharded()
     state, step = load_train_state(directory, template_state, step, device=device)
     host_path = _host_path(directory, step)
     link = refresh_link_of(pipeline)

@@ -156,6 +156,11 @@ class CheckpointHook(Hook):
         self.at_end = bool(at_end)
         self.saved_steps: list[int] = []
 
+    def on_start(self, ctx) -> None:
+        from repro_torch.run.ckpt import refuse_sharded
+
+        refuse_sharded()  # before the first tick, not at the first save
+
     def _save(self, ctx) -> None:
         from repro_torch.run.ckpt import save_checkpoint
 

@@ -12,7 +12,9 @@ The reference's ``shard_activation`` hands the spec to XLA's SPMD
 partitioner (``with_sharding_constraint``).  Eager PyTorch has no such
 partitioner, so here it is the identity: a tensor is always this process's
 own block, and code that needs data from other processes says so with an
-explicit collective (the expert-parallel MoE, :mod:`repro_torch.models.moe`).
+explicit collective (:mod:`repro_torch.sharding.collectives`: the
+Megatron-style attention, MLP, embedding and cross-entropy of
+:mod:`repro_torch.models`, and the expert-parallel MoE).
 The reference's ``shard_map_compat`` (a version shim over ``jax.shard_map``)
 has no counterpart for the same reason: what it wraps is written as
 explicit collectives over the mesh's process groups.
@@ -31,6 +33,7 @@ __all__ = [
     "use_sharding_rules",
     "shard_activation",
     "current_rules",
+    "rules_in_force",
     "DEFAULT_RULES",
 ]
 
@@ -99,6 +102,20 @@ def current_rules() -> ShardingRules | None:
 @contextlib.contextmanager
 def use_sharding_rules(mesh, rules: dict[str, object] | None = None):
     token = _CTX.set(ShardingRules(mesh, dict(DEFAULT_RULES if rules is None else rules)))
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
+
+
+@contextlib.contextmanager
+def rules_in_force(rules: ShardingRules | None):
+    """Make ``rules`` (as :func:`current_rules` returned them, None
+    included) current again, for code that runs on another thread: the
+    rules live in a context variable, which a thread started elsewhere
+    (autograd's device thread, where a CUDA backward and its checkpoint
+    recompute run) does not see."""
+    token = _CTX.set(rules)
     try:
         yield
     finally:

@@ -22,7 +22,8 @@ reference's ``_path_str`` of the same tree.
 The reference's ``*_shardings`` functions wrap each spec in a
 ``NamedSharding`` for ``jax.jit``; the port has no partitioner to hand them
 to, so :func:`local_shape` and :func:`local_shard` give this card's block of
-a leaf instead.
+a leaf instead, and :func:`local_template` the shapes of a rank's param
+blocks under the port's storage layout (:func:`storage_spec_for`).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.sharding.ctx import PartitionSpec as P
+from repro_torch.tree import tree_map
 
 __all__ = [
     "param_spec_for",
@@ -49,6 +51,12 @@ __all__ = [
     "auto_specs",
     "local_shape",
     "local_shard",
+    "storage_spec_for",
+    "local_template",
+    "localize",
+    "check_local_params",
+    "tensor_parallel_unsupported",
+    "check_tensor_parallel",
     "P",
     "SPEC_OPTIONS",
 ]
@@ -348,3 +356,139 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
             block = t.shape[dim] // n
             t = t.narrow(dim, mesh.index(axes) * block, block)
     return t
+
+
+# ---------------------------------------------------------------------------
+# The port's storage layout: what a rank of a running mesh holds
+# ---------------------------------------------------------------------------
+
+def _keeps_data(path: str, cfg, mesh) -> bool:
+    """The weights-stationary MoE's expert stacks keep their d_ff split over
+    the batch axes (the layout of :func:`repro_torch.models.moe.local_expert_params`)."""
+    daxes = _data_axes(mesh)
+    return bool(cfg is not None and cfg.moe_weights_stationary and daxes
+                and re.search(r"w_(gate|up|down)_e$", path)
+                and cfg.d_ff_expert % math.prod(_axis_sizes(mesh)[a] for a in daxes) == 0)
+
+
+def storage_spec_for(path: str, shape: tuple[int, ...], mesh, cfg=None) -> P:
+    """The spec a rank of the port stores a parameter leaf by: the rule's
+    spec (:func:`param_spec_for`) with the batch axes dropped, so every leaf
+    is replicated over ``data`` (the reference's
+    ``SPEC_OPTIONS["replicate_params_over_data"]`` layout; its FSDP storage
+    sharding over ``data`` is not run by the port).  The one exception is
+    the weights-stationary MoE's expert stacks, whose d_ff stays over the
+    batch axes.
+
+    It reads the rule table itself (``model`` where ``model`` divides the
+    dimension, as :func:`param_spec_for` resolves it): the layers decide
+    from it on every call
+    (:func:`repro_torch.sharding.collectives.layout_mesh`), and
+    ``tools.reprolint`` joins :func:`param_spec_for` by name with the
+    reference's, whose host-side ``int`` it would report in the step."""
+    sizes = _axis_sizes(mesh)
+    keep = _keeps_data(path, cfg, mesh) and not SPEC_OPTIONS["replicate_params_over_data"]
+    for pattern, trailing in _RULES:
+        if not re.search(pattern, path):
+            continue
+        n = len(trailing or ())
+        if n == 0 or len(shape) < n:
+            return P()
+        tail = []
+        for ax, dim in zip(trailing, shape[len(shape) - n:]):
+            if ax == "model" and "model" in sizes and dim % sizes["model"] == 0:
+                tail.append("model")
+            elif ax == "data" and keep:
+                tail.append(_data_axes(mesh))
+            else:
+                tail.append(None)
+        return P(*((None,) * (len(shape) - n) + tuple(tail)))
+    return P()
+
+
+def local_template(cfg, mesh) -> Any:
+    """The param tree's ``(shape, dtype)`` leaves as one rank of ``mesh``
+    stores them (the counterpart of
+    :func:`repro_torch.training.steps.param_template`): every leaf at
+    ``local_shape(shape, storage_spec_for(path, shape, mesh, cfg), mesh)``.
+    With data > 1 every leaf is replicated over ``data``
+    (:func:`storage_spec_for`).  Only the layout's sizes are read, so a
+    mesh with no running processes plans a rank's blocks."""
+    from repro_torch.models import model as M
+
+    meta = M.init_model(None, cfg, "meta")
+    return _map_with_path(
+        lambda path, t: (local_shape(tuple(t.shape), storage_spec_for(path, tuple(t.shape), mesh,
+                                                                      cfg), mesh), t.dtype),
+        meta)
+
+
+def localize(tree: Any, cfg, mesh) -> Any:
+    """This rank's blocks of a param tree held whole (each a contiguous
+    copy, so the whole can be freed).  A leaf that is already the rank's
+    block (its :func:`local_template` shape) is kept as it is; a leaf of
+    neither shape raises."""
+    from repro_torch.models import model as M
+
+    whole = {path: tuple(t.shape) for path, t in leaf_paths(M.init_model(None, cfg, "meta"))}
+
+    def one(path, t):
+        full = whole[path]
+        spec = storage_spec_for(path, full, mesh, cfg)
+        shape = local_shape(full, spec, mesh)
+        if t.device.type == "meta":
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+        if tuple(t.shape) == shape:
+            return t
+        if tuple(t.shape) != full:
+            raise ValueError(f"{path}: shape {tuple(t.shape)} is neither the whole leaf {full} "
+                             f"nor this rank's block {shape}")
+        # a copy, not a view: a view would keep the whole leaf alive
+        return local_shard(t, spec, mesh).clone(memory_format=torch.contiguous_format)
+
+    return _map_with_path(one, tree)
+
+
+def check_local_params(params: Any, cfg, mesh) -> None:
+    """Raise unless every leaf of ``params`` has its :func:`local_template`
+    shape.  Under a running ``model`` axis the layers take the rank's
+    blocks; a tree held whole must not run whole on every rank."""
+    want = mesh.local_shapes.get(cfg)
+    if want is None:
+        want = mesh.local_shapes[cfg] = dict(
+            leaf_paths(tree_map(lambda t: P(*t[0]), local_template(cfg, mesh))))
+    for path, t in leaf_paths(params):
+        if tuple(t.shape) != tuple(want[path]):
+            raise ValueError(
+                f"{path}: shape {tuple(t.shape)} under a `model` axis of {mesh.shape['model']}, "
+                f"where the rank's block is {tuple(want[path])}: build the rank's blocks "
+                "(training.init_params or bridge.params_from_jax under the mesh)")
+
+
+def tensor_parallel_unsupported(cfg) -> str | None:
+    """Why the port cannot shard ``cfg`` over ``model``, or None when every
+    layer of it shards (the dense decoder: attention, dense MLP, the
+    embedding and unembedding, norms; the MoE's experts, attention and
+    shared expert)."""
+    kinds = set(cfg.block_pattern) | set(cfg.remainder_layers)
+    if "ssm" in kinds:
+        return "the Mamba (SSM) layer"
+    if "recurrent" in kinds:
+        return "the RG-LRU layer"
+    if cfg.is_encoder_decoder:
+        return "the encoder and cross-attention of an encoder-decoder"
+    if cfg.frontend == "vision":
+        return "the vision prefix"
+    if cfg.sequence_parallel or cfg.shard_grads:
+        return "sequence_parallel / shard_grads"
+    return None
+
+
+def check_tensor_parallel(cfg) -> None:
+    """Raise for an arch the port cannot shard over ``model``: it must not
+    run with its unsharded layers quietly replicated."""
+    why = tensor_parallel_unsupported(cfg)
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over a `model` axis of more than one process does "
+            f"not cover {why} yet (ROADMAP Queue 1, item 6)")

@@ -53,6 +53,7 @@ from repro_torch.async_engine.delayed import (
 from repro_torch.models import model as M
 from repro_torch.models.layers import dtype_of
 from repro_torch.optim import transform as T
+from repro_torch.sharding import collectives as C
 from repro_torch.training.adapt import (
     AdaptState,
     WorkerAdaptState,
@@ -95,9 +96,17 @@ class TrainState:
 def init_params(seed: int, cfg, device="cuda") -> Any:
     """Random params from ``seed`` (torch's draws: the reference's jax draws
     cannot be reproduced — parity tests carry the reference's params over
-    with :mod:`repro_torch.bridge`)."""
+    with :mod:`repro_torch.bridge`).  Under a running sharded mesh
+    (``use_sharding_rules``) the rank's blocks: the whole tree is drawn from
+    the seed, as one process draws it, sliced
+    (:func:`~repro_torch.sharding.specs.localize`) and freed."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return M.init_model(gen, cfg, device)
+    mesh = C.sharded_mesh()
+    if mesh is None:
+        return M.init_model(gen, cfg, device)
+    from repro_torch.sharding.specs import localize
+
+    return localize(M.init_model(gen, cfg, device), cfg, mesh)
 
 
 def param_template(cfg) -> Any:
@@ -106,11 +115,22 @@ def param_template(cfg) -> Any:
     return tree_map(lambda t: (tuple(t.shape), t.dtype), meta)
 
 
+def _template(cfg, mesh) -> Any:
+    """The template a rank packs its flat buffer from: the whole tree's, or
+    under a running sharded mesh the rank's blocks'."""
+    if mesh is None:
+        return param_template(cfg)
+    from repro_torch.sharding.specs import local_template
+
+    return local_template(cfg, mesh)
+
+
 def param_view(params, cfg) -> Any:
-    """Tree view of params that may be flat-native (accepts a TrainState)."""
+    """Tree view of params that may be flat-native (accepts a TrainState);
+    under a running sharded mesh a flat buffer is the rank's blocks."""
     params = getattr(params, "params", params)
     if isinstance(params, torch.Tensor) and params.dim() == 1:
-        return T.flat_view(params, param_template(cfg))
+        return T.flat_view(params, _template(cfg, C.sharded_mesh()))
     return params
 
 
@@ -140,13 +160,25 @@ def init_train_state(
 
     As the reference, f32 leaves are first stored in ``cfg.param_dtype``: a
     bf16 tree is then not flat-native and gets a bf16 ring
-    (:func:`ring_dtype_for`)."""
+    (:func:`ring_dtype_for`).
+
+    Under a running sharded mesh the state is the rank's: its blocks of the
+    params (a tree given whole is sliced; a packed buffer must already be
+    the rank's, as :func:`repro_torch.bridge.params_from_jax` with ``mesh``
+    packs it), a flat ``(N_local,)`` buffer packed from
+    :func:`~repro_torch.sharding.specs.local_template`, and its optimizer
+    state and ring over that buffer."""
+    mesh = C.sharded_mesh()
     if params is None:
         params = init_params(seed, cfg, device)
+    elif mesh is not None and not isinstance(params, torch.Tensor):
+        from repro_torch.sharding.specs import localize
+
+        params = localize(params, cfg, mesh)
     fused = _fused_form(opt) if fuse else None
     flat_given = isinstance(params, torch.Tensor)
     if flat_given and (fused is None or cfg.param_dtype != "float32"):
-        params = T.flat_view(params, param_template(cfg))
+        params = T.flat_view(params, _template(cfg, mesh))
         flat_given = False
     if cfg.param_dtype != "float32":
         pd = dtype_of(cfg.param_dtype)
@@ -217,6 +249,16 @@ def make_step(
     is the :class:`~repro_torch.launch.mesh.WorkersMesh`; the sharded mode
     takes W from ``state.adapt``.  A pipeline the fusion compiler cannot
     classify falls back to link-by-link execution with a warning.
+
+    Made under ``use_sharding_rules`` with a running sharded
+    :class:`~repro_torch.launch.mesh.Mesh` (sync and async modes), the step
+    is one rank's: it takes its rows of the global batch, its loss is the
+    token mean over the global batch
+    (:func:`repro_torch.models.model.cross_entropy`), its gradient the
+    rank's blocks, summed over ``data`` in one all-reduce before the ring
+    push, and the clip link's norm sums over ``model``.  Every rank draws
+    the same uniforms (the same seeded generator, or ``tau_source``), so
+    taus, tables and histograms agree everywhere.
     """
     assert mode in MODES, f"mode must be one of {MODES}, got {mode!r}"
     assert isinstance(pipeline, T.GradientTransform), "make_step needs a GradientTransform"
@@ -236,12 +278,20 @@ def make_step(
     alpha_c = _resolve_alpha_c(alpha_c, transform)
     if mode != "sync":
         _check_absorbable_order(transform)
-    template = param_template(cfg)
+    tp = C.sharded_mesh() if mode != "sharded_async" else None
+    template = _template(cfg, tp)
+    n_data = 1 if tp is None else C.data_size(tp)
+    if n_data > 1 and cfg.moe_weights_stationary:
+        raise NotImplementedError("data-parallel training of the weights-stationary MoE "
+                                  "(ROADMAP Queue 1, item 6)")
+    sq_norm = None if tp is None or C.model_mesh() is None else _sq_norm_for(cfg, tp)
 
     def apply_fn(grads, opt_state, params, ctx):
         return T.run_pipeline(transform, grads, opt_state, params, ctx)
 
     def loss_and_grads(params, batch):
+        if n_data > 1:
+            batch = C.local_rows(batch, tp)
         if isinstance(params, torch.Tensor):
             # flat-native: the model sees the leaf-wise view only inside the
             # loss; the gradient of the view is the packed gradient
@@ -254,6 +304,9 @@ def make_step(
             flat = tree_leaves(leaves)
             it = iter(torch.autograd.grad(loss, flat))
             grads = tree_map(lambda _: next(it), leaves)
+        if n_data > 1:
+            with torch.no_grad():
+                C.sum_grads_over_data(grads, tp)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def _flat_grads(grads):
@@ -263,7 +316,7 @@ def make_step(
 
         def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
             loss, metrics, grads = loss_and_grads(state.params, batch)
-            ctx = T.StepContext(adapt=state.adapt)
+            ctx = T.StepContext(adapt=state.adapt, sq_norm=sq_norm)
             with torch.no_grad():
                 new_params, new_opt = apply_fn(grads, state.opt_state, state.params, ctx)
             return dataclasses.replace(
@@ -351,7 +404,7 @@ def make_step(
             if keep is not None:
                 weights = weights * keep
             adapt = record_taus(state.adapt, taus)
-            ctx = T.StepContext(taus=taus, adapt=adapt, staleness_applied=True)
+            ctx = T.StepContext(taus=taus, adapt=adapt, staleness_applied=True, sq_norm=sq_norm)
             if fused_flat:
                 from repro_torch.optim.fuse import flat_tick_step
 
@@ -383,6 +436,20 @@ def make_step(
         }
 
     return train_step
+
+
+def _sq_norm_for(cfg, mesh):
+    """The clip link's squared norm over the rank's blocks (the leaves the
+    storage layout splits over ``model`` summed over it, the rest once)."""
+    from repro_torch.sharding.specs import leaf_paths, storage_spec_for
+
+    sizes, replicated = [], []
+    for path, leaf in leaf_paths(M.init_model(None, cfg, "meta")):
+        spec = storage_spec_for(path, tuple(leaf.shape), mesh, cfg)
+        n = mesh.shape["model"] if "model" in spec else 1
+        sizes.append(leaf.numel() // n)
+        replicated.append(n == 1)
+    return C.make_sq_norm(sizes, replicated, mesh)
 
 
 def make_train_step(cfg, opt) -> Callable:
@@ -436,11 +503,13 @@ def init_sharded_async_state(
 
 def make_serve_step(cfg) -> Callable:
     """One batched greedy decode step: (params, cache, token, pos) ->
-    {next_token, logits, cache}; the cache is updated in place."""
+    {next_token, logits, cache}; the cache is updated in place.  Logits
+    sharded over vocab (a running ``model`` axis) give every rank the id one
+    process picks (:func:`~repro_torch.sharding.collectives.greedy_argmax`)."""
 
     def serve_step(params, cache, token: torch.Tensor, pos):
         logits, new_cache = M.decode_step(params, cache, token, pos, cfg)
-        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_token = C.greedy_argmax(logits, C.vocab_mesh(cfg)).to(torch.int32)
         return {"next_token": next_token, "logits": logits, "cache": new_cache}
 
     return serve_step
