@@ -210,6 +210,32 @@ Phases, each fatal on failure:
    ring bitwise equal (SHA-256).  Prints ticks, prefill and decode times,
    peaks and bytes; a rank that fails, or a group past 300 s, fails the
    phase.
+15. tensor parallelism of the other families — 2 gloo ranks (data 1 x
+   model 2) sharing the card, each under ``use_sharding_rules`` with its
+   blocks, f32 activations, ``use_pallas=True``, each arch at full width
+   and cut in depth, against one process serving the same params (drawn
+   from seed 0; the ranks slice theirs) and prompts on the kernels' plain
+   versions (``use_pallas=False``: so each rank's kernels are held against
+   plain code at the shapes this path gives them), batch 4, 8 greedy
+   steps: falcon-mamba-7b at 8 of 64 layers, prompt 1024 (8
+   ``selective_scan`` launches, each rank on its 4096 of the 8192 inner
+   channels); recurrentgemma-9b at 6 of 38 layers, prompt 1024 (4 ``rg_lru``
+   launches on 2048 of the 4096 channels, 2 flash on 8 of the 16 heads);
+   whisper-large-v3 at 4 of 32 encoder and 4 of 32 decoder layers over 1500
+   frames (4 flash launches, non-causal on 10 of the 20 heads); internvl2-2b
+   at 4 of 24 layers, 256 prefix embeddings + prompt 512 (4 flash; its
+   vocab of 92,553 is odd, so its logits are whole on every rank).  Gates:
+   logits within 1e-4 + 1e-4 |one process| (the rank's vocab block), ids
+   equal, each rank's launches as listed and the one process's 0,
+   all-reduce bytes equal to ``port_collective_bytes``.  Then falcon-mamba-7b at full width,
+   depth 4 of 64: phase 3's run for 3 ticks (gates: 3 ``fused_tick``
+   launches a rank and no other adaptive_update kernel, losses, taus,
+   tables and histograms bitwise equal across ranks, state bytes equal to
+   ``plan_run``, all-reduce bytes to the plan), and at depth 2 in f32 the
+   loss (1e-5 relative) and the gathered gradient (1e-4 of max |g|) against
+   one process, bytes to the plan.  Prints prefill s, decode ms a step,
+   peaks and bytes; a rank that fails, or the group past 300 s, fails the
+   phase.
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
 ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
@@ -2193,6 +2219,99 @@ def digest(t) -> str:
     return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
 
 
+def seeded_serve(cfg, prompt, gen, device, mesh=None):
+    """Params from seed 0 (under the rules, the rank's blocks) and 4 prompts
+    of ``prompt`` tokens, then a warm serve (``launch/serve.py::serve``),
+    the kernels' launches and the all-reduce bytes counted from zero just
+    before it (after a barrier, with ``mesh``) and read just after; the
+    peak counts from before the params."""
+    import torch
+
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels.flash_attention import cuda as FA
+    from repro_torch.kernels.rg_lru import cuda as RG
+    from repro_torch.kernels.selective_scan import cuda as SS
+    from repro_torch.launch.serve import serve
+    from repro_torch.sharding import collectives as COL
+    from repro_torch.training import init_params
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        params = init_params(0, cfg, device)
+        free_cuda()
+        batch = make_batch_for(cfg, batch=4, seq=prompt, seed=0, device=device)
+        serve_warm_up(cfg, params, batch)
+        for k in (FA, RG, SS):
+            k.reset_launches()
+        COL.reset_collective_bytes()
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
+        res = serve(cfg, params, batch, gen=gen)
+        torch.cuda.synchronize()
+        del params, batch
+    launches = {"flash_attention": FA.LAUNCHES["flash_attention"], "rg_lru": RG.LAUNCHES["rg_lru"],
+                "selective_scan": SS.LAUNCHES["selective_scan"]}
+    out = dict(logits=res["logits"].cpu().numpy(), tokens=res["tokens"].cpu().numpy(),
+               prefill_s=res["prefill_s"], decode_ms_per_step=res["decode_s"] / gen * 1e3,
+               launches=launches, bytes=counted_bytes(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if res["prefill_logits"] is not None:  # whisper runs no decoder prefill
+        out["prefill"] = res["prefill_logits"].cpu().numpy()
+    del res
+    free_cuda()
+    return out
+
+
+def saved(got: dict) -> dict:
+    """A :func:`seeded_serve` result as a rank saves it (dicts as JSON)."""
+    return {k: json.dumps(v) if isinstance(v, dict) else v for k, v in got.items()}
+
+
+def train_rank(spec, tag, out, mesh, name, replay=True):
+    """``run(spec)`` on this rank under the rules, counts zeroed just before
+    (after a barrier) and read just after; its ticks, launches, all-reduce
+    bytes, tables, peak and state bytes go into ``out`` under ``tag``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.adaptive_update import cuda as C
+    from repro_torch.run import run
+    from repro_torch.sharding import collectives as COL
+    from repro_torch.sharding import use_sharding_rules
+
+    hook = TickLog(name, replay=replay)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_launches()
+    COL.reset_collective_bytes()
+    dist.barrier()
+    with use_sharding_rules(mesh):
+        result = run(spec, hooks=[hook])
+    torch.cuda.synchronize()
+    state = result.state
+    steady = [r["ms"] for r in hook.rows[1:]]
+    out.update({
+        f"{tag}_launches": json.dumps(dict(C.LAUNCHES)),
+        f"{tag}_bytes": json.dumps(counted_bytes()),
+        f"{tag}_losses": np.array([r["loss"] for r in hook.rows]),
+        f"{tag}_tables": torch.stack([r["table"] for r in hook.rows]).cpu().numpy(),
+        f"{tag}_cdfs": torch.stack([r["cdf"] for r in hook.rows]).cpu().numpy(),
+        f"{tag}_hists": torch.stack([r["hist"] for r in hook.rows]).cpu().numpy(),
+        f"{tag}_median_ms": sorted(steady)[len(steady) // 2] if steady else hook.rows[0]["ms"],
+        f"{tag}_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        f"{tag}_state_bytes": state_bytes(state),
+        f"{tag}_n_local": state.params.numel(),
+        f"{tag}_table_in_place": state.adapt.alpha_table.data_ptr() == hook.table_ptr,
+    })
+    if replay:
+        out[f"{tag}_taus"] = np.array([r["taus"] for r in hook.rows])
+    return state
+
+
 def tp_rank(rank, world, data, model, what, store, out_dir):
     """One rank of phase 14 (a spawned process): gloo over the one card.
     ``what`` is ``"tp"`` (data 1 x model 2: the full-width training, the
@@ -2208,11 +2327,7 @@ def tp_rank(rank, world, data, model, what, store, out_dir):
     import repro_torch  # noqa: F401  (sets TF32 off)
     from repro_torch.bridge import gather_params
     from repro_torch.configs import get_config
-    from repro_torch.kernels.adaptive_update import cuda as C
-    from repro_torch.kernels.flash_attention import cuda as FA
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.run import run
-    from repro_torch.sharding import collectives as COL
     from repro_torch.sharding import use_sharding_rules
 
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
@@ -2222,38 +2337,9 @@ def tp_rank(rank, world, data, model, what, store, out_dir):
     full = get_config("stablelm-1.6b")
     out = {"data": mesh.index("data"), "model": mesh.index("model")}
 
-    def train(cfg, spec, tag, replay=True):
-        hook = TickLog(f"tp {tag} rank {rank}", replay=replay)
-        free_cuda()
-        torch.cuda.reset_peak_memory_stats()
-        C.reset_launches()
-        COL.reset_collective_bytes()
-        dist.barrier()
-        with use_sharding_rules(mesh):
-            result = run(spec, hooks=[hook])
-        torch.cuda.synchronize()
-        state = result.state
-        steady = [r["ms"] for r in hook.rows[1:]]
-        out.update({
-            f"{tag}_launches": json.dumps(dict(C.LAUNCHES)),
-            f"{tag}_bytes": json.dumps(counted_bytes()),
-            f"{tag}_losses": np.array([r["loss"] for r in hook.rows]),
-            f"{tag}_tables": torch.stack([r["table"] for r in hook.rows]).cpu().numpy(),
-            f"{tag}_cdfs": torch.stack([r["cdf"] for r in hook.rows]).cpu().numpy(),
-            f"{tag}_hists": torch.stack([r["hist"] for r in hook.rows]).cpu().numpy(),
-            f"{tag}_median_ms": sorted(steady)[len(steady) // 2] if steady else hook.rows[0]["ms"],
-            f"{tag}_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            f"{tag}_state_bytes": state_bytes(state),
-            f"{tag}_n_local": state.params.numel(),
-            f"{tag}_table_in_place": state.adapt.alpha_table.data_ptr() == hook.table_ptr,
-        })
-        if replay:
-            out[f"{tag}_taus"] = np.array([r["taus"] for r in hook.rows])
-        return state
-
     if what == "tp":
         # full width and depth, phase 3's configuration
-        state = train(full, tp_train_spec(full), "train")
+        state = train_rank(tp_train_spec(full), "train", out, mesh, f"tp train rank {rank}")
         del state
         # depth 2, f32: loss, gradient and 3 ticks against one process
         cfg = tp_agree_config(full)
@@ -2266,41 +2352,22 @@ def tp_rank(rank, world, data, model, what, store, out_dir):
             np.save(f"{out_dir}/tp_grad.npy", g_all.cpu().numpy())
         del g, g_all
         draws = np.load(f"{out_dir}/tp_draws.npy")
-        state = train(cfg, tp_agree_spec(cfg, draws), "agree", replay=False)
+        state = train_rank(tp_agree_spec(cfg, draws), "agree", out, mesh, f"tp agree rank {rank}",
+                           replay=False)
         with use_sharding_rules(mesh):
             p_all = gather_params(state.params, cfg, mesh)
         if rank == 0:
             np.save(f"{out_dir}/tp_params.npy", p_all.cpu().numpy())
         del state, p_all
         # serving at full width and depth, f32, on the flash kernel
-        from repro_torch.data import make_batch_for
-        from repro_torch.training import init_params
-
-        cfg = tp_serve_config(full)
-        free_cuda()
-        torch.cuda.reset_peak_memory_stats()
-        with torch.no_grad(), use_sharding_rules(mesh):
-            params = init_params(0, cfg, mesh.device)
-            free_cuda()
-            batch = make_batch_for(cfg, batch=4, seq=EP_PROMPT, seed=0, device=mesh.device)
-            serve_warm_up(cfg, params, batch)
-            FA.reset_launches()
-            COL.reset_collective_bytes()
-            dist.barrier()
-            from repro_torch.launch.serve import serve
-
-            res = serve(cfg, params, batch, gen=TP_GEN)
-        torch.cuda.synchronize()
-        out.update(serve_prefill=res["prefill_logits"].cpu().numpy(),
-                   serve_logits=res["logits"].cpu().numpy(),
-                   serve_tokens=res["tokens"].cpu().numpy(), serve_prefill_s=res["prefill_s"],
-                   serve_decode_s=res["decode_s"], serve_flash=FA.LAUNCHES["flash_attention"],
-                   serve_bytes=json.dumps(counted_bytes()),
-                   serve_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-        del params, res
+        with use_sharding_rules(mesh):
+            got = seeded_serve(tp_serve_config(full), EP_PROMPT, TP_GEN, mesh.device, mesh)
+        out.update({f"serve_{k}": v for k, v in saved(got).items()})
+        del got
     else:
         cfg = dataclasses.replace(full, num_layers=TP_DXM_LAYERS)
-        state = train(cfg, tp_train_spec(cfg, num_steps=TP_DXM_TICKS), "dxm", replay=False)
+        state = train_rank(tp_train_spec(cfg, num_steps=TP_DXM_TICKS), "dxm", out, mesh,
+                           f"tp dxm rank {rank}", replay=False)
         out["dxm_digests"] = json.dumps([digest(state.params), digest(state.opt_state["bufs"]),
                                          digest(state.delayed.ring)])
         del state
@@ -2316,14 +2383,10 @@ def tensor_parallel(root, full, main_summary):
     import shutil
 
     import numpy as np
-    import torch
 
-    from repro_torch.data import make_batch_for
-    from repro_torch.kernels.flash_attention import cuda as FA
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.run import run
-    from repro_torch.training import init_params
 
     t_phase = time.perf_counter()
     out_dir = root / "build" / "tensor_parallel"
@@ -2341,20 +2404,8 @@ def tensor_parallel(root, full, main_summary):
     one_params = run(tp_agree_spec(acfg, draws)).state.params.cpu().numpy()
     free_cuda()
     scfg = tp_serve_config(full)
-    params = init_params(0, scfg, "cuda")
-    batch = make_batch_for(scfg, batch=4, seq=EP_PROMPT, seed=0, device="cuda")
-    with torch.no_grad():
-        serve_warm_up(scfg, params, batch)
-        FA.reset_launches()
-        from repro_torch.launch.serve import serve
-
-        ref = serve(scfg, params, batch, gen=TP_GEN)
-    one_serve = dict(prefill=ref["prefill_logits"].cpu().numpy(),
-                     logits=ref["logits"].cpu().numpy(), tokens=ref["tokens"].cpu().numpy(),
-                     prefill_s=ref["prefill_s"], decode_ms_per_step=ref["decode_s"] / TP_GEN * 1e3,
-                     flash=FA.LAUNCHES["flash_attention"])
-    del params, batch, ref
-    free_cuda()
+    one_serve = seeded_serve(scfg, EP_PROMPT, TP_GEN, "cuda")
+    one_flash = one_serve["launches"]["flash_attention"]
     t_one = time.perf_counter() - t_phase
 
     # the plans: per-rank state bytes and all-reduce bytes
@@ -2432,23 +2483,25 @@ def tensor_parallel(root, full, main_summary):
                 d_dec = max(d_dec, err)
         check(np.array_equal(r["serve_tokens"], one_serve["tokens"]),
               "tp serve: greedy ids differ from one process")
-        check(int(r["serve_flash"]) == full.num_layers,
-              f"tp serve: {int(r['serve_flash'])} flash launches, expected {full.num_layers}")
+        flash = json.loads(str(r["serve_launches"]))["flash_attention"]
+        check(flash == full.num_layers,
+              f"tp serve: {flash} flash launches, expected {full.num_layers}")
         check(bytes_by_key(r["serve_bytes"]) == plan_serve,
               f"tp serve: all-reduce bytes {bytes_by_key(r['serve_bytes'])} != {plan_serve}")
     rows["serve"] = dict(
         layout="data 1 x model 2", batch=4, prompt=EP_PROMPT, gen=TP_GEN,
-        one_process={k: one_serve[k] for k in ("prefill_s", "decode_ms_per_step", "flash")},
+        one_process=dict(prefill_s=one_serve["prefill_s"],
+                         decode_ms_per_step=one_serve["decode_ms_per_step"], flash=one_flash),
         prefill_s=[float(r["serve_prefill_s"]) for r in ranks],
-        decode_ms_per_step=[float(r["serve_decode_s"]) / TP_GEN * 1e3 for r in ranks],
+        decode_ms_per_step=[float(r["serve_decode_ms_per_step"]) for r in ranks],
         peak_gb=[float(r["serve_peak_gb"]) for r in ranks],
-        flash=[int(r["serve_flash"]) for r in ranks],
+        flash=[json.loads(str(r["serve_launches"]))["flash_attention"] for r in ranks],
         all_reduce_bytes=bytes_by_key(ranks[0]["serve_bytes"]),
         logits_err_over_bound=max(d_pre, d_dec))
     log(f"[tp] serve {json.dumps(rows['serve'])}")
     check(max(d_pre, d_dec) <= 1.0, f"tp serve: logits miss 1e-4 + 1e-4|ref| "
           f"({max(d_pre, d_dec):.3f} of the bound)")
-    check(one_serve["flash"] == full.num_layers, f"one-process serve: {one_serve['flash']} flash")
+    check(one_flash == full.num_layers, f"one-process serve: {one_flash} flash")
 
     # -- data 2 x model 2, depth 6 --------------------------------------------
     wall_dxm = run_ranks(4, 2, 2, "dxm", out_dir, target=tp_rank, timeout_s=TP_TIMEOUT_S)
@@ -2479,6 +2532,211 @@ def tensor_parallel(root, full, main_summary):
     shutil.rmtree(out_dir, ignore_errors=True)
     rows["phase_s"] = time.perf_counter() - t_phase
     log(f"[tp] phase 14 took {rows['phase_s']:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: tensor parallelism of the other families on the card
+# ---------------------------------------------------------------------------
+
+OF_TIMEOUT_S = 300  # a rank, or a collective, that takes longer fails the phase
+OF_SERVES = {  # arch: depth (whisper: encoder and decoder each), prompt, launches a serve
+    "falcon-mamba-7b": (8, 1024, {"flash_attention": 0, "rg_lru": 0, "selective_scan": 8}),
+    "recurrentgemma-9b": (6, 1024, {"flash_attention": 2, "rg_lru": 4, "selective_scan": 0}),
+    "whisper-large-v3": (4, 32, {"flash_attention": 4, "rg_lru": 0, "selective_scan": 0}),
+    "internvl2-2b": (4, 512, {"flash_attention": 4, "rg_lru": 0, "selective_scan": 0}),
+}
+OF_GEN, OF_TRAIN_LAYERS, OF_TRAIN_TICKS, OF_AGREE_LAYERS = 8, 4, 3, 2
+
+
+def of_serve_config(arch, use_pallas=True):
+    """``arch`` at full width cut to its ``OF_SERVES`` depth, f32
+    activations (the one-process and the sharded serve sum in other orders,
+    which bf16 would round apart), on the kernels or, with ``use_pallas``
+    off, on their plain versions."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    layers = OF_SERVES[arch][0]
+    upd = {"num_encoder_layers": layers} if cfg.is_encoder_decoder else {}
+    return dataclasses.replace(cfg, num_layers=layers, activation_dtype="float32",
+                               use_pallas=use_pallas, **upd)
+
+
+def of_train_config():
+    """Full-width falcon-mamba-7b at depth 4, phase 3's dtypes (bf16
+    activations, remat; the scan's plain loop, which carries a gradient)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("falcon-mamba-7b"), num_layers=OF_TRAIN_LAYERS)
+
+
+def of_rank(rank, world, data, model, what, store, out_dir):
+    """One rank of phase 15 (a spawned process): gloo over the one card.
+    The four serves, then falcon-mamba-7b's training at depth 4 and its
+    depth-2 gradient."""
+    import datetime
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.bridge import gather_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import collectives as COL
+    from repro_torch.sharding import use_sharding_rules
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=OF_TIMEOUT_S))
+    mesh = make_mesh((data, model), ("data", "model"), device="cuda")
+    torch.cuda.set_device(mesh.device)
+    out = {"data": mesh.index("data"), "model": mesh.index("model")}
+    for arch, (_, prompt, _) in OF_SERVES.items():
+        with use_sharding_rules(mesh):
+            got = seeded_serve(of_serve_config(arch), prompt, OF_GEN, mesh.device, mesh)
+        out.update({f"{arch}_{k}": v for k, v in saved(got).items()})
+    # full width, depth 4: phase 3's run for 3 ticks
+    tcfg = of_train_config()
+    spec = dataclasses.replace(main_spec(tcfg), num_steps=OF_TRAIN_TICKS, refresh_every=2)
+    state = train_rank(spec, "train", out, mesh, f"families train rank {rank}")
+    del state
+    # depth 2, f32: loss and gradient against one process
+    acfg = tp_agree_config(dataclasses.replace(tcfg, num_layers=OF_AGREE_LAYERS))
+    free_cuda()
+    COL.reset_collective_bytes()
+    with use_sharding_rules(mesh):
+        loss, g = tp_gradient(acfg, "cuda", mesh)
+        g_all = gather_params(g, acfg, mesh)
+    out["agree_loss"] = loss.item()
+    out["agree_bytes"] = json.dumps(counted_bytes())
+    if rank == 0:
+        np.save(f"{out_dir}/families_grad.npy", g_all.cpu().numpy())
+    del g, g_all
+    np.savez(f"{out_dir}/{what}_{rank}.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def other_families(root):
+    """Phase 15 (module docstring): the Mamba, RG-LRU, whisper and
+    vision-prefix archs served by 2 ranks against one process, and
+    falcon-mamba-7b trained by 2 ranks."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    out_dir = root / "build" / "tp_families"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    free_cuda()
+
+    # one process: the same params and prompts on the kernels' plain
+    # versions (so the ranks' kernels are held against plain code at the
+    # shapes this path gives them), and the depth-2 gradient
+    one = {arch: seeded_serve(of_serve_config(arch, use_pallas=False), prompt, OF_GEN, "cuda")
+           for arch, (_, prompt, _) in OF_SERVES.items()}
+    tcfg = of_train_config()
+    acfg = tp_agree_config(dataclasses.replace(tcfg, num_layers=OF_AGREE_LAYERS))
+    loss1, g1 = tp_gradient(acfg, "cuda")
+    one_loss, one_grad = loss1.item(), g1.cpu().numpy()
+    del loss1, g1
+    free_cuda()
+    t_one = time.perf_counter() - t_phase
+
+    # the plans: per-rank state bytes and all-reduce bytes
+    spec = dataclasses.replace(main_spec(tcfg, device="cpu"), num_steps=OF_TRAIN_TICKS,
+                               refresh_every=2)
+    planned_state = D.plan_run(spec, mesh=make_mesh((1, 2), ("data", "model"), device="meta"))
+    plan_train = train_plan(tcfg, 4, 512, OF_TRAIN_TICKS, (1, 2))
+    plan_agree = train_plan(acfg, 4, 512, 1, (1, 2))
+    plan_serve = {arch: serve_plan(of_serve_config(arch), 4, OF_SERVES[arch][1], OF_GEN, (1, 2))
+                  for arch in OF_SERVES}
+
+    wall = run_ranks(2, 1, 2, "families", out_dir, target=of_rank, timeout_s=OF_TIMEOUT_S)
+    ranks = [dict(np.load(out_dir / f"families_{r}.npz")) for r in range(2)]
+    rows = {"one_process_s": t_one, "wall_s": wall}
+
+    # -- the four serves ----------------------------------------------------------
+    for arch, (_, _, expect) in OF_SERVES.items():
+        want = one[arch]
+        check(not any(want["launches"].values()), f"families {arch}: the plain one-process "
+              f"serve launched {want['launches']}")
+        err = 0.0
+        for r in ranks:
+            got_launches = json.loads(str(r[f"{arch}_launches"]))
+            check(got_launches == expect, f"families {arch}: rank launched {got_launches}, "
+                  f"expected {expect}")
+            check(json.loads(str(r[f"{arch}_bytes"])) == plan_serve[arch],
+                  f"families {arch}: all-reduce bytes {str(r[f'{arch}_bytes'])} != the plan "
+                  f"{plan_serve[arch]}")
+            check(np.array_equal(r[f"{arch}_tokens"], want["tokens"]),
+                  f"families {arch}: greedy ids differ from one process")
+            for key in ("prefill", "logits"):
+                if key not in want:
+                    continue
+                got, ref = r[f"{arch}_{key}"], want[key]
+                if got.shape[-1] != ref.shape[-1]:  # the rank's vocab block
+                    v = got.shape[-1]
+                    ref = ref[..., int(r["model"]) * v:(int(r["model"]) + 1) * v]
+                err = max(err, float(np.max(np.abs(got - ref) / (1e-4 + 1e-4 * np.abs(ref)))))
+        rows[arch] = dict(
+            layers=OF_SERVES[arch][0], batch=4, prompt=OF_SERVES[arch][1], gen=OF_GEN,
+            one_process_plain={k: want[k] for k in ("prefill_s", "decode_ms_per_step",
+                                                     "peak_gb")},
+            prefill_s=[float(r[f"{arch}_prefill_s"]) for r in ranks],
+            decode_ms_per_step=[float(r[f"{arch}_decode_ms_per_step"]) for r in ranks],
+            peak_gb=[float(r[f"{arch}_peak_gb"]) for r in ranks],
+            launches=[json.loads(str(r[f"{arch}_launches"])) for r in ranks],
+            vocab_split=ranks[0][f"{arch}_logits"].shape[-1] != want["logits"].shape[-1],
+            all_reduce_bytes=json.loads(str(ranks[0][f"{arch}_bytes"])),
+            logits_err_over_bound=err)
+        log(f"[families] serve {arch} {json.dumps(rows[arch])}")
+        check(err <= 1.0, f"families {arch}: logits miss 1e-4 + 1e-4|ref| ({err:.3f} of the bound)")
+
+    # -- training, full width at depth 4 ---------------------------------------------
+    for r in ranks:
+        launches = json.loads(str(r["train_launches"]))
+        check(launches["fused_tick"] == OF_TRAIN_TICKS and launches["fused_chain"] ==
+              launches["fused_combine"] == launches["fused_update"] == 0,
+              f"families training: launches {launches}, expected {OF_TRAIN_TICKS} fused_tick")
+        check(bool(np.isfinite(r["train_losses"]).all()), "families training: a non-finite loss")
+        check(int(r["train_state_bytes"]) == planned_state["memory"]["argument_bytes"],
+              f"families training: state bytes {int(r['train_state_bytes'])} != the plan's "
+              f"{planned_state['memory']['argument_bytes']}")
+        check(json.loads(str(r["train_bytes"])) == plan_train,
+              f"families training: all-reduce bytes {str(r['train_bytes'])} != {plan_train}")
+    for k in ("train_losses", "train_taus", "train_tables", "train_hists"):
+        check(np.array_equal(ranks[0][k], ranks[1][k]), f"families training: ranks disagree on {k}")
+    rows["train"] = dict(
+        arch="falcon-mamba-7b", layers=OF_TRAIN_LAYERS, layout="data 1 x model 2",
+        ticks=OF_TRAIN_TICKS, median_tick_ms=[float(r["train_median_ms"]) for r in ranks],
+        peak_gb=[float(r["train_peak_gb"]) for r in ranks],
+        state_bytes=int(ranks[0]["train_state_bytes"]), n_local=int(ranks[0]["train_n_local"]),
+        fused_tick=[json.loads(str(r["train_launches"]))["fused_tick"] for r in ranks],
+        losses=ranks[0]["train_losses"].tolist(), taus=ranks[0]["train_taus"].tolist(),
+        all_reduce_bytes=json.loads(str(ranks[0]["train_bytes"])))
+    log(f"[families] training {json.dumps(rows['train'])}")
+
+    # -- agreement at depth 2 in f32 -------------------------------------------------
+    got_grad = np.load(out_dir / "families_grad.npy")
+    d_loss = max(abs(float(r["agree_loss"]) - one_loss) / abs(one_loss) for r in ranks)
+    d_grad = float(np.abs(got_grad - one_grad).max() / np.abs(one_grad).max())
+    for r in ranks:
+        check(json.loads(str(r["agree_bytes"])) == plan_agree,
+              f"families agreement: all-reduce bytes {str(r['agree_bytes'])} != {plan_agree}")
+    rows["agree"] = dict(layers=OF_AGREE_LAYERS, loss_rel=d_loss, grad_over_max=d_grad)
+    log(f"[families] agreement {json.dumps(rows['agree'])}")
+    check(d_loss <= 1e-5, f"families agreement: loss {d_loss:.3e} relative past 1e-5")
+    check(d_grad <= 1e-4, f"families agreement: gradient {d_grad:.3e} of max |g| past 1e-4")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"[families] phase 15 took {rows['phase_s']:.1f} s")
     return rows
 
 
@@ -2672,6 +2930,10 @@ def main() -> int:
     tp = tensor_parallel(root, full, summary)
     free_cuda()
 
+    # -- phase 15: tensor parallelism of the other families ------------------------
+    families = other_families(root)
+    free_cuda()
+
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
         "fused_chain": ("sharded_async (phase 9)", sharded_counts["fused_chain"]),
@@ -2711,13 +2973,26 @@ def main() -> int:
         ep["serve"]["two_ranks"]["flash"][0]
     flash_paths["tensor-parallel serve, stablelm-1.6b, data 1 x model 2 (each of 2 ranks)"] = \
         tp["serve"]["flash"][0]
+    by_path = {name: {} for name in ("flash_attention", "rg_lru", "selective_scan")}
+    for arch in OF_SERVES:
+        where = (f"tensor-parallel serve, {arch} at {OF_SERVES[arch][0]} layers, data 1 x model 2 "
+                 "(each of 2 ranks)")
+        for name, count in families[arch]["launches"][0].items():
+            if count:
+                by_path[name][where] = count
+    flash_paths.update(by_path["flash_attention"])
     kernels[[k["name"] for k in kernels].index("flash_attention")]["launches_by_path"] = \
         flash_paths
+    for name in ("rg_lru", "selective_scan"):
+        kernels[[k["name"] for k in kernels].index(name)]["launches_by_path"] = {
+            launches[name][0]: launches[name][1], **by_path[name]}
     kernels[[k["name"] for k in kernels].index("fused_tick")]["launches_by_path"] = {
         "main (phase 3)": main_counts["fused_tick"],
         "tensor-parallel training, data 1 x model 2 (each of 2 ranks)": tp["train"]["fused_tick"][0],
         "tensor-parallel training, data 2 x model 2, 6 layers (each of 4 ranks)":
-            tp["data_x_model"]["fused_tick"][0]}
+            tp["data_x_model"]["fused_tick"][0],
+        f"tensor-parallel training, falcon-mamba-7b at {OF_TRAIN_LAYERS} layers, data 1 x model 2 "
+        "(each of 2 ranks)": families["train"]["fused_tick"][0]}
     kernels[[k["name"] for k in kernels].index("fused_chain")]["launches_by_path"] = {
         "sharded_async": sharded_counts["fused_chain"],
         "sync_fuse": path_counts["sync_fuse"]["fused_chain"],
@@ -2726,7 +3001,8 @@ def main() -> int:
     log(json.dumps({"variants": results, "main": summary, "serving": serving,
                     "agreement": agreement, "resume": resume,
                     "exact": exact, "sharded": sharded, "cnn": cnn, "live": live,
-                    "plan": plan, "expert_parallel": ep, "tensor_parallel": tp},
+                    "plan": plan, "expert_parallel": ep, "tensor_parallel": tp,
+                    "tensor_parallel_families": families},
                    default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -82,7 +82,8 @@ def params_from_jax(np_tree: dict, cfg, device="cpu", mesh=None) -> tuple[torch.
             raise ValueError(f"{keystr(path)}: shape {a.shape} != template {shape}")
         t = to_torch(a).to(dtype)
         if mesh is not None:
-            t = local_shard(t, storage_spec_for("/".join(path), tuple(shape), mesh, cfg), mesh)
+            name = "/".join(path)
+            t = local_shard(t, storage_spec_for(name, tuple(shape), mesh, cfg), mesh, name)
         parts.append(t.reshape(-1))
     if mesh is not None:
         template = local_template(cfg, mesh)
@@ -96,30 +97,27 @@ def gather_params(local_flat: torch.Tensor, cfg, mesh) -> torch.Tensor:
     owns its block at coordinate 0 of every axis the leaf is replicated
     over, and one all-reduce over the whole layout sums the buffer, so
     every element is its owner's value exactly (gloo reduces CUDA tensors
-    but does not gather them)."""
+    but does not gather them).  An SSM's ``in_proj`` block ``[u_r | z_r]``
+    goes back to its columns of u and of z
+    (:func:`~repro_torch.sharding.specs.block_view`)."""
     import math
 
     import torch.distributed as dist
 
-    from repro_torch.sharding.specs import _axes_of, local_shape, storage_spec_for
+    from repro_torch.sharding.specs import _axes_of, block_view, local_shape, storage_spec_for
 
     whole = param_template(cfg)
     out = torch.zeros((sum(math.prod(s) for _, (s, _) in tree_paths(whole)),),
                       dtype=local_flat.dtype, device=local_flat.device)
     src = dst = 0
     for path, (shape, _) in tree_paths(whole):
-        spec = storage_spec_for("/".join(path), tuple(shape), mesh, cfg)
+        name = "/".join(path)
+        spec = storage_spec_for(name, tuple(shape), mesh, cfg)
         n_local = math.prod(local_shape(tuple(shape), spec, mesh))
         used = {a for e in spec for a in _axes_of(e)}
         if all(mesh.coords.get(a, 0) == 0 for a in mesh.axis_names if a not in used):
-            block = local_flat[src:src + n_local].view(local_shape(tuple(shape), spec, mesh))
-            view = out[dst:dst + math.prod(shape)].view(shape)
-            for dim, e in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
-                axes = _axes_of(e)
-                if axes:
-                    size = shape[dim] // mesh.size(axes)
-                    view = view.narrow(dim, mesh.index(axes) * size, size)
-            view.copy_(block)
+            view = block_view(out[dst:dst + math.prod(shape)].view(shape), spec, mesh, name)
+            view.copy_(local_flat[src:src + n_local].view(view.shape))
         src += n_local
         dst += math.prod(shape)
     dist.all_reduce(out, group=mesh.group(mesh.axis_names))

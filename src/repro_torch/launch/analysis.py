@@ -153,32 +153,52 @@ def collective_bytes(cfg, kind: str, batch: int, seq: int, mesh) -> dict[str, fl
 def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
                           cache_dtype=None) -> dict:
     """The all-reduces ONE rank of the port runs per step under the layout
-    ``mesh``, for an arch every layer of which the port shards
-    (:func:`repro_torch.sharding.specs.tensor_parallel_unsupported` is None).
+    ``mesh`` (every arch but a ``sequence_parallel`` / ``shard_grads`` one:
+    :func:`repro_torch.sharding.specs.tensor_parallel_unsupported`).
 
     ``counted`` holds, by purpose, the bytes handed to all-reduce, exactly
     what :data:`repro_torch.sharding.collectives.COLLECTIVE_BYTES` counts in
     a run of that step (the tests and ``chip_smoke.py`` hold one to the
-    other).  With L layers, T = B_loc S tokens (S = 1 when decoding) and
-    activations of ``a`` bytes, under ``model`` > 1:
+    other).  ``kind`` is ``train`` (a gradient), ``prefill`` or ``decode``
+    (one step), as ``launch/serve.py`` runs them: for whisper its prefill is
+    the encoder and the cross K/V (no decoder pass, no greedy pick).  A layer
+    runs sharded where the storage layout splits it (``model`` divides its
+    heads, d_ff, inner width or vocab), whole otherwise, and then adds
+    nothing.  With T = B_loc S tokens through the stack (S = 1 when
+    decoding; a vlm adds its P prefix rows), activations of ``a`` bytes
+    (in a decode step the dtype the residual stream has then: jnp's
+    promotion with the cache's lifts it after the first attention layer),
+    under ``model`` > 1:
 
-    * ``embed``: the vocab-parallel lookup, T D a;
-    * ``attn`` / ``mlp``: each layer's row-parallel output, T D a (the MLP's,
-      or the MoE's shared expert's); a decode step's attention output in
-      the promotion of the cache's and the activations' dtype (the f32
-      cache of the launcher); training with ``cfg.remat`` counts them again
-      for the recomputed forward;
+    * ``embed``: the vocab-parallel lookup of the tokens, B_loc S D a;
+    * ``attn`` / ``mlp``: each attention layer's and each MLP's row-parallel
+      output, T D a (the MoE's shared expert's too; whisper's encoder over
+      its frames, its decoder's self- and cross-attention each); a decode
+      step's attention output in the promotion of the cache's and the
+      activations' dtype (the f32 cache of the launcher);
+    * ``ssm_proj`` / ``ssm_out``: each Mamba layer's (dt, B, C) partial
+      sums, T (dt_rank + 2N) a, and its output, T D a;
+    * ``lru_gather`` / ``lru_out``: each RG-LRU layer's conv output
+      gathered over ``model``, T W a, and its output, T D a (a decode
+      step's conv output in the promotion of the cache's dtype);
+    * training with ``cfg.remat`` counts the stack's (whisper: the
+      decoder's) forward all-reduces again for the recomputed forward;
     * ``combine`` / ``aux`` / ``gather``: the MoE's expert combine (T D a),
       its load-balance loss (4) and, weights-stationary, the token gather
       (n_data T D a, and the combine over every rank of the same size);
-    * ``logits`` (training): the vocab-parallel cross-entropy's max, sum of
-      exponentials and target logit, 3 T 4;
-    * ``argmax`` (prefill and decode): the greedy pick, B_loc (4 + 8);
-    * ``backward`` (training): each layer's two column-parallel inputs
-      (attention and MLP: 2 T D a), the unembedding's (T D a), the
-      MoE's router (D E 4) and tokens (T D a) and aux's data sum (4), and
-      the replicated ``wk`` / ``wv`` of layers whose kv heads do not split
-      over ``model`` (their gradient);
+    * ``logits`` (training, vocab split): the vocab-parallel
+      cross-entropy's max, sum of exponentials and target logit, 3 B_loc S 4;
+    * ``argmax`` (prefill and decode, vocab split): the greedy pick,
+      B_loc (4 + 8);
+    * ``backward`` (training): every column-parallel input's cotangent
+      (each attention's and MLP's, T D a; the Mamba layer's ``in_proj``
+      input and its normed (dt, B, C), T (D + dt_rank + 2N) a; the
+      RG-LRU's ``in_x`` / ``in_gate`` input, T D a, and its gather's, T W
+      a; whisper's decoder its self- and cross-attention queries and, once,
+      the encoder's output; the unembedding's, B_loc S D a), the MoE's
+      router (D E 4) and tokens (T D a) and aux's data sum (4), and the
+      replicated ``wk`` / ``wv`` of layers whose kv heads do not split over
+      ``model`` (their gradient);
 
     and with data > 1 (training) ``loss`` (the token count and the loss, 2 x
     4), with one model rank the MoE's ``aux`` (its mean over ``data``, 4), and
@@ -200,56 +220,114 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
     n_data = math.prod(sizes[a] for a in batch_axes) if batch_axes else 1
     n_model = sizes.get("model", 1)
     world = n_data * n_model
-    train = kind == "train"
+    train, decode = kind == "train", kind == "decode"
     if batch % n_data and train:
         raise ValueError(f"batch {batch} does not split over {n_data} data ranks")
-    a = dtype_of(cfg.activation_dtype).itemsize
+    act_dt = dtype_of(cfg.activation_dtype)
+    a = act_dt.itemsize
+    cd = torch.float32 if cache_dtype is None else cache_dtype
     # a serving batch whose rows do not split stays whole on every data rank
     b_loc = batch // n_data if batch % n_data == 0 else batch
-    tok = b_loc * (1 if kind == "decode" else seq)
-    act = tok * cfg.d_model * a
-    layers = cfg.num_layers
+    D = cfg.d_model
+    s_dec = 1 if decode else seq
     fwd = 1 + (1 if train and cfg.remat else 0)
     c = {k: 0 for k in ("embed", "attn", "mlp", "combine", "gather", "aux", "logits", "argmax",
-                        "loss", "grad", "backward")}
+                        "ssm_proj", "ssm_out", "lru_gather", "lru_out", "loss", "grad",
+                        "backward")}
     sent = 0.0
+    stationary = False
     if n_model > 1:
-        attn_a = a
-        if kind == "decode":
-            cd = torch.float32 if cache_dtype is None else cache_dtype
-            attn_a = torch.promote_types(cd, dtype_of(cfg.activation_dtype)).itemsize
-        c["embed"] = act
-        c["attn"] = fwd * layers * tok * cfg.d_model * attn_a
-        mlp_layers = layers if (not cfg.num_experts or cfg.shared_expert_ff) else 0
-        c["mlp"] = fwd * mlp_layers * act
-        stationary = False
+        def splits(n: int) -> bool:
+            return n % n_model == 0
+
+        heads, vocab = splits(cfg.num_heads), splits(cfg.vocab_size)
+        mlp = splits(cfg.shared_expert_ff) if cfg.num_experts else splits(cfg.d_ff)
         if cfg.num_experts:
             stationary = bool(cfg.moe_weights_stationary and batch_axes
                               and cfg.d_ff_expert % n_data == 0)
-            c["combine"] = fwd * layers * (n_data * act if stationary else act)
-            c["gather"] = fwd * layers * n_data * act if stationary else 0
-            c["aux"] = fwd * layers * 4
-        if train:
-            c["logits"] = 3 * tok * 4
-            back = layers * (2 if mlp_layers else 1) * act + act
-            if cfg.num_experts:
-                tokens = n_data * act if stationary else act
-                back += layers * (cfg.d_model * cfg.experts_padded * 4 + tokens
-                                  + (2 * tokens if stationary else 0)
-                                  + (4 if batch_axes else 0))
-            if cfg.num_kv_heads % n_model:
-                kv = 2 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim
-                back += layers * kv * dtype_of(cfg.param_dtype).itemsize
-            c["backward"] = back
+        xd = act_dt  # the residual stream's dtype, as a decode step promotes it
+        back = 0
+
+        def attn_layer(tok, repeat):
+            """An attention layer's output; its dtype under a decode step's
+            promotion with the cache's."""
+            od = torch.promote_types(cd, xd) if decode else xd
+            if heads:
+                c["attn"] += repeat * tok * D * od.itemsize
+            return od
+
+        if cfg.is_encoder_decoder:
+            t_enc = 0 if decode else b_loc * cfg.encoder_positions
+            tok = 0 if kind == "prefill" else b_loc * s_dec
+            c["attn"] += cfg.num_encoder_layers * t_enc * D * a * heads
+            c["mlp"] += cfg.num_encoder_layers * t_enc * D * a * mlp
+            for _ in range(cfg.num_layers):
+                for _cross in range(2):  # self-attention, then cross-attention
+                    xd = torch.promote_types(xd, attn_layer(tok, fwd))
+                c["mlp"] += fwd * tok * D * xd.itemsize * mlp
+            back = (cfg.num_encoder_layers * t_enc * D * a * (heads + mlp)
+                    + cfg.num_layers * tok * D * a * (2 * heads + mlp) + t_enc * D * a * heads)
+            emb_tok = tok
         else:
-            c["argmax"] = b_loc * (4 + 8)
+            n_pre = cfg.num_prefix_embeddings if cfg.frontend == "vision" and not decode else 0
+            tok = b_loc * (s_dec + n_pre)
+            W, N, dtr = cfg.lru_width or D, cfg.ssm_state, cfg.dt_rank
+            for t in cfg.layer_types():
+                if t == "ssm":
+                    if splits(cfg.d_inner):
+                        wd = torch.promote_types(cd, xd) if decode else xd
+                        c["ssm_proj"] += fwd * tok * (dtr + 2 * N) * wd.itemsize
+                        c["ssm_out"] += fwd * tok * D * xd.itemsize
+                        back += tok * (D + dtr + 2 * N) * a
+                    continue
+                if t == "recurrent":
+                    if splits(W):
+                        wd = torch.promote_types(cd, xd) if decode else xd
+                        c["lru_gather"] += fwd * tok * W * wd.itemsize
+                        c["lru_out"] += fwd * tok * D * xd.itemsize
+                        back += tok * (D + W) * a
+                    hd = xd
+                else:
+                    hd = attn_layer(tok, fwd)
+                    if heads:
+                        back += tok * D * a
+                        if cfg.num_kv_heads % n_model:
+                            kv = 2 * D * cfg.num_kv_heads * cfg.head_dim
+                            back += kv * dtype_of(cfg.param_dtype).itemsize
+                # the MLP reads the normed residual, or with a parallel
+                # residual the block's input
+                md = xd if cfg.parallel_residual else torch.promote_types(xd, hd)
+                m_act = tok * D * md.itemsize
+                if mlp:
+                    c["mlp"] += fwd * m_act
+                    back += tok * D * a
+                if cfg.num_experts:
+                    tokens = n_data * m_act if stationary else m_act
+                    c["combine"] += fwd * tokens
+                    c["gather"] += fwd * tokens if stationary else 0
+                    c["aux"] += fwd * 4
+                    tokens = n_data * tok * D * a if stationary else tok * D * a
+                    back += (D * cfg.experts_padded * 4 + tokens
+                             + (2 * tokens if stationary else 0) + (4 if batch_axes else 0))
+                xd = torch.promote_types(xd, hd)
+            emb_tok = b_loc * s_dec
+        if vocab:
+            c["embed"] = emb_tok * D * a
+            if train:
+                c["logits"] = 3 * b_loc * s_dec * 4
+                back += b_loc * s_dec * D * a
+            elif not (cfg.is_encoder_decoder and kind == "prefill"):
+                c["argmax"] = b_loc * (4 + 8)
+        if train:
+            c["backward"] = back
         m_ring = _ring(n_model, "all-reduce")
-        sent += m_ring * (c["embed"] + c["attn"] + c["mlp"] + c["logits"] + c["argmax"])
+        sent += m_ring * sum(c[k] for k in ("embed", "attn", "mlp", "logits", "argmax",
+                                            "ssm_proj", "ssm_out", "lru_gather", "lru_out",
+                                            "backward"))
         if cfg.num_experts:
             sent += _ring(world if stationary else n_model, "all-reduce") * c["combine"]
             sent += _ring(n_data, "all-reduce") * c["gather"]
             sent += _ring(world, "all-reduce") * c["aux"]
-        sent += m_ring * c["backward"]
     if train and n_data > 1:
         c["loss"] = 2 * 4
         if cfg.num_experts and n_model == 1:

@@ -52,20 +52,19 @@ the card alike; on a card the record also gives the card's own
 (data 2 x model 2).  The reference's ``--multi_pod`` TPU layout has no
 counterpart.
 
-The multi-card layouts plan the PORT's layout for every arch whose layers
-the port shards (the dense decoders and the MoEs:
-:func:`~repro_torch.sharding.specs.tensor_parallel_unsupported` is None):
+The multi-card layouts plan the PORT's layout for every registered arch
+(:func:`~repro_torch.sharding.specs.tensor_parallel_unsupported` is None):
 Megatron-style tensor parallelism over ``model`` (heads, d_ff, vocab, the
-experts) with every weight whole over ``data`` (the argument bytes per
-card from :func:`~repro_torch.sharding.specs.storage_spec_for`), and as
-collective term the all-reduces a port rank runs
+experts, the Mamba and RG-LRU layers' inner width) with every weight whole
+over ``data`` (the argument bytes per card from
+:func:`~repro_torch.sharding.specs.storage_spec_for`), and as collective
+term the all-reduces a port rank runs
 (:func:`repro_torch.launch.analysis.port_collective_bytes`, the count its
-byte counter is held to).  For the archs with a layer the port does not
-shard (SSM, RG-LRU, whisper, the vision prefix; the port raises on them
-under ``model`` > 1) a multi-card record still plans the REFERENCE's
-layout (FSDP storage over ``data``, all-gathers and reduce-scatters), not a
-run of the port.  Its ``layout`` key says which.  Either way the step's
-temporaries are split evenly over the cards (an estimate).
+byte counter is held to); the step's temporaries are split evenly over the
+cards (an estimate).  A config whose layout the port does not run
+(``sequence_parallel`` / ``shard_grads``) raises on a multi-card layout, as
+the port raises at ``init_model``
+(:func:`~repro_torch.sharding.specs.check_tensor_parallel`).
 """
 
 from __future__ import annotations
@@ -106,8 +105,8 @@ from repro_torch.sharding.specs import (
     batch_shape_structs,
     leaf_paths,
     local_shape,
+    check_tensor_parallel,
     storage_spec_for,
-    tensor_parallel_unsupported,
 )
 
 __all__ = ["SKIPS", "measure_step", "argument_bytes", "plan_extrapolated", "dryrun_extrapolated",
@@ -225,11 +224,6 @@ def argument_bytes(args, mesh, batch: int, cfg=None) -> tuple[int, int]:
             spec = storage_spec_for(path, shape, mesh, cfg)
         per_card += math.prod(local_shape(shape, spec, mesh)) * t.element_size()
     return per_card, total
-
-
-def _port_layout(cfg, mesh) -> bool:
-    """Whether a record on ``mesh`` plans the port's own layout."""
-    return mesh.devices.size == 1 or tensor_parallel_unsupported(cfg) is None
 
 
 # ---------------------------------------------------------------------------
@@ -439,12 +433,13 @@ def dryrun_extrapolated(arch: str, shape_name: str, *, cards: int = 4,
     seq, batch, kind = INPUT_SHAPES[shape_name]
     cfg_full = _serving(get_config(arch), kind)
     mesh, _ = _mesh_for(cards=cards, small_mesh=small_mesh)
+    if mesh.devices.size > 1:
+        check_tensor_parallel(cfg_full)
     core = plan_extrapolated(
         cfg_full, lambda c: (step_for_cfg(c, shape_name), specs_for_cfg(c, shape_name)))
     with planning_kernels():  # whisper's decode cache runs the encoder
         args = specs_for_cfg(cfg_full, shape_name)
-    port = _port_layout(cfg_full, mesh)
-    args_card, args_total = argument_bytes(args, mesh, batch, cfg_full if port else None)
+    args_card, args_total = argument_bytes(args, mesh, batch, cfg_full)
     return finish_record(arch, cfg_full, shape_name, mesh, core, args_card, args_total)
 
 
@@ -460,6 +455,8 @@ def plan_run(spec, mesh=None) -> dict:
     buffers, optimizer state and ring are ``N_local`` long."""
     from repro_torch.run.engine import make_engine
 
+    if mesh is not None and mesh.devices.size > 1:
+        check_tensor_parallel(spec.cfg)
     spec = dataclasses.replace(spec, device="cpu", mesh=None)  # shapes only
     one_card = make_mesh((1, 1), ("data", "model"), device="meta")
 
@@ -526,17 +523,13 @@ def finish_record(arch, cfg, shape_name, mesh, core: dict, args_card: int,
     card = HARDWARE["hbm_bytes"]
     temp = max(core["peak_bytes"] - args_total, 0.0)
     peak_card = args_card + temp / n
-    port = _port_layout(cfg, mesh)
-    coll = (port_collective_bytes(cfg, kind, batch, seq, mesh) if port and n > 1
-            else collective_bytes(cfg, kind, batch, seq, mesh))
     if n == 1:
+        coll = collective_bytes(cfg, kind, batch, seq, mesh)
         layout = "one card: what the port runs"
-    elif port:
-        layout = ("the port's layout: tensor parallelism over model (heads, d_ff, vocab, "
-                  "experts), every weight whole over data")
     else:
-        layout = (f"the reference's tensor-parallel layout, not run: the port does not shard "
-                  f"{tensor_parallel_unsupported(cfg)} and raises on it under model > 1")
+        coll = port_collective_bytes(cfg, kind, batch, seq, mesh)
+        layout = ("the port's layout: tensor parallelism over model (heads, d_ff, vocab, "
+                  "experts, the SSM's and RG-LRU's inner width), every weight whole over data")
     flops_card, bytes_card = core["flops"] / n, core["hbm_bytes"] / n
     terms = roofline_terms(flops_card, bytes_card, coll["total"], num_chips=n,
                            peak_flops=peak_flops_for(cfg.activation_dtype))

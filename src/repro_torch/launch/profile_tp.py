@@ -6,9 +6,13 @@ against the rest.
         [--prompt_len 512] [--steps 8]
 
 Spawns ``--model`` gloo ranks on the one card (data 1 x model n, the layout
-of ``chip_smoke.py``'s phases 13 and 14), each holding its blocks of the
-arch at full width, in f32, on the flash kernel, at ``--layers`` depth
-(0: the config's).  Each rank serves once untimed, then serves twice:
+of ``chip_smoke.py``'s phases 13 to 15), each holding its blocks of the
+arch at full width, in f32, on the kernels (flash, and the RG-LRU and
+selective-scan kernels on the rank's channels), at ``--layers`` depth (0:
+the config's; whisper's encoder is cut to the same depth).  Any of the ten
+archs: the Mamba layer's all-reduces count as ``ssm_proj`` / ``ssm_out``,
+the RG-LRU's as ``lru_gather`` / ``lru_out``.  Each rank serves once
+untimed, then serves twice:
 
 * as served: prefill seconds and decode ms a step (the launcher's clocks);
 * with every all-reduce timed alone: the device synchronized before it,
@@ -17,7 +21,8 @@ arch at full width, in f32, on the flash kernel, at ``--layers`` depth
   (:data:`repro_torch.sharding.collectives.COLLECTIVE_BYTES`' keys), with
   the count and the bytes.  The rest of the pass is the other work.
 
-Each rank prints one JSON line.  Needs a card.
+Each rank writes its JSON record to a file of its own; once all have ended,
+the parent prints them one line each, in rank order.  Needs a card.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import tempfile
 import time
 
 
-def _rank(rank, args, store):
+def _rank(rank, args, tmp):
     import torch
     import torch.distributed as dist
 
@@ -44,13 +49,16 @@ def _rank(rank, args, store):
     from repro_torch.sharding import use_sharding_rules
     from repro_torch.training import init_params
 
+    store = os.path.join(tmp, "store")
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=args.model, timeout=datetime.timedelta(seconds=300))
     mesh = make_mesh((1, args.model), ("data", "model"), device="cuda")
     torch.cuda.set_device(mesh.device)
     cfg = get_config(args.arch)
-    cfg = dataclasses.replace(cfg, num_layers=args.layers or cfg.num_layers,
-                              activation_dtype="float32", use_pallas=True)
+    depth = {"num_layers": args.layers or cfg.num_layers}
+    if cfg.is_encoder_decoder:
+        depth["num_encoder_layers"] = args.layers or cfg.num_encoder_layers
+    cfg = dataclasses.replace(cfg, **depth, activation_dtype="float32", use_pallas=True)
     with torch.no_grad(), use_sharding_rules(mesh):
         params = init_params(0, cfg, mesh.device)
         torch.cuda.empty_cache()
@@ -83,14 +91,16 @@ def _rank(rank, args, store):
         finally:
             C._all_reduce = inner
     total = sum(secs.values())
-    print(json.dumps({
-        "arch": args.arch, "layers": cfg.num_layers, "rank": rank, "model": args.model,
-        "batch": args.batch, "prompt_len": args.prompt_len, "steps": args.steps,
-        "prefill_s": res["prefill_s"], "decode_ms_per_step": res["decode_s"] / args.steps * 1e3,
-        "timed_pass_s": wall, "all_reduce_s": total, "other_s": wall - total,
-        "all_reduce_s_by_purpose": secs, "all_reduce_count_by_purpose": counts,
-        "all_reduce_bytes_by_purpose": nbytes,
-        "card": torch.cuda.get_device_name(mesh.device)}), flush=True)
+    with open(os.path.join(tmp, f"rank_{rank}.json"), "w") as f:
+        json.dump({
+            "arch": args.arch, "layers": cfg.num_layers, "rank": rank, "model": args.model,
+            "batch": args.batch, "prompt_len": args.prompt_len, "steps": args.steps,
+            "prefill_s": res["prefill_s"],
+            "decode_ms_per_step": res["decode_s"] / args.steps * 1e3,
+            "timed_pass_s": wall, "all_reduce_s": total, "other_s": wall - total,
+            "all_reduce_s_by_purpose": secs, "all_reduce_count_by_purpose": counts,
+            "all_reduce_bytes_by_purpose": nbytes,
+            "card": torch.cuda.get_device_name(mesh.device)}, f)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -113,7 +123,10 @@ def main(argv=None):
         raise SystemExit("profile_tp needs a CUDA device")
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="build", prefix="profile_tp_") as tmp:
-        mp.spawn(_rank, args=(args, os.path.join(tmp, "store")), nprocs=args.model, join=True)
+        mp.spawn(_rank, args=(args, tmp), nprocs=args.model, join=True)
+        for rank in range(args.model):
+            with open(os.path.join(tmp, f"rank_{rank}.json")) as f:
+                print(json.dumps(json.load(f)), flush=True)
 
 
 if __name__ == "__main__":

@@ -21,11 +21,12 @@ the plain path, as in the reference.
 The cache writers update the cache IN PLACE (the reference returns a new
 one): a full-width decode would otherwise copy every layer's cache each step.
 
-Under a running ``model`` axis a self-attention layer whose params are this
+Under a running ``model`` axis an attention layer whose params are this
 rank's head blocks runs Megatron-style (:func:`attention_layer_kv`): the
 rank's ``Nq / model`` query heads and the kv heads they use
 (:func:`local_kv_heads`), one all-reduce after ``wo``; its decode cache
-holds those kv heads only.
+holds those kv heads only.  Cross-attention (plain MHA) takes the rank's
+heads of ``wk`` / ``wv`` too.
 """
 
 from __future__ import annotations
@@ -293,14 +294,19 @@ def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: 
     it.  With this rank's block of the heads (a running ``model`` axis),
     the projections are column-split over heads, attention runs on the
     rank's heads, ``wo`` is row-split and one all-reduce over ``model``
-    sums the output; ``k`` and ``v`` are the rank's kv heads."""
+    sums the output; ``k`` and ``v`` are the rank's kv heads.  There the
+    caller hands ``kv_source`` in as a column-parallel input already
+    (:func:`~repro_torch.sharding.collectives.copy_to_model`): every
+    layer's cross-attention reads the one memory, whose cotangent is then
+    summed over ``model`` once."""
     dt = x.dtype
     cross = kv_source is not None
-    mesh = None if cross else head_mesh(cfg)
+    mesh = head_mesh(cfg)
     if mesh is not None:
         x = C.copy_to_model(x, mesh)
     src = kv_source if cross else x
-    wk, wv = _kv_weights(p, cfg, mesh)
+    # cross-attention is plain MHA: its kv heads split as the query heads
+    wk, wv = (p["wk"], p["wv"]) if cross else _kv_weights(p, cfg, mesh)
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
     k = torch.einsum("btd,dnh->btnh", src, wk.to(dt))
     v = torch.einsum("btd,dnh->btnh", src, wv.to(dt))

@@ -146,6 +146,13 @@ def init_mlp(gen, d: int, f: int, gated: bool, device, dtype=f32) -> Params:
     return p
 
 
+def mlp_mesh(cfg):
+    """The running mesh when the layout splits the dense MLP's d_ff over
+    ``model`` (:func:`~repro_torch.sharding.collectives.layout_mesh`), else
+    None."""
+    return C.layout_mesh("w_up", (cfg.d_model, cfg.d_ff))
+
+
 def apply_mlp(p: Params, x: torch.Tensor, act: str, *, mesh) -> torch.Tensor:
     """The (gated) MLP.  With ``mesh`` (d_ff split over ``model``) ``p`` is
     the rank's d_ff block: ``w_gate`` / ``w_up`` column-split, ``w_down``

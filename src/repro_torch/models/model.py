@@ -23,11 +23,17 @@ Under ``use_sharding_rules`` with a running mesh whose ``model`` axis has
 more than one process, the params are this rank's blocks
 (:func:`repro_torch.training.steps.init_params`) and ``forward`` /
 ``prefill`` / ``decode_step`` return the logits of the rank's vocab block
-(``V / model``); :func:`cross_entropy` reduces them over ``model``.  The
-dense decoder shards (attention, MLP, embedding, unembedding, the MoE's
-attention and shared expert); an arch with an SSM, RG-LRU, encoder-decoder
-or vision-prefix layer raises at :func:`init_model`, and params held whole
-raise at ``forward`` / ``prefill`` / ``decode_step``.
+(``V / model``); :func:`cross_entropy` reduces them over ``model``.  Every
+layer of the ten archs shards: attention, MLP, embedding and unembedding,
+the MoE's experts, attention and shared expert, the Mamba and RG-LRU
+layers' inner width, whisper's encoder and cross-attention.  A vocab that
+``model`` does not divide (internvl2-2b's 92,553) keeps the embedding, the
+unembedding and the logits whole on every rank
+(:func:`~repro_torch.sharding.collectives.vocab_mesh` is None); a vlm
+prefix joins the token embeddings after the vocab-parallel lookup's
+all-reduce.  Only ``sequence_parallel`` / ``shard_grads`` raise at
+:func:`init_model`, and params held whole raise at ``forward`` /
+``prefill`` / ``decode_step``.
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ f32 = torch.float32
 def init_model(gen, cfg, device) -> Params:
     """The whole param tree (blocks are sliced from it by the caller:
     :func:`repro_torch.training.steps.init_params`).  Under a running
-    ``model`` axis an arch with a layer that does not shard raises here."""
+    ``model`` axis a config whose layout the port does not run raises
+    here (:func:`~repro_torch.sharding.specs.check_tensor_parallel`)."""
     if C.model_mesh() is not None:
         from repro_torch.sharding.specs import check_tensor_parallel
 
@@ -115,7 +122,8 @@ def forward(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, t
     aux_loss f32 scalar)."""
     vmesh = _vocab_layout(params, cfg)
     if cfg.is_encoder_decoder:
-        logits = W.decode_train(params, batch["tokens"], _encode(params, batch, cfg), cfg)
+        logits = W.decode_train(params, batch["tokens"], _encode(params, batch, cfg), cfg,
+                                vmesh=vmesh)
         return logits, torch.zeros((), dtype=f32, device=logits.device)
     x, io, n_prefix = _embed_with_prefix(params, batch, cfg, vmesh)
     x, aux = T.apply_stack(params["stack"], x, io, cfg)
@@ -209,7 +217,9 @@ def init_decode_state(params: Params, cfg, batch_size: int, capacity: int, *,
                       cache_dtype=torch.bfloat16, batch: dict[str, Any] | None = None) -> Params:
     """Fresh decode cache sized for ``capacity`` positions, on the params'
     device.  Whisper's holds the encoder memory's cross K/V, so ``batch``
-    with ``enc_embeds`` must be given for encoder-decoder configs."""
+    with ``enc_embeds`` must be given for encoder-decoder configs.  Under a
+    running ``model`` axis the cache holds the rank's heads and channels."""
+    _vocab_layout(params, cfg)  # the rank's blocks, checked
     if cfg.is_encoder_decoder:
         if batch is None or "enc_embeds" not in batch:
             raise ValueError("an encoder-decoder cache needs batch['enc_embeds']")
@@ -228,7 +238,7 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor, pos, cfg):
     """
     vmesh = _vocab_layout(params, cfg)
     if cfg.is_encoder_decoder:
-        return W.whisper_decode_step(params, cache, token, pos, cfg)
+        return W.whisper_decode_step(params, cache, token, pos, cfg, vmesh=vmesh)
     act_dt = dtype_of(cfg.activation_dtype)
     x = apply_embedding(params["embed"], token[:, None], scale=cfg.embed_scale, act_dtype=act_dt,
                         mesh=vmesh)
@@ -248,7 +258,7 @@ def prefill(params: Params, batch: dict[str, Any], cfg, capacity: int, *,
     vmesh = _vocab_layout(params, cfg)
     if cfg.is_encoder_decoder:
         memory = _encode(params, batch, cfg)
-        logits = W.decode_train(params, batch["tokens"], memory, cfg)
+        logits = W.decode_train(params, batch["tokens"], memory, cfg, vmesh=vmesh)
         return logits[:, -1], W.init_whisper_cache(params, memory, cfg, capacity, cache_dtype)
     x, io, _ = _embed_with_prefix(params, batch, cfg, vmesh)
     x, cache = T.prefill_stack(params["stack"], x, io, cfg, capacity, cache_dtype)

@@ -73,6 +73,7 @@ import torch
 from repro_torch.models.layers import Params, apply_mlp, truncated_normal, _act
 from repro_torch.sharding.collectives import (  # noqa: F401  (the counter is re-exported)
     COLLECTIVE_BYTES,
+    _gather,
     _sum_over,
     _to_model,
     model_mesh,
@@ -249,9 +250,7 @@ def _apply_sharded(p: Params, x: torch.Tensor, cfg, mesh):
         # gather the data group's tokens: each rank fills its own rows of a
         # zero buffer and the buffer is summed (module docstring)
         d_idx = mesh.index(batch_axes)
-        xg = torch.zeros((n_data, T_loc, D), dtype=x.dtype, device=x.device)
-        xg[d_idx] = xt
-        xg = _sum_over(xg, data, "gather", back=data).reshape(n_data * T_loc, D)
+        xg = _gather(xt, data, n_data, d_idx, "gather", dim=0)
         C = capacity_for(n_data * T_loc, E, cfg.top_k, cfg.capacity_factor)
         out, aux = _routed_local(_to_model(xg, mesh), p, cfg, C, e_start, e_local)
         out = _sum_over(out, world, "combine", back=data)

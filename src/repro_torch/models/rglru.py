@@ -17,6 +17,16 @@ Under ``cfg.use_pallas`` the recurrence runs the hand-written RG-LRU kernel
 (:mod:`repro_torch.kernels.rg_lru`; the plain version on a CPU tensor), as
 the reference runs its Pallas kernel.  Decode is O(1): the cache carries the
 conv window and h, and :func:`apply_rglru_step` updates it IN PLACE.
+
+Under a running ``model`` axis whose storage layout splits the width
+(:func:`lru_mesh`), the params are the rank's blocks of ``W / model``
+channels and the layer runs them Megatron-style: ``in_x`` and ``in_gate``
+column-parallel, the conv on the rank's channels; the gates' ``w_a`` /
+``w_i`` are column blocks whose input is the whole width (the reference's
+``(None, "model")``), so the conv output is gathered over ``model`` first,
+while the gated input takes the rank's own channels; the recurrence (the
+kernel on ``(B, S, W / model)``) on the rank's channels; ``out_proj``
+row-parallel.  The decode cache holds the rank's channels.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rg_lru.cuda import rg_lru
 from repro_torch.kernels.rg_lru.ref import rg_lru_ref
 from repro_torch.models.layers import Params, causal_conv, truncated_normal
+from repro_torch.sharding import collectives as C
 
 _C = 8.0  # Griffin's fixed gate sharpness
 f32 = torch.float32
@@ -54,23 +65,39 @@ def init_rglru(gen, cfg, device) -> Params:
     }
 
 
-def _gates(p: Params, u: torch.Tensor):
-    """u: (B, S, W) -> log_a: (B, S, W) f32, gated input x_t: (B, S, W) f32."""
+def lru_mesh(cfg):
+    """The running mesh when the layout splits the width over ``model``
+    (:func:`~repro_torch.sharding.collectives.layout_mesh`), else None."""
+    return C.layout_mesh("in_x", (cfg.d_model, cfg.lru_width or cfg.d_model))
+
+
+def _gates(p: Params, u: torch.Tensor, mesh):
+    """u: (B, S, W) -> log_a: (B, S, W) f32, gated input x_t: (B, S, W) f32.
+    With ``mesh`` u is the rank's channels, gathered over ``model`` for the
+    gates' products (module docstring)."""
     dt = u.dtype
-    r = torch.sigmoid((u @ p["w_a"].to(dt)).to(f32) + p["b_a"])
-    i = torch.sigmoid((u @ p["w_i"].to(dt)).to(f32) + p["b_i"])
+    whole = u if mesh is None else C.gather_over_model(u, mesh, "lru_gather")
+    r = torch.sigmoid((whole @ p["w_a"].to(dt)).to(f32) + p["b_a"])
+    i = torch.sigmoid((whole @ p["w_i"].to(dt)).to(f32) + p["b_i"])
     log_a = _C * r * F.logsigmoid(p["lambda_"])[None, None, :]  # <= 0
     a2 = torch.exp(2.0 * log_a)
     x_in = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * u.to(f32))
     return log_a, x_in
 
 
-def _branches(p: Params, x: torch.Tensor):
+def _branches(p: Params, x: torch.Tensor, mesh):
     """The recurrent branch before its conv, and the GeLU branch."""
     dt = x.dtype
+    if mesh is not None:
+        x = C.copy_to_model(x, mesh)
     u = x @ p["in_x"].to(dt)
     g = F.gelu(x @ p["in_gate"].to(dt), approximate="tanh")
     return u, g
+
+
+def _out(p: Params, h: torch.Tensor, g: torch.Tensor, mesh) -> torch.Tensor:
+    out = (h.to(g.dtype) * g) @ p["out_proj"].to(g.dtype)
+    return out if mesh is None else C.reduce_from_model(out, mesh, "lru_out")
 
 
 def _forward(p: Params, x: torch.Tensor, cfg):
@@ -78,13 +105,15 @@ def _forward(p: Params, x: torch.Tensor, cfg):
 
     Under ``cfg.use_pallas`` the recurrence runs the :func:`rg_lru` wrapper
     (the kernel on the card), else the plain loop, as the reference's
-    ``lax.scan``."""
+    ``lax.scan``.  Under :func:`lru_mesh` on the rank's channels (module
+    docstring)."""
     dt = x.dtype
-    u_raw, g = _branches(p, x)
+    mesh = lru_mesh(cfg)
+    u_raw, g = _branches(p, x, mesh)
     u = causal_conv(u_raw, p["conv_w"].to(dt), p["conv_b"].to(dt))
-    log_a, x_in = _gates(p, u)
+    log_a, x_in = _gates(p, u, mesh)
     ys = rg_lru(log_a, x_in) if cfg.use_pallas else rg_lru_ref(log_a, x_in)
-    return (ys.to(dt) * g) @ p["out_proj"].to(dt), u_raw, ys
+    return _out(p, ys, g, mesh), u_raw, ys
 
 
 def apply_rglru(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -93,7 +122,12 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def init_rglru_cache(batch: int, cfg, dtype, device) -> Params:
+    """A zero cache; under :func:`lru_mesh` of the rank's ``W / model``
+    channels."""
+    mesh = lru_mesh(cfg)
     w = cfg.lru_width or cfg.d_model
+    if mesh is not None:
+        w //= mesh.shape["model"]
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, w), dtype=dtype, device=device),
         "h": torch.zeros((batch, w), dtype=f32, device=device),
@@ -103,16 +137,17 @@ def init_rglru_cache(batch: int, cfg, dtype, device) -> Params:
 def apply_rglru_step(p: Params, x: torch.Tensor, cache: Params, cfg):
     """x: (B, 1, D) -> (y, cache), the cache updated in place."""
     dt = x.dtype
-    u, g = _branches(p, x)
+    mesh = lru_mesh(cfg)
+    u, g = _branches(p, x, mesh)
     # the reference's jnp type promotion: an f32 cache lifts the window, the
     # conv and the gates to f32 under bf16 activations
     wd = torch.promote_types(cache["conv"].dtype, dt)
     win = torch.cat([cache["conv"].to(wd), u.to(wd)], dim=1)  # (B, K, W)
     u_c = (torch.einsum("bkw,kw->bw", win, p["conv_w"].to(dt).to(wd))[:, None, :]
            + p["conv_b"].to(dt).to(wd))
-    log_a, x_in = _gates(p, u_c)
+    log_a, x_in = _gates(p, u_c, mesh)
     h = torch.exp(log_a[:, 0]) * cache["h"] + x_in[:, 0]
-    out = (h[:, None, :].to(dt) * g) @ p["out_proj"].to(dt)
+    out = _out(p, h[:, None, :], g, mesh)
     cache["conv"].copy_(win[:, 1:])
     cache["h"].copy_(h)
     return out, cache

@@ -14,6 +14,19 @@ otherwise on the plain loop, the reference's ``lax.scan``.  Both give the
 final state as well as ``y``, so a prefill takes its output and its decode
 cache from one scan.  Decode is O(1): the cache carries the conv window and
 h, and :func:`apply_ssm_step` updates it IN PLACE.
+
+Under a running ``model`` axis whose storage layout splits the inner width
+(:func:`ssm_mesh`), the params are the rank's blocks of ``D_inner / model``
+channels (``in_proj`` as ``[u_r | z_r]``, see
+:func:`repro_torch.sharding.specs.block_view`) and the layer runs them
+Megatron-style: the column-parallel ``in_proj``; the conv, the scan (the
+kernel on ``(B, S, D_inner / model)``) and the skip term on the rank's
+channels; ``x_proj`` row-parallel, its ``(dt, B, C)`` partial sums reduced
+over ``model`` and normed replicated (``bc_norm``), then handed back to the
+rank's channels as a column-parallel input, so that the norms' gradients
+come out whole and equal on every rank; ``dt_proj``'s column block gives the
+rank's ``delta``; ``out_proj`` row-parallel.  The decode cache holds the
+rank's channels.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.selective_scan.cuda import selective_scan
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.models.layers import Params, apply_rmsnorm, causal_conv, truncated_normal
+from repro_torch.sharding import collectives as C
 
 f32 = torch.float32
 
@@ -58,18 +72,31 @@ def init_ssm(gen, cfg, device) -> Params:
     }
 
 
-def _ssm_params(p: Params, u: torch.Tensor, cfg):
+def ssm_mesh(cfg):
+    """The running mesh when the layout splits the inner width over
+    ``model`` (:func:`~repro_torch.sharding.collectives.layout_mesh`), else
+    None."""
+    return C.layout_mesh("in_proj", (cfg.d_model, 2 * cfg.d_inner))
+
+
+def _ssm_params(p: Params, u: torch.Tensor, cfg, mesh):
     """Input-dependent (delta, A, B, C) from the conv output u: (B, S, Di).
 
     The reference's dtypes: the projections and their RMS norms in u's dtype,
-    then delta f32 after the softplus and B, C cast to f32."""
+    then delta f32 after the softplus and B, C cast to f32.  With ``mesh``
+    u is the rank's channels and the projection a partial sum (module
+    docstring)."""
     dt = u.dtype
     dtr, N = cfg.dt_rank, cfg.ssm_state
     proj = u @ p["x_proj"].to(dt)
+    if mesh is not None:
+        proj = C.reduce_from_model(proj, mesh, "ssm_proj")
     dlt, Bm, Cm = torch.split(proj, [dtr, N, N], dim=-1)
     dlt = apply_rmsnorm({"scale": p["bc_norm"]["dt"]}, dlt)
     Bm = apply_rmsnorm({"scale": p["bc_norm"]["b"]}, Bm)
     Cm = apply_rmsnorm({"scale": p["bc_norm"]["c"]}, Cm)
+    if mesh is not None:
+        dlt, Bm, Cm = (C.copy_to_model(t, mesh) for t in (dlt, Bm, Cm))
     delta = F.softplus((dlt @ p["dt_proj"].to(dt)).to(f32) + p["dt_bias"][None, None, :])
     A = -torch.exp(p["a_log"])  # (Di, N) f32, negative real
     return delta, A, Bm.to(f32), Cm.to(f32)
@@ -80,16 +107,25 @@ def _forward(p: Params, x: torch.Tensor, cfg):
 
     Under ``cfg.use_pallas`` the scan runs the :func:`selective_scan` wrapper
     (the kernel on the card), else the plain loop; both leave the skip term
-    ``u * d_skip`` to the caller, as the reference's kernel does."""
+    ``u * d_skip`` to the caller, as the reference's kernel does.  Under
+    :func:`ssm_mesh` on the rank's channels (module docstring)."""
     dt = x.dtype
+    mesh = ssm_mesh(cfg)
+    if mesh is not None:
+        x = C.copy_to_model(x, mesh)
     u_raw, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
     u = F.silu(causal_conv(u_raw, p["conv_w"].to(dt), p["conv_b"].to(dt)))
-    delta, A, Bm, Cm = _ssm_params(p, u, cfg)
+    delta, A, Bm, Cm = _ssm_params(p, u, cfg, mesh)
     scan = selective_scan if cfg.use_pallas else selective_scan_ref
     y, hT = scan(u, delta, A, Bm, Cm)
     y = y + u.to(f32) * p["d_skip"][None, None, :]
-    out = (y.to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
-    return out, u_raw, hT
+    return _out(p, y, z, mesh), u_raw, hT
+
+
+def _out(p: Params, y: torch.Tensor, z: torch.Tensor, mesh) -> torch.Tensor:
+    """The gated output projection, in z's dtype; with ``mesh`` row-parallel."""
+    out = (y.to(z.dtype) * F.silu(z)) @ p["out_proj"].to(z.dtype)
+    return out if mesh is None else C.reduce_from_model(out, mesh, "ssm_out")
 
 
 def apply_ssm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -102,15 +138,22 @@ def apply_ssm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_ssm_cache(batch: int, cfg, dtype, device) -> Params:
+    """A zero cache; under :func:`ssm_mesh` of the rank's ``D_inner / model``
+    channels."""
+    mesh = ssm_mesh(cfg)
+    di = cfg.d_inner if mesh is None else cfg.d_inner // mesh.shape["model"]
     return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype, device=device),
-        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=f32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype, device=device),
+        "h": torch.zeros((batch, di, cfg.ssm_state), dtype=f32, device=device),
     }
 
 
 def apply_ssm_step(p: Params, x: torch.Tensor, cache: Params, cfg):
     """x: (B, 1, D) -> (y, cache), the cache updated in place."""
     dt = x.dtype
+    mesh = ssm_mesh(cfg)
+    if mesh is not None:
+        x = C.copy_to_model(x, mesh)
     u, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
     # the reference's jnp type promotion: an f32 cache lifts the window, the
     # conv and the (dt, B, C) projections to f32 under bf16 activations
@@ -119,11 +162,11 @@ def apply_ssm_step(p: Params, x: torch.Tensor, cache: Params, cfg):
     u_c = (torch.einsum("bkd,kd->bd", win, p["conv_w"].to(dt).to(wd))[:, None, :]
            + p["conv_b"].to(dt).to(wd)[None, None, :])
     u_c = F.silu(u_c)
-    delta, A, Bm, Cm = _ssm_params(p, u_c, cfg)
+    delta, A, Bm, Cm = _ssm_params(p, u_c, cfg, mesh)
     dlt = delta[:, 0, :, None]
     h = torch.exp(dlt * A[None]) * cache["h"] + dlt * Bm[:, 0, None, :] * u_c.to(f32)[:, 0, :, None]
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0]) + u_c[:, 0].to(f32) * p["d_skip"][None]
-    out = (y[:, None, :].to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
+    out = _out(p, y[:, None, :], z, mesh)
     cache["conv"].copy_(win[:, 1:])
     cache["h"].copy_(h)
     return out, cache
@@ -135,7 +178,8 @@ def ssm_prefill_cache(p: Params, x: torch.Tensor, cfg, dtype):
     The reference runs its full-sequence path and then the plain scan a
     second time, materialising dA and dBu at (B, S, Di, N), for the cache.
     This port takes ``h`` from the scan that gave the output: the kernel (or
-    the plain loop) returns the final state with ``y``.
+    the plain loop) returns the final state with ``y``.  Under
+    :func:`ssm_mesh` the cache holds the rank's channels.
     """
     out, u_raw, hT = _forward(p, x, cfg)
     K = cfg.ssm_conv

@@ -26,11 +26,16 @@ the stack in layer order; a block without experts contributes no term (the
 reference's zero, not materialised, so a dense stack runs no extra op).
 
 Under a running ``model`` axis the blocks need nothing of their own: the
-attention, MLP and MoE layers shard themselves (their params are the
-rank's blocks), each ends in an all-reduce over ``model``, and so the norms
-(replicated), the residual stream and the local / global windows see the
-whole ``(B, S, D)`` activations on every rank.  A decode cache holds the
-rank's kv heads.
+attention, MLP, MoE, Mamba and RG-LRU layers shard themselves (their params
+are the rank's blocks), each ends in an all-reduce over ``model``, and so
+the norms (replicated), the residual stream and the local / global windows
+see the whole ``(B, S, D)`` activations on every rank.  A decode cache
+holds the rank's kv heads, or the rank's channels of a Mamba or RG-LRU
+layer's conv window and state.  Whether the Mamba and RG-LRU layers run
+sharded is the storage layout's one decision
+(:func:`~repro_torch.sharding.collectives.layout_mesh`, through
+:func:`repro_torch.models.ssm.ssm_mesh` and
+:func:`repro_torch.models.rglru.lru_mesh`).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from repro_torch.models.layers import (
     init_layernorm,
     init_mlp,
     init_rmsnorm,
+    mlp_mesh,
 )
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.ctx import current_rules, rules_in_force
@@ -116,8 +122,7 @@ def _mlp_residual(p: Params, x, pre, h, cfg):
     if cfg.num_experts:
         m, aux = MOE.apply_moe(p["moe"], m_in, cfg)
     else:
-        m = apply_mlp(p["mlp"], m_in, cfg.act,
-                      mesh=C.layout_mesh("w_up", (cfg.d_model, cfg.d_ff)))
+        m = apply_mlp(p["mlp"], m_in, cfg.act, mesh=mlp_mesh(cfg))
     if cfg.use_post_norms:
         m = _norm(cfg, p["mlp_post_norm"], m)
     return ((x + h + m) if cfg.parallel_residual else (x + m)), aux
@@ -290,30 +295,34 @@ def _per_layer(tree: Params, cfg) -> list[tuple[str, str, Params]]:
     return [(g, t, tree[g] if i is None else views[g][i]) for g, t, i in _layers(cfg)]
 
 
+def remat_call(fn, x: torch.Tensor, cfg):
+    """``fn(x)``; under ``cfg.remat`` checkpointed (``jax.checkpoint``'s
+    counterpart).  Under a running model axis the recompute runs the whole
+    block: with early stopping it would end before the block's last
+    all-reduce, so the collectives of a step would depend on which tensors
+    autograd saved.  And it re-enters the sharding rules: a CUDA backward
+    recomputes on autograd's device thread, which does not see this
+    thread's rules."""
+    if not cfg.remat:
+        return fn(x)
+    rules = current_rules()
+
+    def block(x):
+        with rules_in_force(rules):
+            return fn(x)
+
+    with set_checkpoint_early_stop(False) if C.model_mesh() is not None else \
+            contextlib.nullcontext():
+        return checkpoint(block, x, use_reentrant=False)
+
+
 def apply_stack(params: Params, x: torch.Tensor, io: LayerIO, cfg):
     """-> (x, aux_total): the blocks' aux losses summed in layer order (f32;
     zero for a stack without experts)."""
-    # Under a running model axis the recompute runs the whole block: with
-    # early stopping it would end before the block's last all-reduce, so the
-    # collectives of a step would depend on which tensors autograd saved.
-    # And it re-enters the sharding rules: a CUDA backward recomputes on
-    # autograd's device thread, which does not see this thread's rules.
-    rules = current_rules()
-    whole_recompute = cfg.remat and C.model_mesh() is not None
-
-    def block(p, x, t):
-        with rules_in_force(rules):
-            return apply_block(p, x, t, io, cfg)
-
-    def layer(p, x, t):
-        if cfg.remat:
-            with set_checkpoint_early_stop(False) if whole_recompute else contextlib.nullcontext():
-                return checkpoint(functools.partial(block, p, t=t), x, use_reentrant=False)
-        return apply_block(p, x, t, io, cfg)
-
     aux_total = None
     for _, t, p in _per_layer(params, cfg):
-        x, a = layer(p, x, t)
+        x, a = remat_call(functools.partial(apply_block, p, layer_type=t, io=io, cfg=cfg), x,
+                          cfg)
         if a is not None:  # 0 + a is a exactly: the reference's sum from zero
             aux_total = a if aux_total is None else aux_total + a
     if aux_total is None:

@@ -23,6 +23,16 @@ A decode step updates the self-attention cache in place.  As the decoder
 trunk's decode step (``transformer._attn_decode``), it follows jnp's type
 promotion: attention read from an f32 cache gives an f32 output, and the
 weights are cast to the dtype the activations then have.
+
+Under a running ``model`` axis the params are the rank's blocks, as the
+decoder trunk's: every attention (the encoder's, the decoder's self- and
+cross-attention) runs the rank's heads and every MLP the rank's d_ff, each
+ending in an all-reduce over ``model``; the embedding and unembedding are
+split by vocab where ``model`` divides it (``vmesh``, else whole on every
+rank).  The encoder's output is replicated and enters the decoder as one
+column-parallel input, so its cotangent is summed over ``model`` once for
+all the layers' cross-attention.  The cache holds the rank's heads of the
+self-attention K/V and of the cross K/V.
 """
 
 from __future__ import annotations
@@ -30,7 +40,6 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models.layers import (
@@ -44,9 +53,11 @@ from repro_torch.models.layers import (
     init_embedding,
     init_layernorm,
     init_mlp,
+    mlp_mesh,
     position_table,
 )
-from repro_torch.models.transformer import _unstack, init_stacked_blocks
+from repro_torch.models.transformer import _unstack, init_stacked_blocks, remat_call
+from repro_torch.sharding import collectives as C
 
 __all__ = ["init_whisper", "encode", "decode_train", "init_whisper_cache", "whisper_decode_step"]
 
@@ -69,7 +80,7 @@ def apply_encoder_block(p: Params, x: torch.Tensor, io: LayerIO, cfg) -> torch.T
     h = A.attention_layer(p["attn"], h, io, cfg, window=None, use_rope=False)
     x = x + h
     m = apply_layernorm(p["mlp_norm"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], m, cfg.act, mesh=None)
+    return x + apply_mlp(p["mlp"], m, cfg.act, mesh=mlp_mesh(cfg))
 
 
 def init_decoder_block(gen, cfg, device) -> Params:
@@ -84,6 +95,8 @@ def init_decoder_block(gen, cfg, device) -> Params:
 
 
 def apply_decoder_block(p: Params, x: torch.Tensor, memory: torch.Tensor, io: LayerIO, cfg):
+    """One decoder block; under a running ``model`` axis ``memory`` is the
+    column-parallel input (:func:`decode_train`)."""
     h = apply_layernorm(p["self_norm"], x, cfg.norm_eps)
     h = A.attention_layer(p["self_attn"], h, io, cfg, window=None, use_rope=False)
     x = x + h
@@ -92,7 +105,7 @@ def apply_decoder_block(p: Params, x: torch.Tensor, memory: torch.Tensor, io: La
                           use_rope=False)
     x = x + c
     m = apply_layernorm(p["mlp_norm"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], m, cfg.act, mesh=None)
+    return x + apply_mlp(p["mlp"], m, cfg.act, mesh=mlp_mesh(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -126,22 +139,24 @@ def encode(params: Params, frame_embeds: torch.Tensor, cfg) -> torch.Tensor:
     return apply_layernorm(params["encoder_norm"], x, cfg.norm_eps)
 
 
-def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor, cfg) -> torch.Tensor:
-    """Teacher-forced decoder pass. tokens: (B, S) -> logits (B, S, V)."""
+def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor, cfg, *,
+                 vmesh=None) -> torch.Tensor:
+    """Teacher-forced decoder pass. tokens: (B, S) -> logits (B, S, V), or
+    with ``vmesh`` (the vocab split over ``model``) the rank's vocab block."""
     B, S = tokens.shape
     act_dt = dtype_of(cfg.activation_dtype)
-    x = apply_embedding(params["embed"], tokens, scale=False, act_dtype=act_dt, mesh=None)
+    x = apply_embedding(params["embed"], tokens, scale=False, act_dtype=act_dt, mesh=vmesh)
     x = x + position_table(S, cfg.d_model, x.device, act_dt)[None]
     io = LayerIO(positions=_positions(B, S, x.device), causal=True)
     mem = memory.to(act_dt)
+    hmesh = A.head_mesh(cfg)
+    if hmesh is not None:
+        mem = C.copy_to_model(mem, hmesh)
     for p in _unstack(params["decoder"], cfg.num_layers):
-        if cfg.remat:
-            x = checkpoint(functools.partial(apply_decoder_block, p, memory=mem, io=io, cfg=cfg),
-                           x, use_reentrant=False)
-        else:
-            x = apply_decoder_block(p, x, mem, io, cfg)
+        x = remat_call(functools.partial(apply_decoder_block, p, memory=mem, io=io, cfg=cfg), x,
+                       cfg)
     x = apply_layernorm(params["decoder_norm"], x, cfg.norm_eps)
-    return apply_unembed(params["embed"], x, softcap=cfg.final_logit_softcap, mesh=None)
+    return apply_unembed(params["embed"], x, softcap=cfg.final_logit_softcap, mesh=vmesh)
 
 
 # ---------------------------------------------------------------------------
@@ -151,10 +166,11 @@ def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor, cfg
 def init_whisper_cache(params: Params, memory: torch.Tensor, cfg, capacity: int, dtype) -> Params:
     """An empty self-attention KV cache ``(L, B, capacity, N, H)`` and the
     cross-attention K/V ``(L, B, T_enc, N, H)``, projected once from the
-    memory."""
+    memory; N the heads the params hold (under a running ``model`` axis the
+    rank's)."""
     B, T, _ = memory.shape
-    L, N, H = cfg.num_layers, cfg.num_heads, cfg.head_dim
     cross = params["decoder"]["cross_attn"]
+    L, N, H = cfg.num_layers, cross["wk"].shape[-2], cfg.head_dim
     kv = {name: torch.empty((L, B, T, N, H), dtype=dtype, device=memory.device)
           for name in ("k", "v")}
     for i in range(L):
@@ -172,13 +188,22 @@ def _proj_out(o: torch.Tensor, wo: torch.Tensor, dt) -> torch.Tensor:
     return torch.einsum("bsnh,nhd->bsd", o.to(od), wo.to(dt).to(od))
 
 
-def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos, cfg):
+def _attn_out(o: torch.Tensor, wo: torch.Tensor, dt, mesh) -> torch.Tensor:
+    y = _proj_out(o, wo, dt)
+    return y if mesh is None else C.reduce_from_model(y, mesh, "attn")
+
+
+def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos, cfg, *,
+                        vmesh=None):
     """token: (B,) int, pos: a 0-d int tensor (or an int) -> (logits (B, V),
-    cache), the self-attention cache updated in place."""
+    cache), the self-attention cache updated in place.  With ``vmesh`` the
+    logits are the rank's vocab block; under a running ``model`` axis each
+    attention runs the rank's heads (module docstring)."""
     act_dt = dtype_of(cfg.activation_dtype)
     B = token.shape[0]
+    hmesh, mmesh = A.head_mesh(cfg), mlp_mesh(cfg)
     x = apply_embedding(params["embed"], token[:, None], scale=False, act_dtype=act_dt,
-                        mesh=None)
+                        mesh=vmesh)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     cap = cache["self"]["k"].shape[2]
     # the current token's sinusoidal row, read on the device
@@ -195,6 +220,8 @@ def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos,
         dt = x.dtype
         sa = p["self_attn"]
         h = apply_layernorm(p["self_norm"], x, cfg.norm_eps)
+        if hmesh is not None:
+            h = C.copy_to_model(h, hmesh)
         q = torch.einsum("bsd,dnh->bsnh", h, sa["wq"].to(dt))
         k = torch.einsum("bsd,dnh->bsnh", h, sa["wk"].to(dt))
         v = torch.einsum("bsd,dnh->bsnh", h, sa["wv"].to(dt))
@@ -202,18 +229,20 @@ def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos,
         A.update_cache_full(self_kv, k, v, pos)
         cpos = A.cache_positions_full(cap, pos + 1, B)
         o = A.decode_attention(q, self_kv["k"], self_kv["v"], cpos, qpos)
-        x = x + _proj_out(o, sa["wo"], dt)
+        x = x + _attn_out(o, sa["wo"], dt, hmesh)
 
         dt = x.dtype
         ca = p["cross_attn"]
         c = apply_layernorm(p["cross_norm"], x, cfg.norm_eps)
+        if hmesh is not None:
+            c = C.copy_to_model(c, hmesh)
         qc = torch.einsum("bsd,dnh->bsnh", c, ca["wq"].to(dt))
         qc = qc * torch.tensor(cfg.head_dim**-0.5, dtype=dt)
         oc = A.decode_attention(qc, cross_kv["k"], cross_kv["v"], mpos, mq)
-        x = x + _proj_out(oc, ca["wo"], dt)
+        x = x + _attn_out(oc, ca["wo"], dt, hmesh)
 
         m = apply_layernorm(p["mlp_norm"], x, cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], m, cfg.act, mesh=None)
+        x = x + apply_mlp(p["mlp"], m, cfg.act, mesh=mmesh)
     x = apply_layernorm(params["decoder_norm"], x, cfg.norm_eps)
-    logits = apply_unembed(params["embed"], x[:, 0], softcap=cfg.final_logit_softcap, mesh=None)
+    logits = apply_unembed(params["embed"], x[:, 0], softcap=cfg.final_logit_softcap, mesh=vmesh)
     return logits, cache

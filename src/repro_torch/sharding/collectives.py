@@ -18,6 +18,12 @@ process groups of a running :class:`~repro_torch.launch.mesh.Mesh`
 * :func:`greedy_argmax`: the lowest global index of the largest logit of
   logits sharded over vocab, as one process's ``torch.argmax`` picks (an
   f32 max and an int64 min of ``(B,)``);
+* :func:`gather_over_model`: the ranks' blocks of the last dim put side by
+  side (the RG-LRU's conv output, whose gates read the whole width): each
+  rank writes its block into a zero buffer of the whole width and the
+  buffers are summed; the backward sums the cotangent over ``model`` and
+  takes the rank's block (gloo gathers no CUDA tensor, and NCCL refuses
+  two ranks on one card);
 
 Whether a layer runs sharded is decided in one place, :func:`layout_mesh`,
 from the port's storage layout
@@ -58,6 +64,7 @@ __all__ = [
     "copy_to_model",
     "max_over_model",
     "greedy_argmax",
+    "gather_over_model",
     "sum_over_data",
     "sum_grads_over_data",
     "scale_grad",
@@ -69,11 +76,15 @@ __all__ = [
 # "aux"; the dense layers': "embed" (the vocab-parallel lookup), "attn" and
 # "mlp" (the row-parallel outputs; the shared expert's too), "logits" (the
 # vocab-parallel cross-entropy's (B, S) reductions), "argmax" (the greedy
-# pick); the data-parallel ones: "loss" (token count and loss), "grad" (the
-# flat gradient); "norm" (the clip link's squared norm); and "backward",
-# every all-reduce of a backward pass.
+# pick); the recurrent layers': "ssm_proj" (the Mamba layer's row-parallel
+# x_proj, the (dt, B, C) partial sums), "ssm_out" (its out_proj output),
+# "lru_gather" (the RG-LRU's conv output gathered over model), "lru_out"
+# (its out_proj output); the data-parallel ones: "loss" (token count and
+# loss), "grad" (the flat gradient); "norm" (the clip link's squared
+# norm); and "backward", every all-reduce of a backward pass.
 COLLECTIVE_BYTES = {k: 0 for k in ("combine", "gather", "aux", "embed", "attn", "mlp", "logits",
-                                   "argmax", "loss", "grad", "norm", "backward")}
+                                   "argmax", "ssm_proj", "ssm_out", "lru_gather", "lru_out",
+                                   "loss", "grad", "norm", "backward")}
 
 
 def reset_collective_bytes() -> None:
@@ -245,6 +256,24 @@ def greedy_argmax(logits: torch.Tensor, mesh) -> torch.Tensor:
     big = torch.iinfo(torch.int64).max
     cand = torch.where(local_max == top, local_idx + mesh.index("model") * v_loc, big)
     return _all_reduce(cand.contiguous(), mesh.group("model"), "argmax", op=dist.ReduceOp.MIN)
+
+
+def _gather(t: torch.Tensor, group, n: int, index: int, what: str, dim: int = -1) -> torch.Tensor:
+    """The blocks of the ``n`` ranks of ``group`` along ``dim``, side by side
+    in ``index`` order, the same on every rank: each rank pads its block with
+    zeros to the whole and the buffers are summed; the backward sums the
+    cotangent over ``group`` and takes the rank's block (the pad's
+    backward)."""
+    dim %= t.dim()
+    w = t.shape[dim]
+    pad = [0, 0] * (t.dim() - 1 - dim) + [index * w, (n - 1 - index) * w]
+    return _sum_over(torch.nn.functional.pad(t, pad), group, what, back=group)
+
+
+def gather_over_model(t: torch.Tensor, mesh, what: str) -> torch.Tensor:
+    """The ranks' blocks of ``t``'s last dim, side by side in rank order:
+    ``(..., W / model)`` -> ``(..., W)`` (module docstring)."""
+    return _gather(t, mesh.group("model"), mesh.shape["model"], mesh.index("model"), what)
 
 
 # ---------------------------------------------------------------------------

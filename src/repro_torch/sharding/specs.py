@@ -51,6 +51,7 @@ __all__ = [
     "auto_specs",
     "local_shape",
     "local_shard",
+    "block_view",
     "storage_spec_for",
     "local_template",
     "localize",
@@ -345,10 +346,28 @@ def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
     return tuple(d // math.prod(sizes[a] for a in _axes_of(e)) for d, e in zip(shape, spec))
 
 
-def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's block of ``t`` under ``spec`` (a view); ``mesh.coords``
-    gives the rank's place along each axis."""
+# The SSM's in_proj (d, 2 d_inner) stacks the conv branch u and the gate z
+# on its last dim.  A rank holds its columns of each, [u_r | z_r], so that
+# the layer's chunk(2) still splits its block into u and z.  The one leaf
+# whose block is not a contiguous slice of the whole: every function below
+# that cuts or writes a block reads this rule.
+_STACKED_HALVES = r"in_proj$"
+
+
+def _halves(path: str) -> int:
+    return 2 if path and re.search(_STACKED_HALVES, path) else 1
+
+
+def block_view(t: torch.Tensor, spec: tuple, mesh, path: str = "") -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` as a view of ``t``
+    (``mesh.coords`` gives the rank's place along each axis).  For a leaf
+    of stacked halves (``path`` an SSM's ``in_proj``) whose last dim is
+    split, the view has that dim unflattened to ``(2, d_inner / n)``:
+    ``[u_r | z_r]`` once flattened."""
     spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+    if _halves(path) > 1 and _axes_of(spec[-1]):
+        t = t.unflatten(-1, (2, t.shape[-1] // 2))
+        spec = spec[:-1] + (None, spec[-1])
     for dim, e in enumerate(spec):
         axes = _axes_of(e)
         if axes:
@@ -356,6 +375,14 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
             block = t.shape[dim] // n
             t = t.narrow(dim, mesh.index(axes) * block, block)
     return t
+
+
+def local_shard(t: torch.Tensor, spec: tuple, mesh, path: str = "") -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec``, of :func:`local_shape`'s
+    shape: a view, but for the stacked halves of an SSM's ``in_proj``
+    (``path``; :func:`block_view`), whose block ``[u_r | z_r]`` is a copy."""
+    block = block_view(t, spec, mesh, path)
+    return block.flatten(-2) if block.dim() > t.dim() else block
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +405,8 @@ def storage_spec_for(path: str, shape: tuple[int, ...], mesh, cfg=None) -> P:
     ``SPEC_OPTIONS["replicate_params_over_data"]`` layout; its FSDP storage
     sharding over ``data`` is not run by the port).  The one exception is
     the weights-stationary MoE's expert stacks, whose d_ff stays over the
-    batch axes.
+    batch axes.  An SSM's ``in_proj`` splits where ``model`` divides each of
+    its halves, and its block is ``[u_r | z_r]`` (:func:`block_view`).
 
     It reads the rule table itself (``model`` where ``model`` divides the
     dimension, as :func:`param_spec_for` resolves it): the layers decide
@@ -395,7 +423,9 @@ def storage_spec_for(path: str, shape: tuple[int, ...], mesh, cfg=None) -> P:
         if n == 0 or len(shape) < n:
             return P()
         tail = []
-        for ax, dim in zip(trailing, shape[len(shape) - n:]):
+        for i, (ax, dim) in enumerate(zip(trailing, shape[len(shape) - n:])):
+            if i == n - 1:
+                dim //= _halves(path)  # each of in_proj's halves splits on its own
             if ax == "model" and "model" in sizes and dim % sizes["model"] == 0:
                 tail.append("model")
             elif ax == "data" and keep:
@@ -444,7 +474,7 @@ def localize(tree: Any, cfg, mesh) -> Any:
             raise ValueError(f"{path}: shape {tuple(t.shape)} is neither the whole leaf {full} "
                              f"nor this rank's block {shape}")
         # a copy, not a view: a view would keep the whole leaf alive
-        return local_shard(t, spec, mesh).clone(memory_format=torch.contiguous_format)
+        return local_shard(t, spec, mesh, path).clone(memory_format=torch.contiguous_format)
 
     return _map_with_path(one, tree)
 
@@ -467,25 +497,18 @@ def check_local_params(params: Any, cfg, mesh) -> None:
 
 def tensor_parallel_unsupported(cfg) -> str | None:
     """Why the port cannot shard ``cfg`` over ``model``, or None when every
-    layer of it shards (the dense decoder: attention, dense MLP, the
-    embedding and unembedding, norms; the MoE's experts, attention and
-    shared expert)."""
-    kinds = set(cfg.block_pattern) | set(cfg.remainder_layers)
-    if "ssm" in kinds:
-        return "the Mamba (SSM) layer"
-    if "recurrent" in kinds:
-        return "the RG-LRU layer"
-    if cfg.is_encoder_decoder:
-        return "the encoder and cross-attention of an encoder-decoder"
-    if cfg.frontend == "vision":
-        return "the vision prefix"
+    layer of it shards: the dense decoder (attention, dense MLP, embedding
+    and unembedding, norms), the MoE's experts, attention and shared
+    expert, the Mamba and RG-LRU layers (their inner width), whisper's
+    encoder and cross-attention, and a vision prefix.  Only the layouts of
+    ``sequence_parallel`` and ``shard_grads`` are not run."""
     if cfg.sequence_parallel or cfg.shard_grads:
         return "sequence_parallel / shard_grads"
     return None
 
 
 def check_tensor_parallel(cfg) -> None:
-    """Raise for an arch the port cannot shard over ``model``: it must not
+    """Raise for a config the port cannot shard over ``model``: it must not
     run with its unsharded layers quietly replicated."""
     why = tensor_parallel_unsupported(cfg)
     if why is not None:

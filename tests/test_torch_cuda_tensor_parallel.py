@@ -14,6 +14,13 @@ gradient within 1e-5 of max |g| (the CPU test's); a 4-tick async fused run
 process's params, its tables and histograms equal; the serve on the flash
 kernel (``use_pallas=True``, one launch a layer on each rank) within 1e-4
 of one process's logits, ids equal.
+
+The scan and RG-LRU kernels on a rank's channel block: reduced
+falcon-mamba-7b and recurrentgemma-9b (``torch_tp_common.arch_config``)
+served by 2 ranks on the kernels (``use_pallas=True``: the selective scan on
+``(B, S, D_inner / 2)``, the RG-LRU on ``(B, S, W / 2)``, one launch a
+layer on each rank) against one process on the card running their plain
+versions: prefill and decode logits within 1e-4 + 1e-4 |plain|, ids equal.
 """
 
 import os
@@ -136,3 +143,80 @@ def test_two_ranks_on_the_card_match_one_process(tmp_path):
         np.testing.assert_allclose(got["logits"], one["logits"][..., r * v_loc:(r + 1) * v_loc],
                                    rtol=1e-4, atol=1e-4)
         np.testing.assert_array_equal(got["ids"], one["ids"])
+
+
+_BLOCK_WORKER = textwrap.dedent('''
+    import dataclasses
+    import sys
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels.rg_lru import cuda as RG
+    from repro_torch.kernels.selective_scan import cuda as SS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.sharding import use_sharding_rules
+    from repro_torch.training import init_params
+
+    sys.path.insert(0, sys.argv[2])  # the tests directory
+    from torch_tp_common import B, GEN, S, arch_config  # noqa: E402
+
+
+    def results(arch, use_pallas, mesh=None):
+        cfg = dataclasses.replace(arch_config(arch), use_pallas=use_pallas)
+        params = init_params(0, cfg, "cuda")
+        batch = make_batch_for(cfg, batch=B, seq=S, seed=0, device="cuda")
+        SS.reset_launches()
+        RG.reset_launches()
+        with torch.no_grad():
+            res = serve(cfg, params, batch, gen=GEN)
+        out = {k: res[k].cpu().numpy() for k in ("prefill_logits", "logits", "tokens")}
+        out["launches"] = SS.LAUNCHES["selective_scan"] + RG.LAUNCHES["rg_lru"]
+        return out
+
+
+    def worker(rank, tmp, arch):
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{arch}", rank=rank,
+                                world_size=2)
+        mesh = make_mesh((1, 2), ("data", "model"), device="cuda")
+        torch.cuda.set_device(mesh.device)
+        with use_sharding_rules(mesh):
+            np.savez(f"{tmp}/{arch}_rank_{rank}.npz", **results(arch, True, mesh))
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+    if __name__ == "__main__":
+        tmp, arch = sys.argv[1], sys.argv[3]
+        np.savez(f"{tmp}/{arch}_one.npz", **results(arch, False))
+        torch.multiprocessing.spawn(worker, args=(tmp, arch), nprocs=2, join=True)
+        print("OK channel blocks on the card")
+''')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", [("falcon-mamba-7b", 2), ("recurrentgemma-9b", 3)])
+def test_scan_and_rg_lru_kernels_on_a_ranks_channel_block(tmp_path, arch, layers):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernels are CUDA C++ and have no CPU mode")
+    script = tmp_path / "tp_block_worker.py"
+    script.write_text(_BLOCK_WORKER)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path), os.path.join(ROOT, "tests"),
+                           arch], env=env, cwd=str(tmp_path), capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    one = dict(np.load(tmp_path / f"{arch}_one.npz"))
+    assert int(one["launches"]) == 0  # the plain versions
+    for r in range(2):
+        got = dict(np.load(tmp_path / f"{arch}_rank_{r}.npz"))
+        assert int(got["launches"]) == layers  # one a recurrent layer's prefill
+        for k in ("prefill_logits", "logits"):
+            v_loc = got[k].shape[-1]
+            np.testing.assert_allclose(got[k], one[k][..., r * v_loc:(r + 1) * v_loc],
+                                       rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(got["tokens"], one["tokens"])

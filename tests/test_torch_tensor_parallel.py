@@ -34,8 +34,10 @@ Bounds, each with its reason:
 * the bytes every rank handed to all-reduce (``COLLECTIVE_BYTES``) equal
   ``launch.analysis.port_collective_bytes`` exactly, for the gradient step
   and for the serve (prefill + 8 decode steps);
-* under model 2 an SSM arch (reduced falcon-mamba-7b) raises at build time
-  and ``CheckpointHook`` refuses the sharded state.
+* under model 2 a ``sequence_parallel`` config (whose layout the port does
+  not run) raises at build time, reduced falcon-mamba-7b builds its blocks
+  (``in_proj`` as the rank's ``[u_r | z_r]``, half the whole leaf's
+  columns), and ``CheckpointHook`` refuses the sharded state.
 """
 
 import dataclasses
@@ -173,8 +175,11 @@ _WORKER = textwrap.dedent('''
                 from repro_torch.run import CheckpointHook
                 from repro_torch.training import init_params
 
+                ssm = reduced(get_config("falcon-mamba-7b"), d_model=64)
+                out["ssm_in_proj"] = np.array(
+                    init_params(0, ssm, "cpu")["stack"]["pos0"]["ssm"]["in_proj"].shape)
                 try:
-                    init_params(0, reduced(get_config("falcon-mamba-7b"), d_model=64), "cpu")
+                    init_params(0, dataclasses.replace(ssm, sequence_parallel=True), "cpu")
                 except NotImplementedError as e:
                     out["ssm_error"] = str(e)
                 try:
@@ -414,8 +419,12 @@ def test_remat_recomputes_every_forward_all_reduce(runs, name):
 
 
 def test_unsharded_layers_and_checkpoints_raise(runs):
+    """A layout the port does not run (``sequence_parallel``) and a sharded
+    checkpoint raise; the Mamba layer, which the port now shards, builds
+    the rank's blocks."""
     r = runs["ranks"]["1x2"][0]
-    assert "Mamba" in str(r["ssm_error"]) and "ROADMAP" in str(r["ssm_error"])
+    assert "sequence_parallel" in str(r["ssm_error"]) and "ROADMAP" in str(r["ssm_error"])
+    assert tuple(r["ssm_in_proj"]) == (2, 64, 2 * 128 // 2)  # 2 layers, d 64, [u_r | z_r]
     assert "sharded" in str(r["ckpt_error"]) and "ROADMAP" in str(r["ckpt_error"])
 
 

@@ -1,15 +1,17 @@
-"""The planner's multi-card records are the port's own layout for the archs
-the port shards, and still the reference's for the rest.
+"""The planner's multi-card records are the port's own layout for every
+registered arch.
 
 ``repro_torch.launch.dryrun --cards 4`` (data 1 x model 4): a stablelm-1.6b
-record's ``layout`` reads as the port's and its collective term is
-``port_collective_bytes`` (the all-reduces a port rank runs, no FSDP
-all-gather); a falcon-mamba-7b record (an SSM, which the port does not shard
-and raises on under ``model`` > 1) still says it is the reference's layout.
-On ``--small_mesh`` (data 2 x model 2) the port keeps every weight whole over
+record's and a falcon-mamba-7b record's ``layout`` reads as the port's and
+the collective term is ``port_collective_bytes`` (the all-reduces a port
+rank runs, no FSDP all-gather); only a ``sequence_parallel`` /
+``shard_grads`` config, whose layout the port does not run, raises, in the
+port and in the planner.  On
+``--small_mesh`` (data 2 x model 2) the port keeps every weight whole over
 ``data``, so a stablelm-1.6b rank holds the params of a ``--cards 2`` rank.
 """
 
+import dataclasses
 import json
 import math
 
@@ -19,7 +21,11 @@ from repro_torch.configs import get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.analysis import port_collective_bytes
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.sharding.specs import local_template, tensor_parallel_unsupported
+from repro_torch.sharding.specs import (
+    check_tensor_parallel,
+    local_template,
+    tensor_parallel_unsupported,
+)
 from repro_torch.training.steps import param_template
 from repro_torch.tree import tree_leaves
 
@@ -46,21 +52,77 @@ def test_a_sharded_arch_plans_the_port_layout(records):
 
 
 def test_an_unsharded_arch_still_plans_the_reference_layout(records):
+    """falcon-mamba-7b, which the port did not shard before its Mamba layer
+    did, now plans the port's layout: its collective term is the port's
+    count, the Mamba layers' partial sums and outputs among it."""
     rec = records["falcon-mamba-7b"]
     assert rec["status"] == "ok"
-    assert rec["layout"].startswith("the reference's tensor-parallel layout, not run")
-    assert "Mamba" in rec["layout"]
-    assert "counted" not in rec["collectives"]
+    assert rec["layout"].startswith("the port's layout")
+    want = port_collective_bytes(get_config("falcon-mamba-7b"), "decode", 128, 32_768,
+                                 make_mesh((1, 4), ("data", "model")))
+    assert rec["collectives"]["counted"] == want["counted"]
+    assert want["counted"]["ssm_proj"] > 0 and want["counted"]["ssm_out"] > 0
+    assert rec["collectives"]["all-gather"] == rec["collectives"]["reduce-scatter"] == 0
+    assert rec["collectives"]["total"] == pytest.approx(want["total"])
+
+
+# the leaf of the layer an arch adds to the port's tensor parallelism, and
+# whether model 2 splits it (internvl2-2b's odd vocab keeps its embedding whole)
+_LAYER_LEAVES = {"SSM": ("stack/pos0/ssm/in_proj", True),
+                 "RG-LRU": ("stack/pos0/rglru/w_a", True),
+                 "encoder": ("decoder/cross_attn/wk", True),
+                 "vision": ("embed/embedding", False)}
 
 
 @pytest.mark.parametrize("arch,why", [("stablelm-1.6b", None), ("qwen2-moe-a2.7b", None),
                                       ("gemma2-27b", None), ("codeqwen1.5-7b", None),
                                       ("falcon-mamba-7b", "SSM"), ("recurrentgemma-9b", "RG-LRU"),
                                       ("whisper-large-v3", "encoder"),
-                                      ("internvl2-2b", "vision")])
+                                      ("internvl2-2b", "vision"),
+                                      ("stablelm-1.6b", "sequence_parallel")])
 def test_which_archs_the_port_shards(arch, why):
-    got = tensor_parallel_unsupported(get_config(arch))
-    assert (got is None) if why is None else (why in got)
+    """Every registered arch shards; ``why`` names the layer of the arch the
+    port shards since its later slice, whose leaf a model-2 rank then holds
+    as its block.  A ``sequence_parallel`` config raises."""
+    from repro_torch.training.steps import param_template
+    from repro_torch.tree import tree_paths
+
+    def shapes(template):
+        return {"/".join(p): tuple(s) for p, (s, _) in tree_paths(template)}
+
+    cfg = get_config(arch)
+    if why == "sequence_parallel":
+        cfg = dataclasses.replace(cfg, sequence_parallel=True)
+        assert "sequence_parallel" in tensor_parallel_unsupported(cfg)
+        with pytest.raises(NotImplementedError, match="sequence_parallel"):
+            check_tensor_parallel(cfg)
+        return
+    assert tensor_parallel_unsupported(cfg) is None
+    check_tensor_parallel(cfg)
+    if why is not None:
+        path, split = _LAYER_LEAVES[why]
+        whole = shapes(param_template(cfg))[path]
+        rank = shapes(local_template(cfg, make_mesh((1, 2), ("data", "model"))))[path]
+        assert (rank != whole) == split
+
+
+def test_the_planner_refuses_a_layout_the_port_does_not_run(monkeypatch):
+    """A ``sequence_parallel`` config raises on a multi-card layout, in the
+    record of an input shape and in ``plan_run``, before anything is
+    planned: the port raises on it at ``init_model``."""
+    from repro_torch.configs import reduced
+    from repro_torch.run import RunSpec
+
+    sp = dataclasses.replace(get_config("stablelm-1.6b"), sequence_parallel=True)
+    monkeypatch.setattr(D, "get_config", lambda arch: sp)
+    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+        D.dryrun_extrapolated("stablelm-1.6b", "decode_32k", cards=4)
+    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+        D.dryrun_extrapolated("stablelm-1.6b", "decode_32k", small_mesh=True)
+    spec = RunSpec(cfg=reduced(sp, d_model=64), mode="sync", num_steps=1, batch_size=2,
+                   seq_len=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+        D.plan_run(spec, mesh=make_mesh((1, 2), ("data", "model")))
 
 
 def test_small_mesh_keeps_weights_whole_over_data():

@@ -1,7 +1,8 @@
-"""What the tensor-parallel tests share: the reduced stablelm config and
-the run specs that the one-process and the sharded runs both take
-(``tests/test_torch_tensor_parallel.py`` and its spawned ranks,
-``tests/test_torch_cuda_tensor_parallel.py``).  Imports no JAX."""
+"""What the tensor-parallel tests share: the reduced configs and the run
+specs that the one-process and the sharded runs both take
+(``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_tp_archs.py``
+and their spawned ranks, ``tests/test_torch_cuda_tensor_parallel.py``).
+Imports no JAX."""
 
 import dataclasses
 
@@ -20,6 +21,26 @@ def config(variant):
     return dataclasses.replace(cfg, num_kv_heads=1) if variant == "kv1" else cfg
 
 
+# The other families at d_model 64, each cut as the reference's ``reduced``
+# cuts it, and then: recurrentgemma-9b to one (recurrent, recurrent, local)
+# period and a remainder recurrent layer; whisper-large-v3's vocab to 514,
+# which as its 51,866 splits over 2 ranks and not over 4; internvl2-2b's to
+# 515, odd as its 92,553, so its embedding, unembedding and logits stay whole.
+ARCH_UPDATES = {
+    "falcon-mamba-7b": {},
+    "recurrentgemma-9b": {"num_layers": 4},
+    "whisper-large-v3": {"vocab_size": 514},
+    "internvl2-2b": {"vocab_size": 515},
+}
+ARCHS = tuple(ARCH_UPDATES)
+
+
+def arch_config(arch, reduce=reduced, get=get_config):
+    """``arch`` reduced for the tensor-parallel tests (``ARCH_UPDATES``);
+    ``reduce`` / ``get`` of the reference give its twin."""
+    return dataclasses.replace(reduce(get(arch), d_model=64), **ARCH_UPDATES[arch])
+
+
 def async_spec(cfg, params, draws, device="cpu"):
     """4 fused async ticks: momentum, W = K = 4, a refresh every 2, the
     uniforms handed in."""
@@ -33,6 +54,17 @@ def async_spec(cfg, params, draws, device="cpu"):
                    num_steps=TICKS, batch_size=B, seq_len=S, num_workers=4, ring=4, adapt=adapt,
                    fuse=True, params=params, refresh_every=2, seed=0, device=device,
                    tau_source=lambda: torch.from_numpy(next(it)))
+
+
+def arch_async_spec(cfg, params, draws, device="cpu"):
+    """:func:`async_spec` for 3 ticks on the batches ``make_batch_for``
+    draws (the vision prefix and the encoder frames included), step t's
+    from seed t."""
+    from repro_torch.data import make_batch_for
+
+    return dataclasses.replace(
+        async_spec(cfg, params, draws, device), num_steps=3,
+        batch_fn=lambda t: make_batch_for(cfg, batch=B, seq=S, seed=t, device=device))
 
 
 def clip_spec(cfg, params, device="cpu"):
