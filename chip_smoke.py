@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded-resume-layers 24   # phase 16 (a) alone
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit.  It imports nothing of JAX or of the JAX package, and fails
@@ -24,7 +25,10 @@ Phases, each fatal on failure:
    slots 5 and 7, which no worker maps to at step 11: p and v must come out
    finite and match the plain version (the tick reads only live slots).
    Prints each kernel's time, the plain version's, the byte bound at
-   3.35 TB/s (the tick moves exactly those bytes) and the errors.
+   3.35 TB/s (the tick moves exactly those bytes) and the errors, and for
+   the chain and fused_update the time of PyTorch's fused optimizer step
+   on the same (N,) f32 tensor (``SGD(momentum, fused=True)``,
+   ``Adam(fused=True)``: the same bytes and update), their library time.
 3. main path — ``run(RunSpec(mode="async", fuse=True, ...))`` on full-width
    stablelm-1.6b (24 layers, momentum, W = 8, ring 8 in bf16, batch 4 x seq
    512, refresh every 5) for 12 ticks, launch counts zeroed just before and
@@ -236,6 +240,31 @@ Phases, each fatal on failure:
    one process, bytes to the plan.  Prints prefill s, decode ms a step,
    peaks and bytes; a rank that fails, or the group past 300 s, fails the
    phase.
+16. checkpoint and resume of multi-process training states — gloo ranks
+   sharing the card, each under ``use_sharding_rules`` with its blocks.
+   (a) 2 ranks (data 1 x model 2) run phase 7's run (phase 3's config, 6
+   ticks, a refresh every 2) at full width and 2 of 24 layers, saving once
+   at step 3 through ``CheckpointHook`` (rank 0 writes the one
+   checkpoint); a fresh group resumes it with ``resume_step=3``.  Gates:
+   each rank's resumed losses and every leaf (SHA-256 of its bits) those of
+   the run that was not interrupted, fused_tick 6 + 3 a rank, every member
+   of the checkpoint of the shape and stored dtype a one-process save
+   writes, each rank's peak in the save and in the restore within 1 GB of
+   its training peak.  (b) 4 ranks (data 2 x model 2) at full width and 1
+   layer, f32 activations and an f32 ring of W = K = 2 (so the layouts
+   differ by f32 round-off alone), save at step 3; 2 ranks (data 1 x model
+   2) restore it, each held bit for bit to ``specs.localize`` of the whole
+   leaves, and one process restores it, held to the file's bits; both run
+   3 more ticks, the gathered params within 1e-5 of one process's.  The
+   depths are cut for the disk: the whole script is held to 45 GiB of disk
+   writes, deleted files included, and phase 7 writes 34.53 GB; (a) writes
+   7.40 GB and (b) 4.11 GB.  Prints save and restore seconds, GB on
+   disk, the disk's free space and the peaks; each directory is removed at
+   the end of its part; a rank that fails, or a group past 300 s, fails
+   the phase.  ``--sharded-resume-layers L`` builds the adaptive_update
+   kernels and runs (a) alone at L layers (24: full depth, a 34.53 GB
+   checkpoint), with the same gates; it prints (a)'s row and the card, and
+   no result line.
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
 ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
@@ -489,8 +518,36 @@ def check_chain(kind, n, dev):
     del p0, bufs0
     ms = cuda_ms(lambda: C.fused_chain(kind, p, g, bufs, s))
     nbytes = n * (8 + 4 + 8 * len(state_list(kind, bufs)))
+    del bufs
+    library_ms, call = library_step(kind, p, g)
     return dict(max_abs_err=errs["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes, library_ms=library_ms,
+                library_call=call)
+
+
+def library_step(kind, p, g):
+    """One step of PyTorch's fused optimizer on the ``(N,)`` f32 tensor ``p``
+    with gradient ``g`` (the kernel's buffers, reused: their values no longer
+    matter), timed only: ``SGD(momentum=mu, fused=True)`` (the momentum body
+    and the fused_apply link; plain SGD for the sgd body) or
+    ``Adam(fused=True)``.  It moves the same bytes as the kernel (each of p,
+    g and the state read once, p and the state written once) and computes
+    the same update up to the scale the velocity carries."""
+    import torch
+
+    q = p.detach()
+    q.grad = g
+    if kind == "adam":
+        opt, call = torch.optim.Adam([q], lr=0.05, fused=True), "torch.optim.Adam(fused=True).step()"
+    else:
+        mu = 0.9 if kind == "momentum" else 0.0
+        opt = torch.optim.SGD([q], lr=0.05, momentum=mu, fused=True)
+        call = f"torch.optim.SGD(momentum={mu}, fused=True).step()"
+    ms = cuda_ms(opt.step)
+    del opt
+    q.grad = None
+    free_cuda()
+    return ms, call
 
 
 def check_combine(n, dev):
@@ -557,8 +614,11 @@ def check_update(n, dev):
     del p0, v0
     ms = cuda_ms(lambda: C.fused_update(p, g, v, alpha, mu))
     nbytes = n * 20
+    del v
+    library_ms, call = library_step("momentum", p, g)
     return dict(max_abs_err=errs["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes, library_ms=library_ms,
+                library_call=call)
 
 
 def free_cuda():
@@ -2740,6 +2800,369 @@ def other_families(root):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: checkpoint and resume of multi-process training states
+# ---------------------------------------------------------------------------
+
+SR_TIMEOUT_S = 300  # a rank, or a collective, that takes longer fails the phase
+SR_TICKS, SR_SAVE = 6, 3
+# Depths, cut for the disk: the whole script is held to 45 GiB of disk
+# writes, deleted files included, and phase 7 writes 34.53 GB of it.  (a)
+# at 2 layers writes 7.40 GB, (b) at 1 layer 4.11 GB.
+SR_LAYERS, SR_DXM_LAYERS, SR_DXM_WK = 2, 1, 2
+SR_SLACK_BYTES = 1 << 30  # a rank's peak in a save or a restore over its training peak
+
+
+def sr_spec(full, device="cuda", layers=SR_LAYERS, **upd):
+    """(a)'s run: phase 7's (phase 3's config, 6 ticks, a refresh every 2)
+    at full width and ``layers`` layers."""
+    cfg = dataclasses.replace(full, num_layers=layers)
+    return dataclasses.replace(main_spec(cfg, device),
+                               **{"num_steps": SR_TICKS, "refresh_every": 2, **upd})
+
+
+def sr_dxm_spec(full, device="cuda", **upd):
+    """(b)'s run: full width at ``SR_DXM_LAYERS`` layers, f32 activations
+    without remat and an f32 ring of W = K = 2 (so the layouts' continued
+    ticks differ by f32 round-off alone: phase 14's agreement dtypes), a
+    refresh every 2, saved at the end of tick 3."""
+    from repro_torch.run import RunSpec
+
+    cfg = dataclasses.replace(tp_agree_config(full), num_layers=SR_DXM_LAYERS)
+    pipe, adapt = lm_pipeline(0.01, SR_DXM_WK, SR_DXM_WK)
+    spec = RunSpec(cfg=cfg, pipeline=pipe, mode="async", num_steps=SR_SAVE, batch_size=4,
+                   seq_len=512, num_workers=SR_DXM_WK, ring=SR_DXM_WK, adapt=adapt, fuse=True,
+                   refresh_every=2, seed=0, device=device)
+    return dataclasses.replace(spec, **upd)
+
+
+def leaf_digests(state) -> dict:
+    """SHA-256 of every leaf's bits, streamed to the host a chunk at a time."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.checkpoint import key_paths
+
+    out = {}
+    for k, v in key_paths(state):
+        h = hashlib.sha256()
+        t = v.get_state() if isinstance(v, torch.Generator) else v.detach().reshape(-1)
+        for lo in range(0, t.numel(), CHUNK):
+            h.update(_bits(t[lo:lo + CHUNK]).contiguous().cpu().numpy().tobytes())
+        out[k] = h.hexdigest()
+    return out
+
+
+def member_rows(path, key):
+    """The rows of a checkpoint leaf (its leading dims), streamed from the
+    npz member one at a time as numpy arrays of the stored dtype."""
+    import zipfile
+
+    import numpy as np
+
+    with zipfile.ZipFile(path) as zf, zf.open(key + ".npy") as f:
+        np.lib.format.read_magic(f)
+        shape, _, dtype = np.lib.format.read_array_header_1_0(f)
+        row = shape[-1] if shape else 1
+        for _ in range(math.prod(shape[:-1]) if shape else 1):
+            yield np.frombuffer(f.read(row * dtype.itemsize), dtype=dtype)
+
+
+def file_layout(path) -> dict:
+    """``{key: (shape, stored dtype)}`` of every member of a checkpoint's
+    npz, read from the members' headers."""
+    import zipfile
+
+    import numpy as np
+
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            with zf.open(name) as f:
+                np.lib.format.read_magic(f)
+                shape, _, dtype = np.lib.format.read_array_header_1_0(f)
+            out[name[:-len(".npy")]] = (tuple(shape), str(dtype))
+    return out
+
+
+def one_process_layout(template) -> dict:
+    """What :func:`file_layout` reads from a one-process save of a state of
+    this template (bf16 stored as uint16, a generator's state as uint8)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import key_paths
+    from repro_torch.checkpoint.store import _np_dtype
+
+    out = {}
+    for k, v in key_paths(template):
+        if isinstance(v, torch.Generator):
+            out[k] = (tuple(v.get_state().shape), str(np.dtype(np.uint8)))
+        else:
+            out[k] = (tuple(v.shape), str(_np_dtype(v.dtype)[0]))
+    return out
+
+
+def restored_differ(directory, state, cfg, mesh=None) -> list:
+    """The leaves of a restored ``state`` that are not, bit for bit, the
+    checkpoint's whole leaves (one process) or ``specs.localize`` of them
+    (a rank of ``mesh``: flat leaves row by row of their leading dims,
+    replicated leaves whole)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import key_paths
+    from repro_torch.optim import transform as T
+    from repro_torch.sharding.specs import localize
+    from repro_torch.training.steps import param_template
+
+    path = os.path.join(directory, f"step_{SR_SAVE:08d}.npz")
+    template = param_template(cfg)
+    n = sum(math.prod(shape) for shape, _ in _leaves(template))
+    bad = []
+    for key, leaf in key_paths(state):
+        mine = leaf.get_state() if isinstance(leaf, torch.Generator) else leaf
+        rows = mine.reshape(-1, mine.shape[-1]) if mine.dim() else mine.reshape(1, 1)
+        for i, whole in enumerate(member_rows(path, key)):
+            t = torch.from_numpy(whole.copy())
+            if whole.dtype == np.uint16:  # bf16 bits
+                t = t.view(torch.int16).view(mine.dtype)
+            if mesh is not None and t.numel() == n and mine.shape[-1] != n:
+                t = T.pack_flat(localize(T.flat_view(t, template), cfg, mesh), dtype=t.dtype)
+            if not torch.equal(_bits(t.to(mine.device)), _bits(rows[i])):
+                bad.append(key)
+                break
+    return bad
+
+
+def sr_rank(rank, world, data, model, what, store, out_dir):
+    """One rank of phase 16 (a spawned process): gloo over the one card.
+    ``what``: ``"a"`` (data 1 x model 2: 6 ticks, a timed save at 3),
+    ``"b"`` (the same layout resumed at 3), ``"dxm"`` (data 2 x model 2: 3
+    ticks and a save), ``"dxm_12"`` (that checkpoint restored at data 1 x
+    model 2, held to ``localize`` of the whole, 3 more ticks; then rank 0
+    alone restores it as one process, held to the file, and runs the same
+    3 ticks)."""
+    import datetime
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.bridge import gather_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adaptive_update import cuda as C
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.run import CheckpointHook, Hook, run
+    from repro_torch.run.ckpt import restore_checkpoint
+    from repro_torch.run.engine import make_engine
+    from repro_torch.sharding import use_sharding_rules
+    from repro_torch.sharding.ctx import rules_in_force
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SR_TIMEOUT_S))
+    mesh = make_mesh((data, model), ("data", "model"), device="cuda")
+    torch.cuda.set_device(mesh.device)
+    full = get_config("stablelm-1.6b")
+    dxm = what.startswith("dxm")
+    with open(f"{out_dir}/layers.json") as f:
+        layers = json.load(f)  # (a)'s
+    directory = f"{out_dir}/ckpt_{'dxm' if dxm else 'a'}"
+    out = {}
+
+    class Losses(Hook):
+        def __init__(self):
+            self.losses, self.t_start, self.start_peak = [], None, None
+
+        def on_start(self, ctx):
+            torch.cuda.synchronize()
+            self.t_start = time.perf_counter()
+            self.start_peak = torch.cuda.max_memory_allocated()
+
+        def on_tick(self, ctx):
+            self.losses.append(ctx.metrics["loss"].item())
+
+    class TimedCheckpoint(CheckpointHook):
+        """The hook's save at step 3, timed, with the peak before it (the
+        training peak) and during it; stopped after it, as phase 7's: a save
+        at step 6 would write a second checkpoint that nothing reads."""
+
+        def _save(self, ctx):
+            if self.saved_steps:
+                return
+            torch.cuda.synchronize()
+            self.train_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            super()._save(ctx)
+            torch.cuda.synchronize()
+            self.seconds = time.perf_counter() - t0
+            self.save_peak = torch.cuda.max_memory_allocated()
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_launches()
+    hook = Losses()
+    dist.barrier()
+    t0 = time.perf_counter()
+    if what in ("a", "dxm"):
+        spec = sr_dxm_spec(full) if dxm else sr_spec(full, layers=layers)
+        saver = TimedCheckpoint(directory, every=SR_SAVE)
+        with use_sharding_rules(mesh):
+            state = run(spec, hooks=[hook, saver]).state
+        torch.cuda.synchronize()
+        out.update(save_s=saver.seconds, train_peak=saver.train_peak, save_peak=saver.save_peak)
+    else:
+        spec = sr_dxm_spec(full, num_steps=SR_SAVE + 3) if dxm else sr_spec(full, layers=layers)
+        with use_sharding_rules(mesh):
+            if dxm:
+                engine = make_engine(spec)
+                held, _ = restore_checkpoint(directory, engine.build_template(), spec.pipeline,
+                                             step=SR_SAVE, device="cuda",
+                                             layout=engine.checkpoint_layout())
+                out["localize_differ"] = restored_differ(directory, held, spec.cfg, mesh)
+                del held, engine
+                free_cuda()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+            state = run(spec, hooks=[hook], resume_from=directory, resume_step=SR_SAVE).state
+            torch.cuda.synchronize()
+            p_all = gather_params(state.params, spec.cfg, mesh) if dxm else None
+        out.update(restore_s=hook.t_start - t0, restore_peak=hook.start_peak)
+    out.update(losses=hook.losses, launches=dict(C.LAUNCHES), digests=leaf_digests(state),
+               end_peak=torch.cuda.max_memory_allocated())
+    del state
+    if what == "dxm_12" and rank == 0:
+        # one process: the same checkpoint, held to the file's bits, and the same ticks
+        free_cuda()
+        one_spec = sr_dxm_spec(full, num_steps=SR_SAVE + 3)
+        with rules_in_force(None):
+            engine = make_engine(one_spec)
+            t1 = time.perf_counter()
+            held, _ = restore_checkpoint(directory, engine.build_template(), one_spec.pipeline,
+                                         step=SR_SAVE, device="cuda")
+            torch.cuda.synchronize()
+            out["one_restore_s"] = time.perf_counter() - t1
+            out["one_differ"] = restored_differ(directory, held, one_spec.cfg)
+            del held, engine
+            free_cuda()
+            one = run(one_spec, resume_from=directory, resume_step=SR_SAVE).state.params
+        out["params_max_abs"] = float((p_all - one).abs().max())
+        del one
+    with open(f"{out_dir}/{what}_{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_resume(root, full, layers=SR_LAYERS, across=True):
+    """Phase 16 (module docstring): (a) a same-layout resume at data 1 x
+    model 2 at ``layers`` layers; with ``across``, (b) a data 2 x model 2
+    save restored at data 1 x model 2 and in one process."""
+    import shutil
+
+    from repro_torch.run.engine import make_engine
+
+    t_phase = time.perf_counter()
+    out_dir = root / "build" / "sharded_resume"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with open(out_dir / "layers.json", "w") as f:
+        json.dump(layers, f)
+    free_cuda()
+    rows = {}
+
+    def ranks(what, world):
+        recs = []
+        for r in range(world):
+            with open(out_dir / f"{what}_{r}.json") as f:
+                recs.append(json.load(f))
+        return recs
+
+    def on_disk(ck, spec):
+        """The checkpoint's bytes, after holding the directory to one
+        checkpoint and its members' shapes and stored dtypes to a
+        one-process save's (the template's generator on the card, as the
+        run's)."""
+        base = f"step_{SR_SAVE:08d}"
+        files = sorted(os.listdir(ck))
+        check(files == sorted(["latest", f"{base}.json", f"{base}.npz", f"{base}_host.npz"]),
+              f"sharded resume: the checkpoint directory holds {files}")
+        npz = ck / f"{base}.npz"
+        want = one_process_layout(make_engine(spec).build_template())
+        got = file_layout(npz)
+        check(list(got) == list(want) and got == want,
+              f"sharded resume: the checkpoint holds {got}, one process saves {want}")
+        return sum(os.path.getsize(ck / f) for f in os.listdir(ck)
+                   if f.startswith(f"step_{SR_SAVE:08d}"))
+
+    # -- (a) same layout ----------------------------------------------------------
+    free_disk = shutil.disk_usage(out_dir).free
+    wall_a = run_ranks(2, 1, 2, "a", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
+    ckpt_bytes = on_disk(out_dir / "ckpt_a", sr_spec(full, layers=layers))
+    wall_b = run_ranks(2, 1, 2, "b", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
+    a, b = ranks("a", 2), ranks("b", 2)
+    for ra, rb in zip(a, b):
+        check(rb["losses"] == ra["losses"][SR_SAVE:],
+              f"sharded resume (a): resumed losses {rb['losses']} != {ra['losses'][SR_SAVE:]}")
+        differ = [k for k in ra["digests"] if ra["digests"][k] != rb["digests"][k]]
+        check(not differ, f"sharded resume (a): the resumed state differs in {differ}")
+        check((ra["launches"]["fused_tick"], rb["launches"]["fused_tick"]) == (SR_TICKS, SR_SAVE),
+              f"sharded resume (a): fused_tick {ra['launches']} + {rb['launches']}")
+        for what, peak in (("save", ra["save_peak"]), ("restore", rb["restore_peak"])):
+            check(peak <= ra["train_peak"] + SR_SLACK_BYTES,
+                  f"sharded resume (a): {what} peak {peak} B over the training peak "
+                  f"{ra['train_peak']} B by more than 1 GB")
+    rows["same_layout"] = dict(
+        layout="data 1 x model 2", layers=layers, checkpoint_gb=ckpt_bytes / 1e9,
+        free_disk_gb=free_disk / 1e9, save_s=[r["save_s"] for r in a],
+        restore_s=[r["restore_s"] for r in b], train_peak_gb=[r["train_peak"] / 1e9 for r in a],
+        save_peak_gb=[r["save_peak"] / 1e9 for r in a],
+        restore_peak_gb=[r["restore_peak"] / 1e9 for r in b],
+        fused_tick=[[ra["launches"]["fused_tick"], rb["launches"]["fused_tick"]]
+                    for ra, rb in zip(a, b)],
+        losses=a[0]["losses"], leaves=len(a[0]["digests"]), group_s=[wall_a, wall_b])
+    log(f"[resume16] (a) {json.dumps(rows['same_layout'])}")
+    shutil.rmtree(out_dir / "ckpt_a", ignore_errors=True)
+    if not across:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        return rows
+
+    # -- (b) across layouts -----------------------------------------------------
+    wall_dxm = run_ranks(4, 2, 2, "dxm", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
+    dxm_bytes = on_disk(out_dir / "ckpt_dxm", sr_dxm_spec(full))
+    wall_12 = run_ranks(2, 1, 2, "dxm_12", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
+    dxm, r12 = ranks("dxm", 4), ranks("dxm_12", 2)
+    for r in r12:
+        check(not r["localize_differ"], f"sharded resume (b): data 1 x model 2 restored "
+              f"{r['localize_differ']} other than localize of the whole")
+        check(r["launches"]["fused_tick"] == 3, f"sharded resume (b): {r['launches']}")
+    for r in dxm:
+        check(r["launches"]["fused_tick"] == SR_SAVE, f"sharded resume (b): {r['launches']}")
+    check(not r12[0]["one_differ"], f"sharded resume (b): one process restored "
+          f"{r12[0]['one_differ']} other than the whole")
+    d_params = r12[0]["params_max_abs"]
+    check(d_params <= 1e-5, f"sharded resume (b): the continued ticks' params {d_params:.3e} "
+          "past 1e-5 of one process's")
+    rows["across_layouts"] = dict(
+        save_layout="data 2 x model 2", restore_layouts=["data 1 x model 2", "one process"],
+        layers=SR_DXM_LAYERS, checkpoint_gb=dxm_bytes / 1e9,
+        save_s=[r["save_s"] for r in dxm], restore_s=[r["restore_s"] for r in r12],
+        one_process_restore_s=r12[0]["one_restore_s"],
+        train_peak_gb=[r["train_peak"] / 1e9 for r in dxm],
+        save_peak_gb=[r["save_peak"] / 1e9 for r in dxm],
+        restore_peak_gb=[r["restore_peak"] / 1e9 for r in r12],
+        fused_tick=[r["launches"]["fused_tick"] for r in dxm + r12],
+        params_max_abs=d_params, group_s=[wall_dxm, wall_12])
+    log(f"[resume16] (b) {json.dumps(rows['across_layouts'])}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"[resume16] phase 16 took {rows['phase_s']:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2763,6 +3186,14 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi()
     log(f"card: {smi}  torch {torch.__version__} cuda {torch.version.cuda}")
+    if sys.argv[1:2] == ["--sharded-resume-layers"]:
+        # phase 16 (a) alone, at the depth asked for
+        compile_libraries([C.SOURCE], force=True, verbose=True)
+        rows = sharded_resume(root, get_config("stablelm-1.6b"), layers=int(sys.argv[2]),
+                              across=False)
+        log(json.dumps({"sharded_checkpoints": rows}))
+        print(nvidia_smi())
+        return 0
 
     # -- phase 1: build (one nvcc per source, all at once) -----------------------
     t0 = time.perf_counter()
@@ -2791,7 +3222,8 @@ def main() -> int:
         r = check_chain(kind, n, dev)
         results[f"fused_chain/{kind}"] = r
         log(f"[kernel] fused_chain/{kind}: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  "
-            f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms")
+            f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms  library "
+            f"{r['library_ms']:.3f} ms ({r['library_call']})")
         free_cuda()
     results["fused_combine/bfloat16"] = r = check_combine(n, dev)
     log(f"[kernel] fused_combine/bfloat16: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  "
@@ -2799,7 +3231,10 @@ def main() -> int:
     free_cuda()
     results["fused_update"] = r = check_update(n, dev)
     log(f"[kernel] fused_update: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  "
-        f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms")
+        f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms  library "
+        f"{r['library_ms']:.3f} ms ({r['library_call']})")
+    log("[kernel] fused_tick and fused_combine: library null (no one PyTorch call pushes a ring "
+        "and combines W weighted rows)")
     free_cuda()
     log(f"[kernels] all {len(results)} variants hold against their plain versions")
 
@@ -2934,6 +3369,10 @@ def main() -> int:
     families = other_families(root)
     free_cuda()
 
+    # -- phase 16: checkpoint and resume of multi-process training states ----------
+    sharded_ckpt = sharded_resume(root, full)
+    free_cuda()
+
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
         "fused_chain": ("sharded_async (phase 9)", sharded_counts["fused_chain"]),
@@ -2992,7 +3431,9 @@ def main() -> int:
         "tensor-parallel training, data 2 x model 2, 6 layers (each of 4 ranks)":
             tp["data_x_model"]["fused_tick"][0],
         f"tensor-parallel training, falcon-mamba-7b at {OF_TRAIN_LAYERS} layers, data 1 x model 2 "
-        "(each of 2 ranks)": families["train"]["fused_tick"][0]}
+        "(each of 2 ranks)": families["train"]["fused_tick"][0],
+        "tensor-parallel training saved at step 3 and resumed, data 1 x model 2 (phase 16, run "
+        "A + run B, each of 2 ranks)": sum(sharded_ckpt["same_layout"]["fused_tick"][0])}
     kernels[[k["name"] for k in kernels].index("fused_chain")]["launches_by_path"] = {
         "sharded_async": sharded_counts["fused_chain"],
         "sync_fuse": path_counts["sync_fuse"]["fused_chain"],
@@ -3002,7 +3443,7 @@ def main() -> int:
                     "agreement": agreement, "resume": resume,
                     "exact": exact, "sharded": sharded, "cnn": cnn, "live": live,
                     "plan": plan, "expert_parallel": ep, "tensor_parallel": tp,
-                    "tensor_parallel_families": families},
+                    "tensor_parallel_families": families, "sharded_checkpoints": sharded_ckpt},
                    default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

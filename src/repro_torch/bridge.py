@@ -95,16 +95,18 @@ def gather_params(local_flat: torch.Tensor, cfg, mesh) -> torch.Tensor:
     blocks (a collective: every rank of ``mesh`` calls it and gets the
     whole).  Each leaf is written into a zero buffer by the one rank that
     owns its block at coordinate 0 of every axis the leaf is replicated
-    over, and one all-reduce over the whole layout sums the buffer, so
-    every element is its owner's value exactly (gloo reduces CUDA tensors
-    but does not gather them).  An SSM's ``in_proj`` block ``[u_r | z_r]``
+    over (:func:`~repro_torch.sharding.specs.owns_block`, the rule the
+    sharded checkpoint's gather takes too), and one all-reduce over the
+    whole layout sums the buffer, so every element is its owner's value
+    up to the sign of a zero, which the sum makes ``+0.0`` (gloo reduces
+    CUDA tensors but does not gather them; a checkpoint gathers bits).  An SSM's ``in_proj`` block ``[u_r | z_r]``
     goes back to its columns of u and of z
     (:func:`~repro_torch.sharding.specs.block_view`)."""
     import math
 
     import torch.distributed as dist
 
-    from repro_torch.sharding.specs import _axes_of, block_view, local_shape, storage_spec_for
+    from repro_torch.sharding.specs import block_view, local_shape, owns_block, storage_spec_for
 
     whole = param_template(cfg)
     out = torch.zeros((sum(math.prod(s) for _, (s, _) in tree_paths(whole)),),
@@ -114,8 +116,7 @@ def gather_params(local_flat: torch.Tensor, cfg, mesh) -> torch.Tensor:
         name = "/".join(path)
         spec = storage_spec_for(name, tuple(shape), mesh, cfg)
         n_local = math.prod(local_shape(tuple(shape), spec, mesh))
-        used = {a for e in spec for a in _axes_of(e)}
-        if all(mesh.coords.get(a, 0) == 0 for a in mesh.axis_names if a not in used):
+        if owns_block(spec, mesh):
             view = block_view(out[dst:dst + math.prod(shape)].view(shape), spec, mesh, name)
             view.copy_(local_flat[src:src + n_local].view(view.shape))
         src += n_local

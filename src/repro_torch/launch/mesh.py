@@ -71,12 +71,13 @@ class WorkersMesh:
     world_size: int
     device: torch.device
 
-    def local_workers(self, W: int) -> tuple[int, int]:
-        """``(lo, hi)``: the workers this rank owns out of ``W``."""
+    def local_workers(self, W: int, rank: int | None = None) -> tuple[int, int]:
+        """``(lo, hi)``: the workers this rank (or ``rank``) owns out of ``W``."""
         if W % self.world_size:
             raise ValueError(f"{W} workers do not split over {self.world_size} processes")
         per = W // self.world_size
-        return self.rank * per, (self.rank + 1) * per
+        r = self.rank if rank is None else rank
+        return r * per, (r + 1) * per
 
 
 def make_workers_mesh(devices: int | None = None, *, device: Any = "cuda") -> WorkersMesh:
@@ -164,6 +165,20 @@ class Mesh:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         return self.groups[tuple(a for a in self.axis_names if a in axes)]
 
+    def at(self, rank: int) -> "Mesh":
+        """The layout as rank ``rank`` sees it (its coordinates; no groups):
+        what a rank computes of another's blocks."""
+        return dataclasses.replace(self, rank=rank, groups={},
+                                   coords=_coords(rank, self.axis_names, self.shape))
+
+
+def _coords(rank: int, axis_names, sizes) -> dict:
+    """Rank ``rank``'s index along each axis, row-major over the axes."""
+    coords, rest = {}, rank
+    for a in reversed(axis_names):
+        coords[a], rest = rest % sizes[a], rest // sizes[a]
+    return {a: coords[a] for a in axis_names}
+
 
 def _subsets(names):
     for n in range(1, len(names) + 1):
@@ -191,10 +206,7 @@ def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...], *, device: An
     rank, world = dist.get_rank(), dist.get_world_size()
     if world != n:
         raise ValueError(f"a {shape} layout needs {n} processes, but {world} are running")
-    coords, rest = {}, rank
-    for a in reversed(axis_names):
-        coords[a], rest = rest % sizes[a], rest // sizes[a]
-    coords = {a: coords[a] for a in axis_names}
+    coords = _coords(rank, axis_names, sizes)
     groups = {}
     all_coords = list(itertools.product(*(range(s) for s in shape)))
     for axes in _subsets(axis_names):

@@ -9,7 +9,9 @@ engines here; the live parameter server's
 :class:`Engine` is the protocol all of them satisfy.  ``build_template()``
 is the resume path's shape-only state: its tensors live on ``meta``, so
 restoring a full-width checkpoint never builds the state it is about to
-overwrite.
+overwrite.  Under a running sharded mesh (a rank of a multi-process run)
+it is the rank's, and ``checkpoint_layout()`` says where it sits in the
+one-process state, which a checkpoint holds (:mod:`repro_torch.run.ckpt`).
 
 PyTorch runs eagerly, so there is no compile to count: ``retraces`` is None
 and :class:`~repro_torch.run.hooks.BenchHook` leaves out its retrace row,
@@ -53,6 +55,8 @@ class Engine(Protocol):
     def build(self) -> Any: ...
 
     def build_template(self) -> Any: ...
+
+    def checkpoint_layout(self) -> Any: ...
 
     def tick(self, state: Any, batch: Any) -> tuple[Any, dict]: ...
 
@@ -117,17 +121,45 @@ class _EngineBase:
     def build_template(self):
         """The state's structure, shapes and dtypes with nothing allocated:
         every tensor on ``meta``, the generator (which cannot be) on the
-        run's device.  The resume path restores into it."""
-        from repro_torch.models import model as M
+        run's device.  The resume path restores into it.  Under a running
+        sharded mesh it is the rank's state."""
         from repro_torch.tree import tree_map
 
         spec = self.spec
         if spec.params is None:
-            params = M.init_model(None, spec.cfg, "meta")
+            params = self._meta_params()
         else:
             params = tree_map(lambda t: torch.empty_like(t, device="meta"), spec.params)
-        adapt = None if spec.adapt is None else spec.adapt.to("meta")
-        return self._build(params, adapt)
+        return self._build(params, self._meta_adapt())
+
+    def _meta_params(self):
+        from repro_torch.models import model as M
+
+        return M.init_model(None, self.spec.cfg, "meta")
+
+    def _meta_adapt(self):
+        return None if self.spec.adapt is None else self.spec.adapt.to("meta")
+
+    def checkpoint_layout(self):
+        """None for one process.  Under a running sharded mesh, where this
+        rank's state sits in the one-process state of the run
+        (:func:`repro_torch.run.ckpt.tensor_parallel_layout`, given the
+        leaves this engine built over the rank's param blocks,
+        :func:`repro_torch.training.steps.over_params`), so that a
+        checkpoint saves and restores it in the one-process layout."""
+        from repro_torch.sharding.collectives import sharded_mesh
+        from repro_torch.sharding.ctx import rules_in_force
+
+        mesh = sharded_mesh()
+        if mesh is None:
+            return None
+        from repro_torch.run.ckpt import tensor_parallel_layout
+        from repro_torch.training.steps import over_params
+
+        with rules_in_force(None):
+            whole = self._build(self._meta_params(), self._meta_adapt())
+        return tensor_parallel_layout(self.spec.cfg, mesh, whole,
+                                      over_params(self.build_template()))
 
     def _make_step(self) -> Callable:
         from repro_torch.training.steps import make_step
@@ -224,6 +256,25 @@ class ShardedAsyncEngine(_EngineBase):
         worker_host_refresh(state.adapt, _refresher_of(self.pipeline), group=self.mesh.group)
         return state
 
+    def checkpoint_layout(self):
+        """None for one process; over a multi-process workers mesh, where
+        this rank's rings and histogram rows sit in the one-process state
+        (:func:`repro_torch.run.ckpt.workers_layout`), whose template is
+        this engine's state built for a mesh of one process."""
+        if self.mesh.world_size == 1:
+            return None
+        from repro_torch.launch.mesh import WorkersMesh
+        from repro_torch.run.ckpt import workers_layout
+        from repro_torch.training.steps import init_sharded_async_state
+
+        spec = self.spec
+        one = WorkersMesh(group=None, rank=0, world_size=1, device=self.mesh.device)
+        whole = init_sharded_async_state(
+            spec.cfg, spec.pipeline, ring=spec.ring, adapt=self._meta_adapt(), seed=spec.seed,
+            device=spec.device, params=self.build_template().params, mesh=one, fuse=spec.fuse,
+            ring_dtype=spec.ring_dtype)
+        return workers_layout(self.mesh, spec.adapt.num_workers, whole)
+
 
 class PrebuiltEngine(_EngineBase):
     """Adapter for a hand-built ``(step_fn, state)`` pair: ``build()`` and
@@ -241,6 +292,17 @@ class PrebuiltEngine(_EngineBase):
 
     def build_template(self):
         return self._state
+
+    def checkpoint_layout(self):
+        """None: a hand-built state is checkpointed as one process holds it;
+        under a running sharded mesh its layout is not known, so it raises."""
+        from repro_torch.sharding.collectives import sharded_mesh
+
+        if sharded_mesh() is not None:
+            raise NotImplementedError(
+                "a hand-built state under a running sharded mesh: its layout is not known, so "
+                "it cannot be checkpointed; build the run from a RunSpec")
+        return None
 
 
 _ENGINES = {"sync": SyncEngine, "async": AsyncEngine, "sharded_async": ShardedAsyncEngine}

@@ -147,7 +147,9 @@ class CheckpointHook(Hook):
     Saves the whole TrainState plus the pipeline's host adaptation state
     (estimator counts, schedule table), so ``run(spec, resume_from=directory)``
     continues bit-identically.  ``at_end=True`` also saves after the final
-    step (skipped when the cadence already did).
+    step (skipped when the cadence already did).  In a multi-process run
+    every rank runs the hook, and the ranks save one checkpoint together,
+    in the one-process layout (``engine.checkpoint_layout()``).
     """
 
     def __init__(self, directory: str, every: int = 0, *, at_end: bool = False):
@@ -155,16 +157,18 @@ class CheckpointHook(Hook):
         self.every = int(every)
         self.at_end = bool(at_end)
         self.saved_steps: list[int] = []
+        self._layout = None
 
     def on_start(self, ctx) -> None:
-        from repro_torch.run.ckpt import refuse_sharded
-
-        refuse_sharded()  # before the first tick, not at the first save
+        # before the first tick, not at the first save: a run whose state
+        # cannot be checkpointed raises here
+        self._layout = ctx.engine.checkpoint_layout()
 
     def _save(self, ctx) -> None:
         from repro_torch.run.ckpt import save_checkpoint
 
-        save_checkpoint(self.directory, ctx.state, ctx.engine.pipeline, ctx.step)
+        save_checkpoint(self.directory, ctx.state, ctx.engine.pipeline, ctx.step,
+                        layout=self._layout)
         self.saved_steps.append(ctx.step)
 
     def on_tick(self, ctx) -> None:

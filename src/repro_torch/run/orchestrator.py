@@ -11,7 +11,8 @@
 Resume is first-class: ``resume_from=directory`` restores the latest
 full-fidelity checkpoint (device state + host estimator sidecar,
 :mod:`repro_torch.run.ckpt`) into the engine's shape-only template and
-continues bit-identically to the uninterrupted run.
+continues bit-identically to the uninterrupted run.  In a multi-process run
+every rank restores its own part of the one checkpoint.
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def run(
 
         state, start_step = restore_checkpoint(
             resume_from, engine.build_template(), engine.pipeline, step=resume_step,
-            device=spec.device,
+            device=spec.device, layout=engine.checkpoint_layout(),
         )
         if start_step > spec.num_steps:
             raise ValueError(

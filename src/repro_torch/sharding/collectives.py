@@ -39,14 +39,22 @@ whole raises there instead of running whole on every rank.
 The expert-parallel MoE's general form, :func:`_sum_over` (a sum over one
 group whose backward sums over another), lives here too.
 
+A sharded checkpoint's collectives (:mod:`repro_torch.run.ckpt`) are here
+as well, and are not counted: :func:`gather_to_writer` moves each chunk of
+a leaf to the one process that writes the file, every element from the
+one rank that owns it, as bits (point to point over gloo, as CPU tensors: no sum
+turns ``-0.0`` into ``+0.0``, and no rank ever holds more than a chunk);
+:func:`check_same_on_every_rank` holds the replicated leaves to one value.
+
 Every all-reduce adds its buffer's bytes to :data:`COLLECTIVE_BYTES` under
 its purpose (a measurement count: the size handed to the collective, never
 waited for).  :func:`repro_torch.launch.analysis.port_collective_bytes`
 plans the same counts from a config and a layout; the tests and
 ``chip_smoke.py`` hold one to the other exactly.
 
-Nothing here waits for the device: no ``.item()``, ``float``/``int`` of a
-tensor or ``np.asarray``.
+Nothing a step calls here waits for the device: no ``.item()``,
+``float``/``int`` of a tensor or ``np.asarray`` (the checkpoint's gather
+copies its chunks to the host).
 """
 
 from __future__ import annotations
@@ -70,6 +78,8 @@ __all__ = [
     "scale_grad",
     "local_rows",
     "make_sq_norm",
+    "gather_to_writer",
+    "check_same_on_every_rank",
 ]
 
 # Bytes handed to all-reduce, by purpose.  The MoE's: "combine", "gather",
@@ -337,3 +347,64 @@ def make_sq_norm(sizes: list[int], replicated: list[bool], mesh):
         return (reduce_from_model(split, mesh, "norm") + whole)[0]
 
     return sq_norm
+
+
+# ---------------------------------------------------------------------------
+# A sharded checkpoint's gather (uncounted)
+# ---------------------------------------------------------------------------
+
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+WRITER = 0  # the one rank that writes a sharded checkpoint
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as integers of its width: copies of it keep every bit."""
+    return t.view(_BITS[t.element_size()])
+
+
+def gather_to_writer(pieces, rank: int, group=None):
+    """Each chunk of a leaf, whole, on global rank :data:`WRITER`; None on
+    every other rank.  ``pieces`` yields ``(shape, dtype, parts, mine)`` per
+    chunk, the same sequence on every rank: ``parts`` the ``(rank,
+    in_chunk)`` of every rank that writes part of the chunk (in rank order;
+    they tile it), and ``mine`` this rank's part (on any device) when it is
+    one of them.  Each part moves once, from its rank to the writer, as a
+    CPU tensor of its bits over ``group`` (every rank's; gloo, which sends
+    CPU tensors); nothing is summed and nothing is counted in
+    :data:`COLLECTIVE_BYTES`.  Every rank calls it and consumes it in step."""
+    import torch.distributed as dist
+
+    for shape, dtype, parts, mine in pieces:
+        if rank != WRITER:
+            if mine is not None:
+                dist.send(_bits(mine).contiguous().cpu(), WRITER, group=group)
+            yield None
+            continue
+        chunk = torch.empty(shape, dtype=dtype)
+        into, filled = _bits(chunk), 0
+        for r, at in parts:
+            if r == rank:
+                into[at].copy_(_bits(mine))
+            else:
+                part = torch.empty(into[at].shape, dtype=into.dtype)
+                dist.recv(part, r, group=group)
+                into[at].copy_(part)
+            filled += into[at].numel()
+        if filled != chunk.numel():
+            raise AssertionError(f"the ranks' parts cover {filled} of a chunk's "
+                                 f"{chunk.numel()} elements")
+        yield chunk
+
+
+def check_same_on_every_rank(digests: dict, group=None) -> None:
+    """Raise on every rank, naming the first key whose digest differs
+    between the ranks of ``group`` (an object gather: not counted)."""
+    import torch.distributed as dist
+
+    got = [None] * dist.get_world_size(group)
+    dist.all_gather_object(got, digests, group=group)
+    for key in digests:
+        ranks = [r for r, d in enumerate(got) if d[key] != got[0][key]]
+        if ranks:
+            raise ValueError(f"leaf {key}: ranks {ranks} hold other values than rank 0; a "
+                             "replicated leaf must be the same on every rank to be saved once")

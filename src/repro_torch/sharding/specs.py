@@ -51,7 +51,10 @@ __all__ = [
     "auto_specs",
     "local_shape",
     "local_shard",
+    "block_box",
     "block_view",
+    "owns_block",
+    "block_part",
     "storage_spec_for",
     "local_template",
     "localize",
@@ -358,22 +361,37 @@ def _halves(path: str) -> int:
     return 2 if path and re.search(_STACKED_HALVES, path) else 1
 
 
+def block_box(shape: tuple[int, ...], spec: tuple, mesh, path: str = ""):
+    """``(index_shape, offsets, lengths)``: a leaf of ``shape`` as
+    :func:`block_view` cuts it (for a leaf of stacked halves whose last dim
+    is split, that dim as ``(2, d_inner)``) and this rank's block in it, a
+    box of ``lengths`` at ``offsets`` (``mesh.coords`` gives the rank's
+    place along each axis)."""
+    shape = tuple(shape)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    if _halves(path) > 1 and _axes_of(spec[-1]):
+        shape = shape[:-1] + (2, shape[-1] // 2)
+        spec = spec[:-1] + (None, spec[-1])
+    offsets, lengths = [], []
+    for dim, e in zip(shape, spec):
+        axes = _axes_of(e)
+        block = dim // mesh.size(axes) if axes else dim
+        offsets.append(mesh.index(axes) * block if axes else 0)
+        lengths.append(block)
+    return shape, tuple(offsets), tuple(lengths)
+
+
 def block_view(t: torch.Tensor, spec: tuple, mesh, path: str = "") -> torch.Tensor:
     """This rank's block of ``t`` under ``spec`` as a view of ``t``
-    (``mesh.coords`` gives the rank's place along each axis).  For a leaf
-    of stacked halves (``path`` an SSM's ``in_proj``) whose last dim is
-    split, the view has that dim unflattened to ``(2, d_inner / n)``:
-    ``[u_r | z_r]`` once flattened."""
-    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
-    if _halves(path) > 1 and _axes_of(spec[-1]):
-        t = t.unflatten(-1, (2, t.shape[-1] // 2))
-        spec = spec[:-1] + (None, spec[-1])
-    for dim, e in enumerate(spec):
-        axes = _axes_of(e)
-        if axes:
-            n = mesh.size(axes)
-            block = t.shape[dim] // n
-            t = t.narrow(dim, mesh.index(axes) * block, block)
+    (:func:`block_box`).  For a leaf of stacked halves (``path`` an SSM's
+    ``in_proj``) whose last dim is split, the view has that dim unflattened
+    to ``(2, d_inner / n)``: ``[u_r | z_r]`` once flattened."""
+    shape, offsets, lengths = block_box(tuple(t.shape), spec, mesh, path)
+    if len(shape) > t.dim():
+        t = t.unflatten(-1, shape[-2:])
+    for dim, (o, n) in enumerate(zip(offsets, lengths)):
+        if n != shape[dim]:
+            t = t.narrow(dim, o, n)
     return t
 
 
@@ -383,6 +401,39 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh, path: str = "") -> torch.Ten
     (``path``; :func:`block_view`), whose block ``[u_r | z_r]`` is a copy."""
     block = block_view(t, spec, mesh, path)
     return block.flatten(-2) if block.dim() > t.dim() else block
+
+
+def owns_block(spec: tuple, mesh) -> bool:
+    """Whether this rank is the one that holds its block of a leaf under
+    ``spec`` at coordinate 0 of every axis the leaf is replicated over: of
+    the ranks holding the same block, the one whose copy a gather takes."""
+    used = {a for e in spec for a in _axes_of(e)}
+    return all(mesh.coords.get(a, 0) == 0 for a in mesh.axis_names if a not in used)
+
+
+def block_part(run, offsets: tuple[int, ...], lengths: tuple[int, ...]):
+    """``localize`` of one chunk of a leaf's stream: the part of the block
+    (a box of ``lengths`` at ``offsets`` in the leaf's index space,
+    :func:`block_box`) that the chunk ``run = (index, lo, hi)`` (the
+    elements ``[*index, lo:hi, ...]``,
+    :func:`repro_torch.checkpoint.store.runs`) holds, as ``(in_chunk,
+    in_block)``: the indices of that part in the chunk and in the block.
+    None when the chunk holds none of the block."""
+    index, lo, hi = run
+    if not lengths:
+        return (), ()
+    in_block = []
+    for i, o, n in zip(index, offsets, lengths):
+        if not o <= i < o + n:
+            return None
+        in_block.append(i - o)
+    d = len(index)
+    a, b = max(lo, offsets[d]), min(hi, offsets[d] + lengths[d])
+    if a >= b:
+        return None
+    rest = tuple(slice(o, o + n) for o, n in zip(offsets[d + 1:], lengths[d + 1:]))
+    in_block.append(slice(a - offsets[d], b - offsets[d]))
+    return (slice(a - lo, b - lo),) + rest, tuple(in_block)
 
 
 # ---------------------------------------------------------------------------
@@ -514,4 +565,4 @@ def check_tensor_parallel(cfg) -> None:
     if why is not None:
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a `model` axis of more than one process does "
-            f"not cover {why} yet (ROADMAP Queue 1, item 6)")
+            f"not cover {why} yet (ROADMAP Queue 1, item 4)")

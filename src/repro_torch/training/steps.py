@@ -72,6 +72,7 @@ __all__ = [
     "param_view",
     "init_train_state",
     "init_sharded_async_state",
+    "over_params",
     "make_step",
     "make_train_step",
     "make_async_train_step",
@@ -283,7 +284,7 @@ def make_step(
     n_data = 1 if tp is None else C.data_size(tp)
     if n_data > 1 and cfg.moe_weights_stationary:
         raise NotImplementedError("data-parallel training of the weights-stationary MoE "
-                                  "(ROADMAP Queue 1, item 6)")
+                                  "(ROADMAP Queue 1, item 3)")
     sq_norm = None if tp is None or C.model_mesh() is None else _sq_norm_for(cfg, tp)
 
     def apply_fn(grads, opt_state, params, ctx):
@@ -499,6 +500,46 @@ def init_sharded_async_state(
     lo, hi = mesh.local_workers(adapt.num_workers)
     return dataclasses.replace(
         state, delayed=init_wring(state.params, ring, hi - lo, dtype=ring_dtype))
+
+
+def over_params(state: TrainState) -> dict[str, tuple[tuple | None, int]]:
+    """The leaves of a state that :func:`init_train_state` or
+    :func:`init_sharded_async_state` built that hold values over the params,
+    by checkpoint name (:func:`repro_torch.checkpoint.store.key_paths`):
+    ``(path, lead)`` for one param leaf's values under ``lead`` leading
+    dims (``path`` its :func:`param_template` path), ``(None, lead)`` for a
+    flat buffer packed from every param leaf in order.  They are the three
+    families these builders make over the params: the params, the
+    optimizer state (the pipeline's ``init`` of them: subtrees of the
+    params' structure, or the fused form's flat buffers) and the ring
+    (``(K, ...)``, or a worker ring's ``(W_local, K, ...)``).  Under a
+    running sharded mesh the values are the rank's blocks
+    (:func:`repro_torch.run.ckpt.tensor_parallel_layout` places them)."""
+    from repro_torch.checkpoint.store import key_paths
+    from repro_torch.tree import tree_paths
+
+    params = state.params
+    if isinstance(params, torch.Tensor):
+        rank_of, n = None, params.shape[-1]
+    else:
+        rank_of = {path: len(leaf.shape) for path, leaf in tree_paths(params)}
+        n = sum(leaf.numel() for leaf in tree_leaves(params))
+
+    def mirrors(node) -> bool:
+        return (rank_of is not None and isinstance(node, dict)
+                and [path for path, _ in tree_paths(node)] == list(rank_of))
+
+    out = {}
+    ring = None if state.delayed is None else state.delayed.ring
+    for name, family in ((".params", params), (".opt_state", state.opt_state),
+                         (".delayed.ring", ring)):
+        for key, node in key_paths(family, name, stop=mirrors):
+            if mirrors(node):
+                for (k, leaf), (path, _) in zip(key_paths(node, key), tree_paths(node)):
+                    out[k] = (path, leaf.dim() - rank_of[path])
+            elif isinstance(node, torch.Tensor) and node.dim() and node.shape[-1] == n:
+                out[key] = (None, node.dim() - 1)
+    return out
 
 
 def make_serve_step(cfg) -> Callable:

@@ -14,8 +14,15 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _env() -> dict:
+    """The examples' environment: ``src`` on the path and 2 intra-op threads,
+    the count the in-process tests pin (``torch.set_num_threads(2)``), so
+    that a loaded run does not oversubscribe the CPU."""
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
+
+
 def _run(name: str) -> str:
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = _env()
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", name), "--device", "cpu"],
                           env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
@@ -39,7 +46,7 @@ def test_online_adaptation_tracks_the_worker_count():
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "stablelm-1.6b"])
 def test_serve_decode_ids_in_range(arch):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = _env()
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "serve_decode_torch.py"),
                            "--device", "cpu", "--arch", arch], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

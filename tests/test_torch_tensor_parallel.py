@@ -37,7 +37,8 @@ Bounds, each with its reason:
 * under model 2 a ``sequence_parallel`` config (whose layout the port does
   not run) raises at build time, reduced falcon-mamba-7b builds its blocks
   (``in_proj`` as the rank's ``[u_r | z_r]``, half the whole leaf's
-  columns), and ``CheckpointHook`` refuses the sharded state.
+  columns), and a ``CheckpointHook`` of the sharded state saves and
+  resumes it.
 """
 
 import dataclasses
@@ -98,7 +99,7 @@ _WORKER = textwrap.dedent('''
     from repro_torch.training.steps import _sq_norm_for, _template
 
     sys.path.insert(0, sys.argv[2])  # the tests directory
-    from torch_tp_common import GEN, Tables, async_spec, clip_spec, config  # noqa: E402
+    from torch_tp_common import GEN, Tables, async_spec, clip_spec, config, differ  # noqa: E402
 
 
     def grads(cfg, local, batch, mesh, other_thread=False):
@@ -182,10 +183,13 @@ _WORKER = textwrap.dedent('''
                     init_params(0, dataclasses.replace(ssm, sequence_parallel=True), "cpu")
                 except NotImplementedError as e:
                     out["ssm_error"] = str(e)
-                try:
-                    run(clip_spec(cfg, local), hooks=[CheckpointHook(f"{tmp}/ckpt", every=1)])
-                except NotImplementedError as e:
-                    out["ckpt_error"] = str(e)
+                whole = run(clip_spec(cfg, local),
+                            hooks=[CheckpointHook(f"{tmp}/ckpt", every=1)]).state
+                resumed = run(clip_spec(cfg, local), resume_from=f"{tmp}/ckpt",
+                              resume_step=1).state
+                out["ckpt_differ"] = np.array(differ(whole, resumed), dtype=str)
+                out["ckpt_params_shape"] = np.array(
+                    np.load(f"{tmp}/ckpt/step_00000001.npz")[".params"].shape)
         np.savez(f"{tmp}/rank_{tag}.npz", **out)
         dist.barrier()
         dist.destroy_process_group()
@@ -418,14 +422,19 @@ def test_remat_recomputes_every_forward_all_reduce(runs, name):
         assert np.abs(r["remat_grad"] - runs["want"]["mha"]["grad"]).max() <= 1e-5 * scale
 
 
-def test_unsharded_layers_and_checkpoints_raise(runs):
-    """A layout the port does not run (``sequence_parallel``) and a sharded
-    checkpoint raise; the Mamba layer, which the port now shards, builds
-    the rank's blocks."""
+def test_unsharded_layouts_raise_and_sharded_checkpoints_resume(runs):
+    """A layout the port does not run (``sequence_parallel``) raises; the
+    Mamba layer, which the port shards, builds the rank's blocks; a
+    ``CheckpointHook`` of the sharded clip run saves the one-process
+    ``(N,)`` params, and a resume from step 1 ends bit for bit where the
+    run that was not interrupted did."""
     r = runs["ranks"]["1x2"][0]
     assert "sequence_parallel" in str(r["ssm_error"]) and "ROADMAP" in str(r["ssm_error"])
     assert tuple(r["ssm_in_proj"]) == (2, 64, 2 * 128 // 2)  # 2 layers, d 64, [u_r | z_r]
-    assert "sharded" in str(r["ckpt_error"]) and "ROADMAP" in str(r["ckpt_error"])
+    n = sum(int(np.prod(s)) for s, _ in tree_leaves(param_template(config("mha"))))
+    for r in runs["ranks"]["1x2"]:
+        assert tuple(r["ckpt_params_shape"]) == (n,)
+        assert r["ckpt_differ"].tolist() == []
 
 
 def test_the_plan_counts_the_data_parallel_gradient():

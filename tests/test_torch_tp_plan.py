@@ -51,7 +51,7 @@ def test_a_sharded_arch_plans_the_port_layout(records):
     assert rec["collectives"]["total"] == pytest.approx(want["total"])
 
 
-def test_an_unsharded_arch_still_plans_the_reference_layout(records):
+def test_an_ssm_arch_plans_the_port_layout(records):
     """falcon-mamba-7b, which the port did not shard before its Mamba layer
     did, now plans the port's layout: its collective term is the port's
     count, the Mamba layers' partial sums and outputs among it."""

@@ -99,3 +99,138 @@ class Tables:
     def arrays(self):
         return {f"{k}": np.stack([r[i].cpu().numpy() for r in self.rows])
                 for i, k in enumerate(("losses", "tables", "cdfs", "hists"))}
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints of multi-process states (tests/test_torch_tp_checkpoint.py and
+# its spawned ranks)
+# ---------------------------------------------------------------------------
+
+SAVE_AT, MORE = 3, 3
+VARIANTS = ("momentum", "adam", "unfused")
+
+
+def ckpt_spec(variant, cfg, params, draws, start, num_steps=TICKS):
+    """:func:`async_spec`'s run as ``variant`` (fused momentum, fused adam
+    or unfused momentum) from tick ``start`` on, with the uniforms of the
+    ticks it runs."""
+    s = dataclasses.replace(async_spec(cfg, params, draws[start:]), num_steps=num_steps)
+    if variant == "adam":
+        link = T.staleness_link(s.pipeline)
+        s = dataclasses.replace(s, pipeline=T.chain(link, T.scale_by_adam(), T.scale(-0.05)))
+    return dataclasses.replace(s, fuse=variant != "unfused")
+
+
+def arch_ckpt_spec(cfg, params, draws, start):
+    """:func:`arch_async_spec`'s run for ``TICKS`` ticks from ``start``."""
+    return dataclasses.replace(arch_async_spec(cfg, params, draws[start:]), num_steps=TICKS)
+
+
+def sharded_spec(mesh, fuse):
+    """The sharded engine of ``test_two_gloo_processes_match_one`` (W 4:
+    geometric and Poisson workers, K 8, momentum) for 6 ticks with a
+    refresh every 4, so a save at 3 holds a partial histogram."""
+    from repro_torch.core import staleness as TS
+    from repro_torch.core.step_size import make_schedule
+    from repro_torch.run import RunSpec
+    from repro_torch.training import make_worker_adapt
+
+    sched = make_schedule("constant", 0.05, tau_max=31)
+    adapt = make_worker_adapt(sched.table, [TS.Geometric(0.3), TS.Geometric(0.6),
+                                            TS.Poisson(2.0), TS.Poisson(5.0)], cdf_support=8)
+    pipe = T.chain(T.scale_by_staleness(sched, 0.05, m=4, tau_max=31), T.scale(-0.05),
+                   T.trace(0.9))
+    return RunSpec(cfg=config("mha"), pipeline=pipe, mode="sharded_async", num_steps=6,
+                   batch_size=B, seq_len=S, ring=8, adapt=adapt, fuse=fuse, refresh_every=4,
+                   seed=0, device="cpu", mesh=mesh)
+
+
+def bits(t):
+    """A leaf's bits as numpy: a generator's state, a tensor as integers of
+    its width."""
+    if isinstance(t, torch.Generator):
+        return t.get_state().numpy()
+    t = t.detach().contiguous()
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()]).numpy().copy()
+
+
+def np_bits(a):
+    """A numpy array's bits, as integers of its width."""
+    return a.view({1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}[a.itemsize])
+
+
+def state_bits(state):
+    from repro_torch.checkpoint import key_paths
+
+    return {k: bits(v) for k, v in key_paths(state)}
+
+
+def differ(a, b):
+    """The leaves of two states that are not bit for bit equal."""
+    a, b = state_bits(a), state_bits(b)
+    assert list(a) == list(b)
+    return [k for k in a if not np.array_equal(a[k], b[k])]
+
+
+def restored(spec, directory, step=SAVE_AT):
+    """The state ``run(spec, resume_from=directory)`` starts from."""
+    from repro_torch.run.ckpt import restore_checkpoint
+    from repro_torch.run.engine import make_engine
+
+    engine = make_engine(spec)
+    return restore_checkpoint(directory, engine.build_template(), spec.pipeline, step=step,
+                              device="cpu", layout=engine.checkpoint_layout())[0]
+
+
+def file_leaves(directory, step=SAVE_AT):
+    """A checkpoint's manifest and its leaves as numpy, by key."""
+    import json
+    import os
+
+    base = os.path.join(str(directory), f"step_{step:08d}")
+    with open(base + ".json") as f:
+        manifest = json.load(f)
+    data = np.load(base + ".npz")
+    return manifest, {k: data[k] for k in manifest["keys"]}
+
+
+def blocks_of(key, whole, local_shape, cfg, mesh):
+    """``mesh``'s rank's block of the whole leaf ``key``, as bits, cut
+    with ``specs.local_shard``: a leaf named like a param leaf by its
+    spec, a flat leaf param by param along its last dim; a leaf of the
+    same shape is whole on every rank."""
+    from repro_torch.sharding.specs import P, local_shard, storage_spec_for
+    from repro_torch.training.steps import param_template
+    from repro_torch.tree import keystr, tree_paths
+
+    whole = np_bits(whole)
+    if tuple(whole.shape) == tuple(local_shape):
+        return whole
+    t = torch.from_numpy(whole)
+    params = [(keystr(path), "/".join(path), tuple(shape))
+              for path, (shape, _) in tree_paths(param_template(cfg))]
+    named = [p for p in params if key.endswith(p[0])]
+    if named:
+        _, name, shape = max(named, key=lambda p: len(p[0]))
+        lead = (None,) * (t.dim() - len(shape))
+        spec = P(*(lead + tuple(storage_spec_for(name, shape, mesh, cfg))))
+        return local_shard(t, spec, mesh, name).contiguous().numpy()
+    out = []
+    for row in t.reshape(-1, t.shape[-1]):
+        start = 0
+        for _, name, shape in params:
+            n = int(np.prod(shape))
+            leaf = row[start:start + n].reshape(shape)
+            out.append(local_shard(leaf, storage_spec_for(name, shape, mesh, cfg), mesh, name)
+                       .reshape(-1))
+            start += n
+    return torch.cat(out).reshape(tuple(t.shape[:-1]) + (-1,)).numpy()
+
+
+def blocks_differ(directory, state, cfg, mesh):
+    """The leaves of a rank's ``state`` that are not bit for bit its
+    blocks of the checkpoint's."""
+    _, whole = file_leaves(directory)
+    return [k for k, v in state_bits(state).items()
+            if not np.array_equal(blocks_of(k, whole[k], v.shape, cfg, mesh), v)]
