@@ -18,17 +18,22 @@ Phases, each fatal on failure:
    PyTorch version on the card, at the full-width shapes of stablelm-1.6b
    (N = 1,438,846,976 f32 params, K = 8 ring slots, W = 8 workers): the tick
    for sgd / momentum / adam with f32 and bf16 rings, the chain, the combine
-   and fused_update.  Tolerance |kernel - plain| <= 1e-6 + 1e-6 |plain|
-   (1e-5 with a bf16 ring: the slot-folded sum differs from the
-   worker-by-worker one in rounding); the ring's bits and the live mask
-   exactly equal.  The momentum / bf16 tick runs again with NaN in ring
-   slots 5 and 7, which no worker maps to at step 11: p and v must come out
-   finite and match the plain version (the tick reads only live slots).
+   and fused_update.  The chain (each body) and fused_update must equal
+   their plain versions bit for bit, at N and at N - 5 (N % 8 = 3: the
+   vector body and a scalar tail); the tick and the combine within
+   |kernel - plain| <= 1e-6 + 1e-6 |plain| (1e-5 with a bf16 ring: the
+   slot-folded sum differs from the worker-by-worker one in rounding); the
+   ring's bits and the live mask exactly equal.  The momentum / bf16 tick
+   runs again with NaN in ring slots 5 and 7, which no worker maps to at
+   step 11: p and v must come out finite and match the plain version (the
+   tick reads only live slots).
    Prints each kernel's time, the plain version's, the byte bound at
    3.35 TB/s (the tick moves exactly those bytes) and the errors, and for
    the chain and fused_update the time of PyTorch's fused optimizer step
    on the same (N,) f32 tensor (``SGD(momentum, fused=True)``,
-   ``Adam(fused=True)``: the same bytes and update), their library time.
+   ``Adam(fused=True)``: the same bytes and update), their library time,
+   with the kernel's achieved TB/s and its ratio to the library (20
+   launches each after a warm-up).
 3. main path — ``run(RunSpec(mode="async", fuse=True, ...))`` on full-width
    stablelm-1.6b (24 layers, momentum, W = 8, ring 8 in bf16, batch 4 x seq
    512, refresh every 5) for 12 ticks, launch counts zeroed just before and
@@ -411,6 +416,15 @@ def state_list(kind, bufs):
     return [] if kind == "sgd" else ([bufs] if kind == "momentum" else [bufs["m"], bufs["v"]])
 
 
+def bits_update(errs, got, want):
+    """Track max |got - want| and fail unless every bit agrees (int32 views)."""
+    import torch
+
+    errs["max_abs_err"] = max(errs["max_abs_err"], float((got - want).abs().max()))
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(bad == 0, f"{bad} elements differ in their bits from the plain version")
+
+
 def err_update(errs, got, want, tol):
     """Track max |got - want| and fail past |d| <= tol + tol |want|."""
     d = (got - want).abs()
@@ -486,7 +500,9 @@ def check_tick(kind, ring_dtype, n, dev, *, nan_dead=False):
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes, kernel_bytes=nbytes)
 
 
-def check_chain(kind, n, dev):
+def check_chain(kind, n, dev, *, timed=True):
+    """Chain kernel vs plain, bitwise, chunk by chunk; ``timed``: also its
+    time and the library call's (20 launches each after a warm-up)."""
     import torch
 
     from repro_torch.kernels.adaptive_update import cuda as C
@@ -512,11 +528,13 @@ def check_chain(kind, n, dev):
         b.record()
         torch.cuda.synchronize()
         plain_ms += a.elapsed_time(b)
-        err_update(errs, p[lo:hi], pr, 1e-6)
+        bits_update(errs, p[lo:hi], pr)
         for got, want in zip([x[lo:hi] for x in state_list(kind, bufs)], state_list(kind, br)):
-            err_update(errs, got, want, 1e-6)
+            bits_update(errs, got, want)
     del p0, bufs0
-    ms = cuda_ms(lambda: C.fused_chain(kind, p, g, bufs, s))
+    if not timed:
+        return dict(max_abs_err=errs["max_abs_err"], plain_ms=plain_ms)
+    ms = cuda_ms(lambda: C.fused_chain(kind, p, g, bufs, s), iters=20)
     nbytes = n * (8 + 4 + 8 * len(state_list(kind, bufs)))
     del bufs
     library_ms, call = library_step(kind, p, g)
@@ -543,7 +561,7 @@ def library_step(kind, p, g):
         mu = 0.9 if kind == "momentum" else 0.0
         opt = torch.optim.SGD([q], lr=0.05, momentum=mu, fused=True)
         call = f"torch.optim.SGD(momentum={mu}, fused=True).step()"
-    ms = cuda_ms(opt.step)
+    ms = cuda_ms(opt.step, iters=20)
     del opt
     q.grad = None
     free_cuda()
@@ -587,7 +605,9 @@ def check_combine(n, dev):
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
 
 
-def check_update(n, dev):
+def check_update(n, dev, *, timed=True):
+    """fused_update vs plain, bitwise, chunk by chunk; ``timed`` as
+    :func:`check_chain`."""
     import torch
 
     from repro_torch.kernels.adaptive_update import cuda as C
@@ -609,16 +629,24 @@ def check_update(n, dev):
         b.record()
         torch.cuda.synchronize()
         plain_ms += a.elapsed_time(b)
-        err_update(errs, p[lo:hi], pr, 1e-6)
-        err_update(errs, v[lo:hi], vr, 1e-6)
+        bits_update(errs, p[lo:hi], pr)
+        bits_update(errs, v[lo:hi], vr)
     del p0, v0
-    ms = cuda_ms(lambda: C.fused_update(p, g, v, alpha, mu))
+    if not timed:
+        return dict(max_abs_err=errs["max_abs_err"], plain_ms=plain_ms)
+    ms = cuda_ms(lambda: C.fused_update(p, g, v, alpha, mu), iters=20)
     nbytes = n * 20
     del v
     library_ms, call = library_step("momentum", p, g)
     return dict(max_abs_err=errs["max_abs_err"], ms=ms, plain_ms=plain_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes, library_ms=library_ms,
                 library_call=call)
+
+
+def stream_line(r) -> str:
+    """Achieved TB/s of the bytes moved and the ratio to the library call."""
+    return (f"{r['bytes'] / r['ms'] / 1e9:.3f} TB/s ({100 * r['bound_ms'] / r['ms']:.1f} % of the "
+            f"bound), {r['ms'] / r['library_ms']:.3f}x the library")
 
 
 def free_cuda():
@@ -3221,18 +3249,25 @@ def main() -> int:
     for kind in ("sgd", "momentum", "adam"):
         r = check_chain(kind, n, dev)
         results[f"fused_chain/{kind}"] = r
-        log(f"[kernel] fused_chain/{kind}: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  "
-            f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms  library "
-            f"{r['library_ms']:.3f} ms ({r['library_call']})")
+        log(f"[kernel] fused_chain/{kind}: bitwise equal (max_abs_err {r['max_abs_err']:.3e})  "
+            f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms  library "
+            f"{r['library_ms']:.3f} ms ({r['library_call']})  {stream_line(r)}")
         free_cuda()
+    n_odd = n - 5  # n % 8 == 3: the vector body and a scalar tail of n % 4 = 3
+    results["fused_chain/momentum/n-5"] = r = check_chain("momentum", n_odd, dev, timed=False)
+    log(f"[kernel] fused_chain/momentum at N = {n_odd} (N % 8 = {n_odd % 8}): bitwise equal")
+    free_cuda()
     results["fused_combine/bfloat16"] = r = check_combine(n, dev)
     log(f"[kernel] fused_combine/bfloat16: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  "
         f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms")
     free_cuda()
     results["fused_update"] = r = check_update(n, dev)
-    log(f"[kernel] fused_update: max_abs_err {r['max_abs_err']:.3e}  {r['ms']:.3f} ms  "
-        f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms  library "
-        f"{r['library_ms']:.3f} ms ({r['library_call']})")
+    log(f"[kernel] fused_update: bitwise equal (max_abs_err {r['max_abs_err']:.3e})  "
+        f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms  library "
+        f"{r['library_ms']:.3f} ms ({r['library_call']})  {stream_line(r)}")
+    free_cuda()
+    results["fused_update/n-5"] = check_update(n_odd, dev, timed=False)
+    log(f"[kernel] fused_update at N = {n_odd}: bitwise equal")
     log("[kernel] fused_tick and fused_combine: library null (no one PyTorch call pushes a ring "
         "and combines W weighted rows)")
     free_cuda()

@@ -24,7 +24,8 @@
 //   update  p r/w 8N + g 4N + v r/w 8N                       = 20N
 // (adam adds 8N for its second moment).
 //
-// Design, from what the tick computes rather than from the TPU blocks:
+// The tick and the combine, designed from what the tick computes rather
+// than from the TPU blocks:
 //  * one thread block owns one contiguous range of N; its threads stride
 //    through it eight elements at a time, with 16-byte loads and stores
 //    (two float4 per f32 buffer, one uint4 per bf16 ring row);
@@ -51,15 +52,48 @@
 //    HBM3 at 700 W; this design takes 17.1-17.7 ms there, moving 32N
 //    (77-80 % of the byte bound), and the runtime loop in place of the
 //    unrolled one 17.25-17.84 ms (PERF.md);
-//  * the scalar factors apply one at a time in link order (never
-//    pre-multiplied), then the family body, with __fmul_rn/__fadd_rn so
-//    nvcc cannot contract them into FMAs: the chain and update kernels are
-//    then bitwise equal to their plain PyTorch versions.  The tick and the
-//    combine fold same-slot workers before multiplying, so they agree with
-//    the worker-by-worker plain sum to f32 round-off only;
-//  * p, the optimizer state and the ring are updated in place.
-// The chain, combine and update kernels keep the first design: the combine
-// still reads every non-pushed slot.  cp.async/TMA staging is later work.
+//  * the combine keeps the first design: it still reads every non-pushed
+//    slot, one slot a loop iteration.
+// The tick and the combine fold same-slot workers before multiplying, so
+// they agree with the worker-by-worker plain sum to f32 round-off only.
+//
+// The chain and fused_apply: one streaming kernel, stream_kernel, over a
+// body functor (ChainBody<FAM>, UpdateBody) that streams p, g and 0-2 state
+// buffers in place:
+//  * a chunk is kThreads x 2 kUnits float4 of each buffer (kUnits = 2 units
+//    of 8 elements a thread); thread t takes float4 t, t + kThreads, ..., so
+//    every warp access is 512 contiguous bytes; all loads of the chunk go
+//    out before the first body, then the bodies, then the stores, with the
+//    streaming hints ld/st.global.cs;
+//  * one wave of blocks draws chunks from a device counter, so the blocks
+//    finish together.  The counter is one u64 per device and stream, kept by
+//    the wrapper; it is 0 at every launch, because the block that draws the
+//    launch's last index sets it back to 0: no allocation and no memset a
+//    call;
+//  * with every pointer 16-byte aligned, chunks cover n - n % 4 elements and
+//    a scalar tail the last n % 4; otherwise one element a thread, grid
+//    stride, over the whole buffer.
+// How it was chosen, at N = 1,438,846,976 on an H100 80GB HBM3 at 700 W
+// (PERF.md section 6): a profiling build with U in {1, 2, 4}, hints off/on,
+// the schedule (one contiguous run of chunks a block; grid stride; the
+// counter) and the layout (coalesced as above, or paired: a unit's two
+// float4 side by side, the first design's) as template parameters, timed
+// against SGD(momentum=0.9, fused=True) at 10.457 ms for the momentum body:
+//  * the layout and the schedule decide; U and the hints do not.  Momentum:
+//    counter 9.43-9.47 ms at every U (91 % of the byte bound, 0.90x the
+//    library), stride 9.80-9.86, ranges 9.84-9.89; paired 9.80-10.51
+//    with plain loads and 9.83-15.68 with the hints (an evict-first line
+//    can be gone before the thread's second float4 of the same sector);
+//  * kept: U = 2, hints on, counter, coalesced: momentum 9.470 ms, update
+//    9.425, adam 13.252 (Adam(fused=True) 15.035), sgd 5.588 (SGD 6.418),
+//    each within 0.5 % of its body's fastest variant.  The first design
+//    (one kernel each; paired float4, one range a block) took 12.82, 12.19,
+//    16.20 and 6.48 ms in other calls (chip_smoke.py phase 2).
+// Both bodies apply the plain versions' f32 operations one at a time in
+// link order (never pre-multiplied), with __fmul_rn/__fadd_rn so nvcc cannot
+// contract them into FMAs: the chain and fused_apply are bitwise equal to
+// their plain PyTorch versions.  p, the optimizer state and the ring are
+// updated in place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -418,91 +452,159 @@ combine_kernel(const float* __restrict__ g, RT* __restrict__ ring, float* __rest
   }
 }
 
-// ---- fused chain: scalars + body + apply on a given gradient ----------------
+// ---- the streaming skeleton: fused chain and fused_apply --------------------
 
-template <int FAM, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-chain_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ s0,
-             float* __restrict__ s1, long long n, const float* __restrict__ scalars) {
-  constexpr int NS = NumScalars<FAM>::value;
-  float s[NS];
+// The two bodies the skeleton streams.  Each holds its scalars in registers
+// and updates one element: u (the gradient, read only), p, and the state a
+// (and b).  kState is the number of state buffers it reads and writes.
+template <int FAM>
+struct ChainBody {
+  static constexpr int kState = FAM == kSgd ? 0 : (FAM == kMomentum ? 1 : 2);
+  float s[NumScalars<FAM>::value];
+  __device__ explicit ChainBody(const float* scalars) {
 #pragma unroll
-  for (int i = 0; i < NS; ++i) s[i] = scalars[i];
-  long long lo, hi;
-  if (VEC) {
-    block_range(n / kVec, lo, hi);
-    for (long long u = lo + threadIdx.x; u < hi; u += blockDim.x) {
-      const long long i = u * kVec;
-      float gv[kVec], pv[kVec], av[kVec], bv[kVec];
-      load8(g + i, gv);
-      load8(p + i, pv);
-      if (FAM != kSgd) load8(s0 + i, av);
-      if (FAM == kAdam) load8(s1 + i, bv);
+    for (int i = 0; i < NumScalars<FAM>::value; ++i) s[i] = scalars[i];
+  }
+  __device__ __forceinline__ void operator()(float u, float& p, float& a, float& b) const {
+    body<FAM>(u, s, p, a, b);
+  }
+};
+
+// fused_apply: v' = mu v - alpha g; p' = p + v'  (scalars: alpha, mu).
+struct UpdateBody {
+  static constexpr int kState = 1;
+  float alpha, mu;
+  __device__ explicit UpdateBody(const float* s) : alpha(s[0]), mu(s[1]) {}
+  __device__ __forceinline__ void operator()(float g, float& p, float& v, float&) const {
+    v = __fsub_rn(mul(mu, v), mul(alpha, g));
+    p = add(p, v);
+  }
+};
+
+template <class Body>
+__device__ __forceinline__ void body4(const Body& f, const float4& g, float4& p, float4& a,
+                                      float4& b) {
+  f(g.x, p.x, a.x, b.x);
+  f(g.y, p.y, a.y, b.y);
+  f(g.z, p.z, a.z, b.z);
+  f(g.w, p.w, a.w, b.w);
+}
+
+template <class Body>
+__device__ __forceinline__ void stream_one(const Body& f, float* p, const float* g, float* s0,
+                                           float* s1, long long i) {
+  float pv = p[i], av = 0.f, bv = 0.f;
+  if (Body::kState > 0) av = s0[i];
+  if (Body::kState > 1) bv = s1[i];
+  f(g[i], pv, av, bv);
+  p[i] = pv;
+  if (Body::kState > 0) s0[i] = av;
+  if (Body::kState > 1) s1[i] = bv;
+}
+
+constexpr int kUnits = 2;                                  // units of 8 elements a thread
+constexpr long long kChunk = (long long)kThreads * 2 * kUnits;  // float4 of each buffer
+
+// One chunk of each buffer.  Thread t takes float4 t, t + kThreads, ..., so
+// each warp access is 512 contiguous bytes.  Every load of the chunk goes
+// out before the first body, then the bodies, then the stores, all with the
+// streaming hint (ld/st.global.cs: evict first, the data is touched once).
+// FULL: the whole chunk lies below nq (no predicates).
+template <class Body, bool FULL>
+__device__ __forceinline__ void stream_chunk(const Body& f, float4* p, const float4* g,
+                                             float4* s0, float4* s1, long long q0,
+                                             long long nq) {
+  constexpr int Q = 2 * kUnits;
+  const long long t = q0 + threadIdx.x;
+  float4 gv[Q], pv[Q], av[Q], bv[Q];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) body<FAM>(gv[j], s, pv[j], av[j], bv[j]);
-      store8(p + i, pv);
-      if (FAM != kSgd) store8(s0 + i, av);
-      if (FAM == kAdam) store8(s1 + i, bv);
+  for (int j = 0; j < Q; ++j) {
+    const long long q = t + (long long)j * kThreads;
+    if (FULL || q < nq) {
+      gv[j] = __ldcs(g + q);
+      pv[j] = __ldcs(p + q);
+      if (Body::kState > 0) av[j] = __ldcs(s0 + q);
+      if (Body::kState > 1) bv[j] = __ldcs(s1 + q);
     }
-  } else {
-    block_range(n, lo, hi);
-    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-      float pv = p[i], av = 0.f, bv = 0.f;
-      if (FAM != kSgd) av = s0[i];
-      if (FAM == kAdam) bv = s1[i];
-      body<FAM>(g[i], s, pv, av, bv);
-      p[i] = pv;
-      if (FAM != kSgd) s0[i] = av;
-      if (FAM == kAdam) s1[i] = bv;
+  }
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    const long long q = t + (long long)j * kThreads;
+    if (FULL || q < nq) {
+      body4(f, gv[j], pv[j], av[j], bv[j]);
+      __stcs(p + q, pv[j]);
+      if (Body::kState > 0) __stcs(s0 + q, av[j]);
+      if (Body::kState > 1) __stcs(s1 + q, bv[j]);
     }
   }
 }
 
-// ---- fused_apply: v' = mu v - alpha g; p' = p + v' ---------------------------
+// The next chunk for this block from the counter *next.  Every block draws
+// until it gets an index >= total, so one launch draws 0 .. total + grid - 1;
+// the draw of the last index is the last access of the launch, and it sets
+// the counter back to 0 for the next launch on the stream.
+__device__ __forceinline__ long long draw(unsigned long long* next, long long total) {
+  const unsigned long long c = atomicAdd(next, 1ull);
+  if (c == (unsigned long long)(total + gridDim.x - 1)) atomicExch(next, 0ull);
+  return (long long)c;
+}
 
-template <bool VEC>
+// Streams p, g and Body::kState state buffers in place.  VEC (every pointer
+// 16-byte aligned): the blocks of one wave draw chunks of float4 over the
+// first n - n % 4 elements from *next (0 at the launch), and block 0 takes
+// a scalar tail of n % 4; else one element a thread, grid stride.
+template <class Body, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-update_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ v,
-              long long n, const float* __restrict__ alpha_ptr, const float* __restrict__ mu_ptr) {
-  const float alpha = *alpha_ptr, mu = *mu_ptr;
-  long long lo, hi;
-  if (VEC) {
-    block_range(n / kVec, lo, hi);
-    for (long long u = lo + threadIdx.x; u < hi; u += blockDim.x) {
-      const long long i = u * kVec;
-      float gv[kVec], pv[kVec], vv[kVec];
-      load8(g + i, gv);
-      load8(p + i, pv);
-      load8(v + i, vv);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        vv[j] = __fsub_rn(mul(mu, vv[j]), mul(alpha, gv[j]));
-        pv[j] = add(pv[j], vv[j]);
-      }
-      store8(p + i, pv);
-      store8(v + i, vv);
+stream_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ s0,
+              float* __restrict__ s1, long long n, const float* __restrict__ scalars,
+              unsigned long long* __restrict__ next) {
+  const Body f(scalars);
+  if (!VEC) {
+    const long long step = (long long)gridDim.x * kThreads;
+    for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n; i += step)
+      stream_one(f, p, g, s0, s1, i);
+    return;
+  }
+  const long long nq = n / 4, full = nq / kChunk, total = (nq + kChunk - 1) / kChunk;
+  if (blockIdx.x == 0 && threadIdx.x < n - 4 * nq)
+    stream_one(f, p, g, s0, s1, 4 * nq + threadIdx.x);
+  float4* p4 = reinterpret_cast<float4*>(p);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  float4* a4 = reinterpret_cast<float4*>(s0);
+  float4* b4 = reinterpret_cast<float4*>(s1);
+  // double-buffered draw: the next chunk's index is fetched while this one runs
+  __shared__ long long drawn[2];
+  if (threadIdx.x == 0) drawn[0] = draw(next, total);
+  __syncthreads();
+  for (int k = 0;; k ^= 1) {
+    const long long c = drawn[k];
+    if (c >= total) break;
+    if (threadIdx.x == 0) drawn[k ^ 1] = draw(next, total);
+    if (c < full) {
+      stream_chunk<Body, true>(f, p4, g4, a4, b4, c * kChunk, nq);
+    } else {
+      stream_chunk<Body, false>(f, p4, g4, a4, b4, c * kChunk, nq);
     }
-  } else {
-    block_range(n, lo, hi);
-    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-      const float vn = __fsub_rn(mul(mu, v[i]), mul(alpha, g[i]));
-      v[i] = vn;
-      p[i] = add(p[i], vn);
-    }
+    __syncthreads();
   }
 }
 
-// One full wave of resident blocks (or fewer when N is small).
+// One full wave of resident blocks, or `blocks` when that is fewer.
 template <typename Kernel>
-int grid_for(Kernel kernel, long long units) {
+int wave_for(Kernel kernel, long long blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const long long needed = (units + kThreads - 1) / kThreads;
-  if (needed < blocks) blocks = needed;
-  return blocks < 1 ? 1 : (int)blocks;
+  long long wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks < wave) wave = blocks;
+  return wave < 1 ? 1 : (int)wave;
+}
+
+// A wave for `units` of work, kThreads a block.
+template <typename Kernel>
+int grid_for(Kernel kernel, long long units) {
+  return wave_for(kernel, (units + kThreads - 1) / kThreads);
 }
 
 template <int FAM, typename RT, bool VEC, int MAXL>
@@ -552,20 +654,20 @@ int launch_combine(const float* g, void* ring, float* g_eff, int K, long long n,
   return (int)cudaGetLastError();
 }
 
-template <int FAM, bool VEC>
-int launch_chain(float* p, const float* g, float* s0, float* s1, long long n,
-                 const float* scalars, cudaStream_t stream) {
-  auto kernel = chain_kernel<FAM, VEC>;
-  const int grid = grid_for(kernel, VEC ? n / kVec : n);
-  kernel<<<grid, kThreads, 0, stream>>>(p, g, s0, s1, n, scalars);
+template <class Body, bool VEC>
+int launch_stream(float* p, const float* g, float* s0, float* s1, long long n,
+                  const float* scalars, unsigned long long* next, cudaStream_t stream) {
+  auto kernel = stream_kernel<Body, VEC>;
+  const int grid = VEC ? wave_for(kernel, (n / 4 + kChunk - 1) / kChunk) : grid_for(kernel, n);
+  kernel<<<grid, kThreads, 0, stream>>>(p, g, s0, s1, n, scalars, next);
   return (int)cudaGetLastError();
 }
 
-template <int FAM>
-int dispatch_chain(int vec, float* p, const float* g, float* s0, float* s1, long long n,
-                   const float* scalars, cudaStream_t stream) {
-  return vec ? launch_chain<FAM, true>(p, g, s0, s1, n, scalars, stream)
-             : launch_chain<FAM, false>(p, g, s0, s1, n, scalars, stream);
+template <class Body>
+int run_stream(int vec, float* p, const float* g, float* s0, float* s1, long long n,
+               const float* scalars, unsigned long long* next, cudaStream_t st) {
+  return vec ? launch_stream<Body, true>(p, g, s0, s1, n, scalars, next, st)
+             : launch_stream<Body, false>(p, g, s0, s1, n, scalars, next, st);
 }
 
 }  // namespace
@@ -610,31 +712,27 @@ extern "C" int au_fused_combine(int ring_bf16, int vec, const float* g, void* ri
              : launch_combine<float, false>(g, ring, g_eff, K, n, step, taus, weights, W, st);
 }
 
+// next: the chunk counter, one u64 on the device that is 0 at the call and
+// 0 again when the kernel ends.
 extern "C" int au_fused_chain(int family, int vec, float* p, const float* g, float* s0,
-                              float* s1, long long n, const float* scalars, void* stream) {
+                              float* s1, long long n, const float* scalars,
+                              unsigned long long* next, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (family) {
     case kSgd:
-      return dispatch_chain<kSgd>(vec, p, g, s0, s1, n, scalars, st);
+      return run_stream<ChainBody<kSgd>>(vec, p, g, s0, s1, n, scalars, next, st);
     case kMomentum:
-      return dispatch_chain<kMomentum>(vec, p, g, s0, s1, n, scalars, st);
+      return run_stream<ChainBody<kMomentum>>(vec, p, g, s0, s1, n, scalars, next, st);
     case kAdam:
-      return dispatch_chain<kAdam>(vec, p, g, s0, s1, n, scalars, st);
+      return run_stream<ChainBody<kAdam>>(vec, p, g, s0, s1, n, scalars, next, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// scalars: {alpha, mu} on the device.
 extern "C" int au_fused_update(int vec, float* p, const float* g, float* v, long long n,
-                               const float* alpha, const float* mu, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int grid;
-  if (vec) {
-    grid = grid_for(update_kernel<true>, n / kVec);
-    update_kernel<true><<<grid, kThreads, 0, st>>>(p, g, v, n, alpha, mu);
-  } else {
-    grid = grid_for(update_kernel<false>, n);
-    update_kernel<false><<<grid, kThreads, 0, st>>>(p, g, v, n, alpha, mu);
-  }
-  return (int)cudaGetLastError();
+                               const float* scalars, unsigned long long* next, void* stream) {
+  return run_stream<UpdateBody>(vec, p, g, v, nullptr, n, scalars, next,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -60,7 +60,7 @@ LIBRARY = library_path(SOURCE)
 LAUNCHES = {"fused_tick": 0, "fused_chain": 0, "fused_combine": 0, "fused_update": 0}
 
 _FAMILY = {"sgd": 0, "momentum": 1, "adam": 2}
-_VEC = 8  # elements per thread per step in the kernels' vector path
+_VEC = 8  # the tick and combine kernels' vector path wants n % _VEC == 0
 _lib = None
 
 
@@ -82,7 +82,7 @@ def _load():
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.au_fused_tick.argtypes = [I, I, I, P, P, P, P, P, I, L, P, P, P, I, P, P]
         lib.au_fused_combine.argtypes = [I, I, P, P, P, I, L, P, P, P, I, P]
-        lib.au_fused_chain.argtypes = [I, I, P, P, P, P, L, P, P]
+        lib.au_fused_chain.argtypes = [I, I, P, P, P, P, L, P, P, P]
         lib.au_fused_update.argtypes = [I, P, P, P, L, P, P, P]
         for fn in (lib.au_fused_tick, lib.au_fused_combine, lib.au_fused_chain,
                    lib.au_fused_update):
@@ -125,7 +125,19 @@ def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+_COUNTERS: dict[tuple, torch.Tensor] = {}
 
+
+def _chunk_counter(device) -> torch.Tensor:
+    """The u64 from which the chain and update kernels' blocks draw chunks:
+    one per device and stream, made 0 once.  Every launch leaves it at 0 (the
+    block that draws the launch's last index resets it), so launches in
+    order on one stream share it and launches on two streams never do."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    counter = _COUNTERS.get(key)
+    if counter is None:
+        counter = _COUNTERS[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return counter
 
 
 def pack_scalars(scalars: dict, order, device) -> torch.Tensor:
@@ -228,11 +240,14 @@ def fused_chain(kind: str, p, g, bufs, scalars) -> None:
     for i, b in enumerate(fam):
         _check(b, f"state[{i}]", torch.float32, p.device, (n,))
     s = pack_scalars(scalars, ref.SCALAR_ORDER[kind], p.device)
-    vec = 1 if n % _VEC == 0 and _aligned(p, g, *fam) else 0
+    counter = _chunk_counter(p.device)
+    # aligned: 16-byte vectors over n - n % 4 elements, then a scalar tail
+    vec = 1 if _aligned(p, g, *fam) else 0
     s0 = fam[0] if fam else None
     s1 = fam[1] if len(fam) > 1 else None
     err = _load().au_fused_chain(
-        _FAMILY[kind], vec, ptr(p), ptr(g), ptr(s0), ptr(s1), n, ptr(s), stream(p.device)
+        _FAMILY[kind], vec, ptr(p), ptr(g), ptr(s0), ptr(s1), n, ptr(s), ptr(counter),
+        stream(p.device),
     )
     raise_on(err, "au_fused_chain")
     LAUNCHES["fused_chain"] += 1
@@ -249,10 +264,10 @@ def fused_update(p, g, v, alpha, mu) -> None:
     for name, t in (("p", p), ("g", g), ("v", v)):
         _check(t, name, torch.float32, p.device, (n,))
     s = pack_scalars({"alpha": alpha, "mu": mu}, ("alpha", "mu"), p.device)
-    vec = 1 if n % _VEC == 0 and _aligned(p, g, v) else 0
-    err = _load().au_fused_update(
-        vec, ptr(p), ptr(g), ptr(v), n, ptr(s[0:1]), ptr(s[1:2]), stream(p.device)
-    )
+    counter = _chunk_counter(p.device)
+    vec = 1 if _aligned(p, g, v) else 0
+    err = _load().au_fused_update(vec, ptr(p), ptr(g), ptr(v), n, ptr(s), ptr(counter),
+                                  stream(p.device))
     raise_on(err, "au_fused_update")
     LAUNCHES["fused_update"] += 1
 

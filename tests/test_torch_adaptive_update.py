@@ -212,6 +212,7 @@ def test_cpu_wrappers_count_no_launches():
     C.fused_tick("sgd", _t(d["p"]), _t(d["g"]), (), _ts(_scalars()), _t(d["ring"]),
                  torch.tensor(1, dtype=torch.int32), _t(d["taus"]), _t(d["weights"]))
     C.fused_update(_t(d["p"]), _t(d["g"]), _t(d["p"]), torch.tensor(0.1), torch.tensor(0.9))
+    C.fused_chain("momentum", _t(d["p"]), _t(d["g"]), _t(d["g"]), _ts(_scalars(mu=0.9)))
     assert C.LAUNCHES == {"fused_tick": 0, "fused_chain": 0, "fused_combine": 0, "fused_update": 0}
 
 
