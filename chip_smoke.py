@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-resume-layers 24   # phase 16 (a) alone
+    python3 chip_smoke.py --fsdp                       # phase 17 alone
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit.  It imports nothing of JAX or of the JAX package, and fails
 (non-zero exit, no result line) without a card or outside a checkout.
 
-Phases, each fatal on failure:
+Phases, each fatal on failure (each one's seconds printed as it ends, as
+``[time] phase N``):
 
 1. build — ``nvcc`` compiles the four CUDA sources for sm_90a, one process
    per source, all at once: ``adaptive_update.cu``, ``flash_attention.cu``,
@@ -213,10 +215,13 @@ Phases, each fatal on failure:
    full-depth f32 serve on the flash kernel (batch 4, prompt 512, 8 greedy
    steps) against one process: logits within 1e-4 + 1e-4 |one process|,
    ids equal, 24 flash launches a rank, bytes equal to the plan.  Then 4
-   ranks (data 2 x model 2) train depth 6 of 24 for 3 ticks: 3
-   ``fused_tick`` launches a rank, bytes (the data-parallel gradient sum
-   included) equal to the plan, the data replicas' params, momentum and
-   ring bitwise equal (SHA-256).  Prints ticks, prefill and decode times,
+   ranks (data 2 x model 2, in the FSDP storage over data of phase 17)
+   train depth 2 of 24 for 3 ticks: 3 ``fused_tick`` launches a rank,
+   collective bytes (the FSDP gathers and reduce-scatters and the
+   all-reduce of the leaves whole over data included) and each rank's
+   state bytes equal to the plan, and the data replicas' blocks of the
+   leaves whole over data (params, momentum and ring) bitwise equal
+   (SHA-256).  Prints ticks, prefill and decode times,
    peaks and bytes; a rank that fails, or a group past 300 s, fails the
    phase.
 15. tensor parallelism of the other families — 2 gloo ranks (data 1 x
@@ -255,21 +260,55 @@ Phases, each fatal on failure:
    the run that was not interrupted, fused_tick 6 + 3 a rank, every member
    of the checkpoint of the shape and stored dtype a one-process save
    writes, each rank's peak in the save and in the restore within 1 GB of
-   its training peak.  (b) 4 ranks (data 2 x model 2) at full width and 1
-   layer, f32 activations and an f32 ring of W = K = 2 (so the layouts
-   differ by f32 round-off alone), save at step 3; 2 ranks (data 1 x model
-   2) restore it, each held bit for bit to ``specs.localize`` of the whole
-   leaves, and one process restores it, held to the file's bits; both run
-   3 more ticks, the gathered params within 1e-5 of one process's.  The
-   depths are cut for the disk: the whole script is held to 45 GiB of disk
-   writes, deleted files included, and phase 7 writes 34.53 GB; (a) writes
-   7.40 GB and (b) 4.11 GB.  Prints save and restore seconds, GB on
+   its training peak.  (b) 4 ranks (data 2 x model 2, FSDP storage over
+   data) at full width and 1 layer, f32 activations and an f32 ring of W =
+   K = 2 (so the layouts differ by f32 round-off alone), save at step 3,
+   and restore it back at 2 x 2, each rank held bit for bit to the state
+   it saved; 2
+   ranks (data 1 x model 2) restore it, each held bit for bit to
+   ``specs.localize`` of the whole leaves, and one process restores it,
+   held to the file's bits; both run 3 more ticks, the gathered params
+   within 1e-5 of one process's.  The depths are cut for the disk (the
+   whole script is held to 45 GiB of disk writes, deleted files included,
+   and phase 7 writes 34.53 GB; (a) writes 7.40 GB and (b) 4.11 GB).
+   (b)'s groups run on a thread beside (a)'s (6 ranks on the card at
+   once), so their save and restore seconds share the host.
+   Prints save and restore seconds, GB on
    disk, the disk's free space and the peaks; each directory is removed at
    the end of its part; a rank that fails, or a group past 300 s, fails
    the phase.  ``--sharded-resume-layers L`` builds the adaptive_update
    kernels and runs (a) alone at L layers (24: full depth, a 34.53 GB
    checkpoint), with the same gates; it prints (a)'s row and the card, and
    no result line.
+17. FSDP storage over data — the reference's layout: each rank stores its
+   block over ``data`` of every weight (its params, momentum and ring are
+   ``N / 2`` long for the leaves that split), gathers a layer's weights
+   over ``data`` just before the layer runs and reduce-scatters their
+   gradient; 2 gloo ranks (data 2 x model 1) share the card.  (a) Phase 3's
+   run at full width and depth for 3 ticks, a refresh every 2: finite
+   losses; losses, taus, tables, CDFs and histograms equal on both ranks;
+   one ``au_fused_tick`` launch a tick on each rank (on its ``N_local``)
+   and no other adaptive_update kernel; each rank's state bytes equal to
+   ``plan_run(spec, mesh=(2, 1))`` and its collective bytes by purpose to
+   ``port_collective_bytes``, exactly.  Prints each rank's peak beside
+   phase 3's one-process peak and the planned peak, and the tick a rank.
+   (b) Depth 2, f32 activations, no remat, an f32 ring, 3 ticks with the
+   same uniforms: the FSDP run and the same run on the same ranks under
+   ``replicate_params_over_data`` bitwise equal (each rank's blocks of the
+   params, momentum and ring, and the losses: with two data ranks every
+   gradient element is ``a + b`` in both), and against one process the
+   losses within 1e-6 relative and the gathered params within 1e-5; bytes
+   equal to the plan.  (c) Depth 2 in f32 served on the flash kernel
+   (batch 4, prompt 512, 4 greedy steps; each rank its 2 rows): 2 flash
+   launches a rank, ids equal to one process's, logits within 1e-4 +
+   1e-4 |one process|, bytes equal to the plan.  Writes no checkpoint.
+   ``--fsdp`` builds the adaptive_update and flash kernels and runs phase
+   17 alone, printing its row and the card, and no result line.
+
+The script's time: phase 17 is paid for by one depth cut, never a width
+cut (phase 14's data 2 x model 2 run from 6 layers to 2), by planning
+phases 14, 15 and 17 on a thread while their ranks run, and by running
+phase 16 (b) beside (a).
 
 Then one JSON object with every kernel (launches on its path, max_abs_err,
 ms, plain_ms, bound_ms, library_ms, ...), the card's name and power limit,
@@ -2089,6 +2128,22 @@ def ep_block_inputs(cfg, device):
     return p, x
 
 
+def alongside(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` started on a thread of its own (a plan: host
+    work on ``meta`` tensors; or phase 16 (b)'s groups of ranks), so that it
+    runs while spawned ranks do; the future's ``result()`` waits for it and
+    raises what it raised.  The caller reads a plan right after the ranks
+    have ended, before it touches anything a plan patches (the kernel
+    wrappers)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        return pool.submit(fn, *args, **kwargs)
+    finally:
+        pool.shutdown(wait=False)
+
+
 def run_ranks(world, data, model, what, out_dir, target=None, timeout_s=EP_TIMEOUT_S):
     """Spawn ``world`` ranks of ``target`` (default :func:`ep_rank`) and wait
     for them; a rank that fails, or the group past ``timeout_s``, fails the
@@ -2241,7 +2296,7 @@ def expert_parallel(root):
 
 TP_TIMEOUT_S = 300  # a rank, or a collective, that takes longer fails the phase
 TP_TICKS, TP_AGREE_TICKS, TP_DXM_TICKS = 4, 3, 3
-TP_AGREE_LAYERS, TP_DXM_LAYERS, TP_GEN = 2, 6, 8
+TP_AGREE_LAYERS, TP_DXM_LAYERS, TP_GEN = 2, 2, 8
 
 
 def tp_train_spec(cfg, device="cuda", **upd):
@@ -2305,6 +2360,18 @@ def digest(t) -> str:
     import torch
 
     return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+
+
+def replicated_digest(t, cfg, mesh) -> str:
+    """:func:`digest` of the parts of a rank's flat buffer ``t`` (..., N_local)
+    that hold the leaves the storage layout keeps whole over ``data``: what
+    every data replica holds the same."""
+    import torch
+
+    from repro_torch.sharding import collectives as COL
+
+    runs = COL.data_layout(cfg, mesh).whole_runs()
+    return digest(torch.cat([t[..., a:a + n] for a, n in runs], dim=-1))
 
 
 def seeded_serve(cfg, prompt, gen, device, mesh=None):
@@ -2456,8 +2523,8 @@ def tp_rank(rank, world, data, model, what, store, out_dir):
         cfg = dataclasses.replace(full, num_layers=TP_DXM_LAYERS)
         state = train_rank(tp_train_spec(cfg, num_steps=TP_DXM_TICKS), "dxm", out, mesh,
                            f"tp dxm rank {rank}", replay=False)
-        out["dxm_digests"] = json.dumps([digest(state.params), digest(state.opt_state["bufs"]),
-                                         digest(state.delayed.ring)])
+        out["dxm_digests"] = json.dumps([replicated_digest(t, cfg, mesh) for t in (
+            state.params, state.opt_state["bufs"], state.delayed.ring)])
         del state
     np.savez(f"{out_dir}/{what}_{rank}.npz", **out)
     dist.barrier()
@@ -2498,7 +2565,7 @@ def tensor_parallel(root, full, main_summary):
 
     # the plans: per-rank state bytes and all-reduce bytes
     mesh12 = make_mesh((1, 2), ("data", "model"), device="meta")
-    planned_state = D.plan_run(tp_train_spec(full, device="cpu"), mesh=mesh12)
+    planning = alongside(D.plan_run, tp_train_spec(full, device="cpu"), mesh=mesh12)
     plan_train = train_plan(full, 4, 512, TP_TICKS, (1, 2))
     plan_agree = train_plan(acfg, 4, 512, TP_AGREE_TICKS, (1, 2))
     dcfg = dataclasses.replace(full, num_layers=TP_DXM_LAYERS)
@@ -2506,6 +2573,7 @@ def tensor_parallel(root, full, main_summary):
     plan_serve = serve_plan(scfg, 4, EP_PROMPT, TP_GEN, (1, 2))
 
     wall_tp = run_ranks(2, 1, 2, "tp", out_dir, target=tp_rank, timeout_s=TP_TIMEOUT_S)
+    planned_state = planning.result()
     ranks = [dict(np.load(out_dir / f"tp_{r}.npz")) for r in range(2)]
     rows = {}
 
@@ -2592,7 +2660,10 @@ def tensor_parallel(root, full, main_summary):
     check(one_flash == full.num_layers, f"one-process serve: {one_flash} flash")
 
     # -- data 2 x model 2, depth 6 --------------------------------------------
+    planning = alongside(D.plan_run, tp_train_spec(dcfg, device="cpu", num_steps=TP_DXM_TICKS),
+                         mesh=make_mesh((2, 2), ("data", "model"), device="meta"))
     wall_dxm = run_ranks(4, 2, 2, "dxm", out_dir, target=tp_rank, timeout_s=TP_TIMEOUT_S)
+    planned_dxm = planning.result()
     dxm = [dict(np.load(out_dir / f"dxm_{r}.npz")) for r in range(4)]
     for r in dxm:
         launches = json.loads(str(r["dxm_launches"]))
@@ -2600,11 +2671,15 @@ def tensor_parallel(root, full, main_summary):
               f"tp data x model: fused_tick launched {launches['fused_tick']} times")
         check(bool(np.isfinite(r["dxm_losses"]).all()), "tp data x model: a non-finite loss")
         check(bytes_by_key(r["dxm_bytes"]) == plan_dxm,
-              f"tp data x model: all-reduce bytes {bytes_by_key(r['dxm_bytes'])} != {plan_dxm}")
+              f"tp data x model: collective bytes {bytes_by_key(r['dxm_bytes'])} != {plan_dxm}")
+        check(int(r["dxm_state_bytes"]) == planned_dxm["memory"]["argument_bytes"],
+              f"tp data x model: state bytes {int(r['dxm_state_bytes'])} != the plan's "
+              f"{planned_dxm['memory']['argument_bytes']}")
         twins = [o for o in dxm if int(o["model"]) == int(r["model"])]
         for o in twins:
             check(str(o["dxm_digests"]) == str(r["dxm_digests"]),
-                  "tp data x model: the data replicas' params, momentum or ring differ")
+                  "tp data x model: the data replicas' leaves whole over data differ (params, "
+                  "momentum or ring)")
         for k in ("dxm_losses", "dxm_tables", "dxm_hists"):
             check(np.array_equal(r[k], dxm[0][k]), f"tp data x model: ranks disagree on {k}")
     rows["data_x_model"] = dict(
@@ -2740,13 +2815,15 @@ def other_families(root):
     # the plans: per-rank state bytes and all-reduce bytes
     spec = dataclasses.replace(main_spec(tcfg, device="cpu"), num_steps=OF_TRAIN_TICKS,
                                refresh_every=2)
-    planned_state = D.plan_run(spec, mesh=make_mesh((1, 2), ("data", "model"), device="meta"))
+    planning = alongside(D.plan_run, spec,
+                         mesh=make_mesh((1, 2), ("data", "model"), device="meta"))
     plan_train = train_plan(tcfg, 4, 512, OF_TRAIN_TICKS, (1, 2))
     plan_agree = train_plan(acfg, 4, 512, 1, (1, 2))
     plan_serve = {arch: serve_plan(of_serve_config(arch), 4, OF_SERVES[arch][1], OF_GEN, (1, 2))
                   for arch in OF_SERVES}
 
     wall = run_ranks(2, 1, 2, "families", out_dir, target=of_rank, timeout_s=OF_TIMEOUT_S)
+    planned_state = planning.result()
     ranks = [dict(np.load(out_dir / f"families_{r}.npz")) for r in range(2)]
     rows = {"one_process_s": t_one, "wall_s": wall}
 
@@ -3040,8 +3117,20 @@ def sr_rank(rank, world, data, model, what, store, out_dir):
         saver = TimedCheckpoint(directory, every=SR_SAVE)
         with use_sharding_rules(mesh):
             state = run(spec, hooks=[hook, saver]).state
-        torch.cuda.synchronize()
-        out.update(save_s=saver.seconds, train_peak=saver.train_peak, save_peak=saver.save_peak)
+            torch.cuda.synchronize()
+            out.update(save_s=saver.seconds, train_peak=saver.train_peak,
+                       save_peak=saver.save_peak)
+            if dxm:
+                # back at data 2 x model 2: the FSDP blocks restored, held to
+                # the state that was saved
+                engine = make_engine(spec)
+                held, _ = restore_checkpoint(directory, engine.build_template(), spec.pipeline,
+                                             step=SR_SAVE, device="cuda",
+                                             layout=engine.checkpoint_layout())
+                want = leaf_digests(state)
+                out["same_state_differ"] = [k for k, v in leaf_digests(held).items()
+                                            if v != want[k]]
+                del held, engine
     else:
         spec = sr_dxm_spec(full, num_steps=SR_SAVE + 3) if dxm else sr_spec(full, layers=layers)
         with use_sharding_rules(mesh):
@@ -3126,8 +3215,16 @@ def sharded_resume(root, full, layers=SR_LAYERS, across=True):
         return sum(os.path.getsize(ck / f) for f in os.listdir(ck)
                    if f.startswith(f"step_{SR_SAVE:08d}"))
 
-    # -- (a) same layout ----------------------------------------------------------
+    def across_layouts():
+        """(b)'s two groups, which share nothing with (a)'s."""
+        wall_dxm = run_ranks(4, 2, 2, "dxm", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
+        dxm_bytes = on_disk(out_dir / "ckpt_dxm", sr_dxm_spec(full))
+        wall_12 = run_ranks(2, 1, 2, "dxm_12", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
+        return wall_dxm, dxm_bytes, wall_12
+
+    # -- (a) same layout, with (b) beside it ------------------------------------
     free_disk = shutil.disk_usage(out_dir).free
+    beside = alongside(across_layouts) if across else None
     wall_a = run_ranks(2, 1, 2, "a", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
     ckpt_bytes = on_disk(out_dir / "ckpt_a", sr_spec(full, layers=layers))
     wall_b = run_ranks(2, 1, 2, "b", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
@@ -3159,9 +3256,7 @@ def sharded_resume(root, full, layers=SR_LAYERS, across=True):
         return rows
 
     # -- (b) across layouts -----------------------------------------------------
-    wall_dxm = run_ranks(4, 2, 2, "dxm", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
-    dxm_bytes = on_disk(out_dir / "ckpt_dxm", sr_dxm_spec(full))
-    wall_12 = run_ranks(2, 1, 2, "dxm_12", out_dir, target=sr_rank, timeout_s=SR_TIMEOUT_S)
+    wall_dxm, dxm_bytes, wall_12 = beside.result()
     dxm, r12 = ranks("dxm", 4), ranks("dxm_12", 2)
     for r in r12:
         check(not r["localize_differ"], f"sharded resume (b): data 1 x model 2 restored "
@@ -3169,13 +3264,16 @@ def sharded_resume(root, full, layers=SR_LAYERS, across=True):
         check(r["launches"]["fused_tick"] == 3, f"sharded resume (b): {r['launches']}")
     for r in dxm:
         check(r["launches"]["fused_tick"] == SR_SAVE, f"sharded resume (b): {r['launches']}")
+        check(not r["same_state_differ"], f"sharded resume (b): restored back at data 2 x "
+              f"model 2, {r['same_state_differ']} differ from the state saved")
     check(not r12[0]["one_differ"], f"sharded resume (b): one process restored "
           f"{r12[0]['one_differ']} other than the whole")
     d_params = r12[0]["params_max_abs"]
     check(d_params <= 1e-5, f"sharded resume (b): the continued ticks' params {d_params:.3e} "
           "past 1e-5 of one process's")
     rows["across_layouts"] = dict(
-        save_layout="data 2 x model 2", restore_layouts=["data 1 x model 2", "one process"],
+        save_layout="data 2 x model 2, FSDP",
+        restore_layouts=["data 2 x model 2, FSDP", "data 1 x model 2", "one process"],
         layers=SR_DXM_LAYERS, checkpoint_gb=dxm_bytes / 1e9,
         save_s=[r["save_s"] for r in dxm], restore_s=[r["restore_s"] for r in r12],
         one_process_restore_s=r12[0]["one_restore_s"],
@@ -3188,6 +3286,252 @@ def sharded_resume(root, full, layers=SR_LAYERS, across=True):
     shutil.rmtree(out_dir, ignore_errors=True)
     rows["phase_s"] = time.perf_counter() - t_phase
     log(f"[resume16] phase 16 took {rows['phase_s']:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the reference's FSDP storage over data on the card
+# ---------------------------------------------------------------------------
+
+FS_TIMEOUT_S = 400  # a rank, or a collective, that takes longer fails the phase
+FS_TICKS, FS_AGREE_LAYERS, FS_SERVE_LAYERS, FS_GEN = 3, 2, 2, 4
+
+
+def fs_train_spec(cfg, device="cuda"):
+    """(a)'s run: phase 3's (momentum, W = K = 8, bf16 ring, batch 4 x seq
+    512) for ``FS_TICKS`` ticks and a refresh every 2."""
+    return dataclasses.replace(main_spec(cfg, device), num_steps=FS_TICKS, refresh_every=2)
+
+
+def fs_agree_config(full):
+    """(b)'s model: full width at ``FS_AGREE_LAYERS`` layers, f32 activations
+    and no remat (phase 14's agreement dtypes)."""
+    return dataclasses.replace(tp_agree_config(full), num_layers=FS_AGREE_LAYERS)
+
+
+def fs_serve_config(full):
+    """(c)'s model: full width at ``FS_SERVE_LAYERS`` layers in f32 on the
+    kernels (flash at H 64 on all 32 heads)."""
+    return dataclasses.replace(tp_serve_config(full), num_layers=FS_SERVE_LAYERS)
+
+
+def fsdp_cut(t, cfg, mesh):
+    """The FSDP blocks of ``t`` (..., N), a tensor over the whole packed
+    param tree row by row of its leading dims, packed as a rank of
+    ``mesh`` packs its flat buffers (``specs.localize`` under the FSDP
+    layout)."""
+    import torch
+
+    from repro_torch.optim import transform as T
+    from repro_torch.sharding.specs import SPEC_OPTIONS, localize
+    from repro_torch.training.steps import param_template
+
+    assert not SPEC_OPTIONS["replicate_params_over_data"]
+    template = param_template(cfg)
+    rows = [T.pack_flat(localize(T.flat_view(r, template), cfg, mesh), dtype=r.dtype)
+            for r in t.reshape(-1, t.shape[-1])]
+    return torch.stack(rows).reshape(tuple(t.shape[:-1]) + (-1,))
+
+
+def fs_rank(rank, world, data, model, what, store, out_dir):
+    """One rank of phase 17 (a spawned process), data 2 x model 1 over gloo
+    on the one card: (a) full-width training, (b) the depth-2 agreement run
+    in the FSDP layout and then in the replicated one, (c) the depth-2
+    serve, in turn."""
+    import datetime
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.bridge import gather_params
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import use_sharding_rules
+    from repro_torch.sharding.specs import SPEC_OPTIONS
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=FS_TIMEOUT_S))
+    mesh = make_mesh((data, model), ("data", "model"), device="cuda")
+    torch.cuda.set_device(mesh.device)
+    full = get_config("stablelm-1.6b")
+    out = {"data": mesh.index("data")}
+
+    # (a) the slice at full width and depth
+    state = train_rank(fs_train_spec(full), "train", out, mesh, f"fsdp train rank {rank}")
+    del state
+    free_cuda()
+
+    # (b) depth 2, f32: the FSDP run, then the same run in the replicated layout
+    cfg = fs_agree_config(full)
+    draws = np.load(f"{out_dir}/fs_draws.npy")
+    state = train_rank(tp_agree_spec(cfg, draws), "agree", out, mesh, f"fsdp agree rank {rank}",
+                       replay=False)
+    fsdp = [state.params, state.opt_state["bufs"], state.delayed.ring]
+    out["agree_digests"] = json.dumps([digest(t) for t in fsdp])
+    with use_sharding_rules(mesh):
+        p_all = gather_params(state.params, cfg, mesh)
+    if rank == 0:
+        np.save(f"{out_dir}/fs_params.npy", p_all.cpu().numpy())
+    del state, p_all, fsdp
+    free_cuda()
+    SPEC_OPTIONS["replicate_params_over_data"] = True
+    try:
+        state = train_rank(tp_agree_spec(cfg, draws), "repl", out, mesh,
+                           f"replicated agree rank {rank}", replay=False)
+    finally:
+        SPEC_OPTIONS["replicate_params_over_data"] = False
+    out["repl_digests"] = json.dumps([digest(fsdp_cut(t, cfg, mesh)) for t in (
+        state.params, state.opt_state["bufs"], state.delayed.ring)])
+    del state
+    free_cuda()
+
+    # (c) serving at depth 2, f32, on the flash kernel
+    with use_sharding_rules(mesh):
+        got = seeded_serve(fs_serve_config(full), EP_PROMPT, FS_GEN, mesh.device, mesh)
+    out.update({f"serve_{k}": v for k, v in saved(got).items()})
+    del got
+    np.savez(f"{out_dir}/{what}_{rank}.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def fsdp_storage(root, full, main_summary=None):
+    """Phase 17 (module docstring): FSDP storage over data on 2 ranks, data
+    2 x model 1, against the plan, the replicated layout and one process."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.run import run
+
+    t_phase = time.perf_counter()
+    out_dir = root / "build" / "fsdp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    free_cuda()
+
+    # one process: the depth-2 f32 run and the depth-2 f32 serve
+    acfg = fs_agree_config(full)
+    draws = np.random.default_rng(0).random((TP_AGREE_TICKS, W_WORKERS)).astype(np.float32)
+    np.save(out_dir / "fs_draws.npy", draws)
+    one_hook = TickLog("fsdp one process", replay=False)
+    one_params = run(tp_agree_spec(acfg, draws), hooks=[one_hook]).state.params.cpu().numpy()
+    one_losses = [r["loss"] for r in one_hook.rows]
+    free_cuda()
+    scfg = fs_serve_config(full)
+    one_serve = seeded_serve(scfg, EP_PROMPT, FS_GEN, "cuda")
+
+    # the plans: a rank's state bytes and peak, and its collective bytes
+    mesh21 = make_mesh((2, 1), ("data", "model"), device="meta")
+    planning = alongside(D.plan_run, fs_train_spec(full, device="cpu"), mesh=mesh21)
+    plan_train = train_plan(full, 4, 512, FS_TICKS, (2, 1))
+    plan_agree = train_plan(acfg, 4, 512, TP_AGREE_TICKS, (2, 1))
+    plan_serve = serve_plan(scfg, 4, EP_PROMPT, FS_GEN, (2, 1))
+
+    wall = run_ranks(2, 2, 1, "fsdp", out_dir, target=fs_rank, timeout_s=FS_TIMEOUT_S)
+    planned = planning.result()
+    ranks = [dict(np.load(out_dir / f"fsdp_{r}.npz")) for r in range(2)]
+    rows = {}
+
+    # -- (a) training at full width and depth ----------------------------------
+    for r in ranks:
+        launches = json.loads(str(r["train_launches"]))
+        check(launches["fused_tick"] == FS_TICKS and launches["fused_chain"] ==
+              launches["fused_combine"] == launches["fused_update"] == 0,
+              f"fsdp training: launches {launches}, expected {FS_TICKS} fused_tick alone")
+        check(bool(np.isfinite(r["train_losses"]).all()), "fsdp training: a non-finite loss")
+        check(bool(r["train_table_in_place"]), "fsdp training: the refresh replaced the table")
+        check(int(r["train_state_bytes"]) == planned["memory"]["argument_bytes"],
+              f"fsdp training: state bytes {int(r['train_state_bytes'])} != the plan's "
+              f"{planned['memory']['argument_bytes']}")
+        check(bytes_by_key(r["train_bytes"]) == plan_train,
+              f"fsdp training: collective bytes {bytes_by_key(r['train_bytes'])} != the plan "
+              f"{plan_train}")
+    for k in ("train_losses", "train_taus", "train_tables", "train_cdfs", "train_hists"):
+        check(np.array_equal(ranks[0][k], ranks[1][k]), f"fsdp training: ranks disagree on {k}")
+    tables = ranks[0]["train_tables"]
+    check(not np.array_equal(tables[1], tables[0]), "fsdp training: the refresh at tick 2 left "
+          "the alpha table as it was")
+    rows["train"] = dict(
+        layout="data 2 x model 1, FSDP", ticks=FS_TICKS,
+        median_tick_ms=[float(r["train_median_ms"]) for r in ranks],
+        peak_gb=[float(r["train_peak_gb"]) for r in ranks],
+        phase3_peak_gb=None if main_summary is None else main_summary["peak_gb"],
+        planned_peak_gb=planned["memory"]["peak_bytes_per_card"] / 1e9,
+        state_bytes=int(ranks[0]["train_state_bytes"]),
+        phase3_state_bytes=None if main_summary is None else main_summary["state_bytes"],
+        n_local=int(ranks[0]["train_n_local"]),
+        fused_tick=[json.loads(str(r["train_launches"]))["fused_tick"] for r in ranks],
+        losses=ranks[0]["train_losses"].tolist(), taus=ranks[0]["train_taus"].tolist(),
+        collective_bytes=bytes_by_key(ranks[0]["train_bytes"]))
+    log(f"[fsdp] (a) training {json.dumps(rows['train'])}")
+
+    # -- (b) agreement at depth 2, f32 ------------------------------------------
+    for r in ranks:
+        check(str(r["agree_digests"]) == str(r["repl_digests"]),
+              "fsdp agreement: the FSDP run's params, momentum or ring bits differ from the "
+              "replicated run's blocks")
+        check(np.array_equal(r["agree_losses"], r["repl_losses"]),
+              f"fsdp agreement: losses {r['agree_losses']} != replicated {r['repl_losses']}")
+        check(bytes_by_key(r["agree_bytes"]) == plan_agree,
+              f"fsdp agreement: collective bytes {bytes_by_key(r['agree_bytes'])} != {plan_agree}")
+        check(int(r["repl_n_local"]) == one_params.shape[0] > int(r["agree_n_local"]),
+              f"fsdp agreement: replicated N_local {int(r['repl_n_local'])}, FSDP "
+              f"{int(r['agree_n_local'])}, one process {one_params.shape[0]}")
+    got_params = np.load(out_dir / "fs_params.npy")
+    d_loss = max(float(np.max(np.abs(r["agree_losses"] - one_losses) / np.abs(one_losses)))
+                 for r in ranks)
+    d_params = float(np.abs(got_params - one_params).max())
+    rows["agree"] = dict(layers=FS_AGREE_LAYERS, ticks=TP_AGREE_TICKS,
+                         bitwise_equal_to_replicated=True, loss_rel=d_loss,
+                         params_max_abs=d_params,
+                         n_local=[int(ranks[0]["agree_n_local"]), int(ranks[0]["repl_n_local"])])
+    log(f"[fsdp] (b) agreement {json.dumps(rows['agree'])}")
+    check(d_loss <= 1e-6, f"fsdp agreement: loss {d_loss:.3e} relative past 1e-6")
+    check(d_params <= 1e-5, f"fsdp agreement: params {d_params:.3e} past 1e-5 after "
+          f"{TP_AGREE_TICKS} ticks")
+    del got_params, one_params
+
+    # -- (c) serving at depth 2, f32 ---------------------------------------------
+    d_pre = d_dec = 0.0
+    rows_per_rank = 4 // 2
+    for r in ranks:
+        sl = slice(int(r["data"]) * rows_per_rank, (int(r["data"]) + 1) * rows_per_rank)
+        for got, want in ((r["serve_prefill"], one_serve["prefill"][sl]),
+                          (r["serve_logits"], one_serve["logits"][sl])):
+            err = float(np.max(np.abs(got - want) / (1e-4 + 1e-4 * np.abs(want))))
+            if got.ndim == 2:
+                d_pre = max(d_pre, err)
+            else:
+                d_dec = max(d_dec, err)
+        check(np.array_equal(r["serve_tokens"], one_serve["tokens"][sl]),
+              "fsdp serve: greedy ids differ from one process")
+        flash = json.loads(str(r["serve_launches"]))["flash_attention"]
+        check(flash == FS_SERVE_LAYERS,
+              f"fsdp serve: {flash} flash launches, expected {FS_SERVE_LAYERS}")
+        check(bytes_by_key(r["serve_bytes"]) == plan_serve,
+              f"fsdp serve: collective bytes {bytes_by_key(r['serve_bytes'])} != {plan_serve}")
+    rows["serve"] = dict(
+        layout="data 2 x model 1, FSDP", layers=FS_SERVE_LAYERS, batch=4, prompt=EP_PROMPT,
+        gen=FS_GEN, one_process=dict(prefill_s=one_serve["prefill_s"],
+                                     decode_ms_per_step=one_serve["decode_ms_per_step"]),
+        prefill_s=[float(r["serve_prefill_s"]) for r in ranks],
+        decode_ms_per_step=[float(r["serve_decode_ms_per_step"]) for r in ranks],
+        flash=[json.loads(str(r["serve_launches"]))["flash_attention"] for r in ranks],
+        collective_bytes=bytes_by_key(ranks[0]["serve_bytes"]),
+        logits_err_over_bound=max(d_pre, d_dec))
+    log(f"[fsdp] (c) serve {json.dumps(rows['serve'])}")
+    check(max(d_pre, d_dec) <= 1.0, f"fsdp serve: logits miss 1e-4 + 1e-4|ref| "
+          f"({max(d_pre, d_dec):.3f} of the bound)")
+    rows["wall_s"] = wall
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"[fsdp] phase 17 took {rows['phase_s']:.1f} s")
     return rows
 
 
@@ -3214,6 +3558,13 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi()
     log(f"card: {smi}  torch {torch.__version__} cuda {torch.version.cuda}")
+    if sys.argv[1:2] == ["--fsdp"]:
+        # phase 17 alone
+        compile_libraries([C.SOURCE, FA.SOURCE], force=True, verbose=True)
+        rows = fsdp_storage(root, get_config("stablelm-1.6b"))
+        log(json.dumps({"fsdp": rows}))
+        print(nvidia_smi())
+        return 0
     if sys.argv[1:2] == ["--sharded-resume-layers"]:
         # phase 16 (a) alone, at the depth asked for
         compile_libraries([C.SOURCE], force=True, verbose=True)
@@ -3223,11 +3574,21 @@ def main() -> int:
         print(nvidia_smi())
         return 0
 
+    seconds = {}
+    t_last = [time.perf_counter()]
+
+    def took(phase):
+        now = time.perf_counter()
+        seconds[phase] = now - t_last[0]
+        t_last[0] = now
+        log(f"[time] phase {phase}: {seconds[phase]:.1f} s")
+
     # -- phase 1: build (one nvcc per source, all at once) -----------------------
     t0 = time.perf_counter()
     libs = compile_libraries([C.SOURCE, FA.SOURCE, RG.SOURCE, SS.SOURCE], force=True, verbose=True)
     log(f"[build] nvcc sm_90a {time.perf_counter() - t0:.1f}s -> "
         + ", ".join(str(lib.relative_to(root)) for lib in libs))
+    took(1)
 
     # -- phase 2: each kernel against its plain version, full-width shapes ----
     n = sum(math.prod(shape) for shape, _ in _leaves(param_template(get_config("stablelm-1.6b"))))
@@ -3272,6 +3633,7 @@ def main() -> int:
         "and combines W weighted rows)")
     free_cuda()
     log(f"[kernels] all {len(results)} variants hold against their plain versions")
+    took(2)
 
     # -- phase 3: the main path, full width -------------------------------------
     full = get_config("stablelm-1.6b")
@@ -3281,10 +3643,12 @@ def main() -> int:
     free_cuda()
     small_agreement()
     free_cuda()
+    took(3)
 
     # -- phase 4: the other kernels through their own paths ---------------------
     path_counts = other_paths(dataclasses.replace(full, num_layers=2))
     free_cuda()
+    took(4)
 
     # -- phase 5: the serving kernels against their plain versions --------------
     flash_shapes = {  # B, S, T, Nq, Nkv, H, causal, window, softcap, dtype
@@ -3340,6 +3704,7 @@ def main() -> int:
             f"{SFU_EXP_PER_S / 1e12:.3f} T/s ({100 * r['exps_per_s'] / SFU_EXP_PER_S:.1f} %)")
         free_cuda()
     witness_delta_ranges(dev)
+    took(5)
 
     # -- phase 6: serving at full width, through the launcher --------------------
     serving = [
@@ -3361,13 +3726,16 @@ def main() -> int:
                  "whisper-large-v3", "gemma2-27b"):
         agreement[arch] = serve_agreement(arch)
         free_cuda()
+    took(6)
 
     # -- phase 7: checkpoint and resume on the main path, full width ------------
     (root / "build").mkdir(exist_ok=True)
     resume = resume_path(full, n, root / "build")
+    took(7)
 
     # -- phase 8: the exact simulator on the card against the CPU ----------------
     exact = exact_simulator()
+    took(8)
 
     # -- phase 9: the sharded async engine at full width --------------------------
     free_cuda()
@@ -3376,11 +3744,13 @@ def main() -> int:
     free_cuda()
     sharded["agreement"] = {W: sharded_agreement(W) for W in (2, 4)}
     free_cuda()
+    took(9)
 
     # -- phase 10: the paper's CNN and its experiments ----------------------------
     cnn = cnn_agreement()
     cnn.update(cnn_experiments())
     free_cuda()
+    took(10)
 
     # -- phase 11: the live parameter server ----------------------------------------
     live, live_counts = live_path(full, n, root / "build")
@@ -3388,25 +3758,38 @@ def main() -> int:
     free_cuda()
     live["agreement"] = live_agreement(root / "build")
     free_cuda()
+    took(11)
 
     # -- phase 12: the planner against the card -----------------------------------
     plan = plan_against_card(full, summary, serving[3], sharded)
+    took(12)
 
     # -- phase 13: expert parallelism on the card ---------------------------------
     ep = expert_parallel(root)
     free_cuda()
+    took(13)
 
     # -- phase 14: dense tensor parallelism on the card ----------------------------
     tp = tensor_parallel(root, full, summary)
     free_cuda()
+    took(14)
 
     # -- phase 15: tensor parallelism of the other families ------------------------
     families = other_families(root)
     free_cuda()
+    took(15)
 
     # -- phase 16: checkpoint and resume of multi-process training states ----------
     sharded_ckpt = sharded_resume(root, full)
     free_cuda()
+    took(16)
+
+    # -- phase 17: FSDP storage over data -------------------------------------------
+    fsdp = fsdp_storage(root, full, summary)
+    free_cuda()
+    took(17)
+    log(f"[time] phases {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
+        f"{sum(seconds.values()):.1f} s in all")
 
     launches = {
         "fused_tick": ("main", main_counts["fused_tick"]),
@@ -3447,6 +3830,8 @@ def main() -> int:
         ep["serve"]["two_ranks"]["flash"][0]
     flash_paths["tensor-parallel serve, stablelm-1.6b, data 1 x model 2 (each of 2 ranks)"] = \
         tp["serve"]["flash"][0]
+    flash_paths[f"FSDP serve, stablelm-1.6b at {FS_SERVE_LAYERS} layers, data 2 x model 1 (each "
+                "of 2 ranks)"] = fsdp["serve"]["flash"][0]
     by_path = {name: {} for name in ("flash_attention", "rg_lru", "selective_scan")}
     for arch in OF_SERVES:
         where = (f"tensor-parallel serve, {arch} at {OF_SERVES[arch][0]} layers, data 1 x model 2 "
@@ -3463,12 +3848,13 @@ def main() -> int:
     kernels[[k["name"] for k in kernels].index("fused_tick")]["launches_by_path"] = {
         "main (phase 3)": main_counts["fused_tick"],
         "tensor-parallel training, data 1 x model 2 (each of 2 ranks)": tp["train"]["fused_tick"][0],
-        "tensor-parallel training, data 2 x model 2, 6 layers (each of 4 ranks)":
-            tp["data_x_model"]["fused_tick"][0],
+        f"tensor-parallel training, data 2 x model 2, FSDP, {TP_DXM_LAYERS} layers (each of 4 "
+        "ranks)": tp["data_x_model"]["fused_tick"][0],
         f"tensor-parallel training, falcon-mamba-7b at {OF_TRAIN_LAYERS} layers, data 1 x model 2 "
         "(each of 2 ranks)": families["train"]["fused_tick"][0],
         "tensor-parallel training saved at step 3 and resumed, data 1 x model 2 (phase 16, run "
-        "A + run B, each of 2 ranks)": sum(sharded_ckpt["same_layout"]["fused_tick"][0])}
+        "A + run B, each of 2 ranks)": sum(sharded_ckpt["same_layout"]["fused_tick"][0]),
+        "FSDP training, data 2 x model 1 (each of 2 ranks)": fsdp["train"]["fused_tick"][0]}
     kernels[[k["name"] for k in kernels].index("fused_chain")]["launches_by_path"] = {
         "sharded_async": sharded_counts["fused_chain"],
         "sync_fuse": path_counts["sync_fuse"]["fused_chain"],
@@ -3478,7 +3864,8 @@ def main() -> int:
                     "agreement": agreement, "resume": resume,
                     "exact": exact, "sharded": sharded, "cnn": cnn, "live": live,
                     "plan": plan, "expert_parallel": ep, "tensor_parallel": tp,
-                    "tensor_parallel_families": families, "sharded_checkpoints": sharded_ckpt},
+                    "tensor_parallel_families": families, "sharded_checkpoints": sharded_ckpt,
+                    "fsdp": fsdp, "seconds": seconds},
                    default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

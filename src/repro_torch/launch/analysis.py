@@ -8,9 +8,9 @@ runs its own block, and collectives are written out), so there is no HLO to
 read: :func:`collective_bytes` counts instead the collectives that the
 reference's layout implies (FSDP storage over ``data``, Megatron products
 over ``model``), by the formulas in its docstring, and
-:func:`port_collective_bytes` the all-reduces the port itself runs for the
-archs it shards (every weight whole over ``data``; the one count the
-port's byte counter is held to exactly).
+:func:`port_collective_bytes` the all-reduces and all-gathers the port
+itself runs for the archs it shards (its FSDP gathers included; the one
+count the port's byte counter is held to exactly).
 """
 
 from __future__ import annotations
@@ -150,9 +150,36 @@ def collective_bytes(cfg, kind: str, batch: int, seq: int, mesh) -> dict[str, fl
     return out
 
 
+def _data_bytes(cfg, mesh, dtype) -> dict:
+    """A rank's param bytes in ``dtype`` by where they sit over ``data``:
+    ``whole`` the blocks of the leaves whole over ``data``; of the leaves
+    it gathers (:func:`~repro_torch.sharding.specs.gather_dim`), gathered,
+    ``outer`` those outside the layer stacks, ``stack`` / ``encoder`` /
+    ``decoder`` those of each stack (all its layers), ``cross_kv``
+    whisper's cross-attention ``wk`` / ``wv`` (what its cache projects).
+    The weights-stationary MoE's expert stacks are in none of them."""
+    from repro_torch.sharding.collectives import batch_axes, data_layout
+
+    layout = data_layout(cfg, mesh)
+    n_data = mesh.size(batch_axes(mesh))
+    out = dict.fromkeys(("whole", "outer", "stack", "encoder", "decoder", "cross_kv"), 0)
+    for (path, shape), whole in zip(layout.shapes.items(), layout.whole):
+        local = math.prod(shape) * dtype.itemsize
+        if whole:
+            out["whole"] += local
+            continue
+        if path not in layout.dims:
+            continue
+        top = path.split("/", 1)[0]
+        out[top if top in ("stack", "encoder", "decoder") else "outer"] += n_data * local
+        if path in ("decoder/cross_attn/wk", "decoder/cross_attn/wv"):
+            out["cross_kv"] += n_data * local
+    return out
+
+
 def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
                           cache_dtype=None) -> dict:
-    """The all-reduces ONE rank of the port runs per step under the layout
+    """The collectives ONE rank of the port runs per step under the layout
     ``mesh`` (every arch but a ``sequence_parallel`` / ``shard_grads`` one:
     :func:`repro_torch.sharding.specs.tensor_parallel_unsupported`).
 
@@ -200,19 +227,27 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
       replicated ``wk`` / ``wv`` of layers whose kv heads do not split over
       ``model`` (their gradient);
 
-    and with data > 1 (training) ``loss`` (the token count and the loss, 2 x
-    4), with one model rank the MoE's ``aux`` (its mean over ``data``, 4), and
-    ``grad``, the rank's flat gradient (its blocks, every leaf
-    replicated over ``data``).  No FSDP all-gather: the port keeps every
-    weight whole over ``data``.  The clip link's 4-byte norm is not counted.
-    ``all-reduce`` is the bytes each rank sends (ring: 2 (n - 1) / n per
-    byte over the group of n ranks); the other collectives are 0.
+    and with data > 1 ``fsdp_gather``, every weight the storage layout
+    splits over ``data`` gathered (the bytes of the gathered leaf, a rank's
+    block over ``model``): training the leaves outside the stacks once and
+    each stack's layers in the forward and, under ``cfg.remat``, again in
+    the recompute (whisper's encoder, which runs no remat, once); a
+    prefill or a decode step once each (whisper's prefill, the encoder and
+    the cross-attention's ``wk`` / ``wv``; its decode step, the embedding
+    and the decoder's layers but those two, whose K/V the cache holds); and training ``fsdp_grad``, their
+    gradients reduce-scattered over ``data`` (the same bytes, once), ``loss``
+    (the token count and the loss, 2 x 4), with one model rank the MoE's
+    ``aux`` (its mean over ``data``, 4), and ``grad``, the rank's
+    gradient of the leaves whole over ``data`` (under
+    ``replicate_params_over_data`` every leaf).  The clip link's 4-byte
+    norm is not counted.  ``all-reduce``, ``all-gather`` and
+    ``reduce-scatter`` are the bytes each rank sends (ring: 2 (n - 1) / n
+    and (n - 1) / n per byte over the group of n ranks); the other
+    collectives are 0.
     """
     import torch
 
     from repro_torch.models.layers import dtype_of
-    from repro_torch.sharding.specs import local_template
-    from repro_torch.tree import tree_leaves
 
     axes = tuple(mesh.axis_names)
     sizes = dict(zip(axes, mesh.devices.shape))
@@ -233,7 +268,7 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
     fwd = 1 + (1 if train and cfg.remat else 0)
     c = {k: 0 for k in ("embed", "attn", "mlp", "combine", "gather", "aux", "logits", "argmax",
                         "ssm_proj", "ssm_out", "lru_gather", "lru_out", "loss", "grad",
-                        "backward")}
+                        "fsdp_gather", "fsdp_grad", "backward")}
     sent = 0.0
     stationary = False
     if n_model > 1:
@@ -328,17 +363,31 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
             sent += _ring(world if stationary else n_model, "all-reduce") * c["combine"]
             sent += _ring(n_data, "all-reduce") * c["gather"]
             sent += _ring(world, "all-reduce") * c["aux"]
+    gathered = 0.0
+    if n_data > 1:
+        pd = dtype_of(cfg.param_dtype) if train else torch.float32
+        g = _data_bytes(cfg, mesh, pd)
+        if not cfg.is_encoder_decoder:
+            c["fsdp_gather"] = g["outer"] + fwd * g["stack"]
+        elif train:
+            c["fsdp_gather"] = g["outer"] + g["encoder"] + fwd * g["decoder"]
+        else:
+            c["fsdp_gather"] = (g["encoder"] + g["cross_kv"] if kind == "prefill"
+                                else g["outer"] + g["decoder"] - g["cross_kv"])
+        gathered = _ring(n_data, "all-gather") * c["fsdp_gather"]
     if train and n_data > 1:
         c["loss"] = 2 * 4
         if cfg.num_experts and n_model == 1:
             c["aux"] = 4
-        local = local_template(cfg, mesh)
-        c["grad"] = sum(math.prod(s) * dt.itemsize for s, dt in tree_leaves(local))
+        c["fsdp_grad"] = sum(g[k] for k in ("outer", "stack", "encoder", "decoder"))
+        c["grad"] = g["whole"]
         sent += _ring(n_data, "all-reduce") * (c["loss"] + c["grad"]
                                                + (c["aux"] if n_model == 1 else 0))
     out = {k: 0.0 for k in _COLLECTIVES}
     out["all-reduce"] = sent
-    out["total"] = sent
+    out["all-gather"] = gathered
+    out["reduce-scatter"] = _ring(n_data, "reduce-scatter") * c["fsdp_grad"]
+    out["total"] = sent + gathered + out["reduce-scatter"]
     out["counted"] = c
     out["counted_total"] = sum(c.values())
     return out

@@ -55,10 +55,12 @@ counterpart.
 The multi-card layouts plan the PORT's layout for every registered arch
 (:func:`~repro_torch.sharding.specs.tensor_parallel_unsupported` is None):
 Megatron-style tensor parallelism over ``model`` (heads, d_ff, vocab, the
-experts, the Mamba and RG-LRU layers' inner width) with every weight whole
-over ``data`` (the argument bytes per card from
-:func:`~repro_torch.sharding.specs.storage_spec_for`), and as collective
-term the all-reduces a port rank runs
+experts, the Mamba and RG-LRU layers' inner width) and the reference's FSDP
+storage over ``data`` (the argument bytes per card from
+:func:`~repro_torch.sharding.specs.storage_spec_for`; ``--repl_params``, the
+reference's flag, plans the serving layout instead, every weight whole over
+``data``), and as collective term the all-reduces and FSDP all-gathers a
+port rank runs
 (:func:`repro_torch.launch.analysis.port_collective_bytes`, the count its
 byte counter is held to); the step's temporaries are split evenly over the
 cards (an estimate).  A config whose layout the port does not run
@@ -105,6 +107,7 @@ from repro_torch.sharding.specs import (
     batch_shape_structs,
     leaf_paths,
     local_shape,
+    SPEC_OPTIONS,
     check_tensor_parallel,
     storage_spec_for,
 )
@@ -211,8 +214,7 @@ def argument_bytes(args, mesh, batch: int, cfg=None) -> tuple[int, int]:
     layout's specs (a non-tensor leaf, such as a TrainState's generator,
     holds no device memory).  With ``cfg``, the port's layout: parameter
     leaves (and the optimizer state and ring shaped like them) by
-    :func:`~repro_torch.sharding.specs.storage_spec_for`, whole over
-    ``data``."""
+    :func:`~repro_torch.sharding.specs.storage_spec_for`."""
     per_card = total = 0
     for path, t in leaf_paths(args):
         if not isinstance(t, torch.Tensor):
@@ -528,8 +530,10 @@ def finish_record(arch, cfg, shape_name, mesh, core: dict, args_card: int,
         layout = "one card: what the port runs"
     else:
         coll = port_collective_bytes(cfg, kind, batch, seq, mesh)
+        over_data = ("every weight whole over data" if SPEC_OPTIONS["replicate_params_over_data"]
+                     else "FSDP storage over data (weights gathered per layer)")
         layout = ("the port's layout: tensor parallelism over model (heads, d_ff, vocab, "
-                  "experts, the SSM's and RG-LRU's inner width), every weight whole over data")
+                  f"experts, the SSM's and RG-LRU's inner width), {over_data}")
     flops_card, bytes_card = core["flops"] / n, core["hbm_bytes"] / n
     terms = roofline_terms(flops_card, bytes_card, coll["total"], num_chips=n,
                            peak_flops=peak_flops_for(cfg.activation_dtype))
@@ -574,15 +578,28 @@ def main(argv=None) -> int:
     ap.add_argument("--cards", type=int, choices=(1, 4), default=4,
                     help="1 card, or one node of 4 (data 1 x model 4)")
     ap.add_argument("--small_mesh", action="store_true", help="data 2 x model 2 (the CI layout)")
+    ap.add_argument("--repl_params", action="store_true",
+                    help="serving layout: params replicated over data (no FSDP storage)")
     ap.add_argument("--out", default="build/dryrun", help="output dir for json records")
     args = ap.parse_args(argv)
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
+    old = SPEC_OPTIONS["replicate_params_over_data"]
+    SPEC_OPTIONS["replicate_params_over_data"] = args.repl_params
+    try:
+        return _plan_all(args)
+    finally:
+        SPEC_OPTIONS["replicate_params_over_data"] = old
 
+
+def _plan_all(args) -> int:
+    """Plan the combinations ``args`` names, one JSON record each."""
     os.makedirs(args.out, exist_ok=True)
     combos = ([(a, s) for a in ASSIGNED_ARCHS for s in INPUT_SHAPES] if args.all
               else [(args.arch, args.shape)])
     _, mesh_tag = _mesh_for(cards=args.cards, small_mesh=args.small_mesh)
+    if args.repl_params:
+        mesh_tag += "_repl"
 
     failures = 0
     for arch, shape in combos:

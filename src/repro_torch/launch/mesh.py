@@ -126,9 +126,9 @@ class Mesh:
     ``shape`` maps each axis to its size.  ``groups`` maps a tuple of axis
     names to the process group of the ranks that differ only along those
     axes (this rank's group); it is empty when no processes are running.
-    ``coords`` is this rank's index along each axis.  ``local_shapes``
-    holds, by config, the shapes of a rank's param blocks once computed
-    (:func:`repro_torch.sharding.specs.check_local_params`).
+    ``coords`` is this rank's index along each axis.  ``data_layouts``
+    holds, by config and layout option, where a rank's param blocks sit
+    once computed (:func:`repro_torch.sharding.collectives.data_layout`).
     """
 
     axis_names: tuple[str, ...]
@@ -137,7 +137,7 @@ class Mesh:
     coords: dict = dataclasses.field(default_factory=dict)
     groups: dict = dataclasses.field(default_factory=dict)
     device: Any = None
-    local_shapes: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    data_layouts: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def devices(self) -> DeviceGrid:

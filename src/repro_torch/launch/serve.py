@@ -63,8 +63,10 @@ def serve(cfg, params, batch: dict, *, gen: int, cache_dtype=torch.float32) -> d
 
     Under ``use_sharding_rules`` with a running sharded mesh, ``params`` are
     the rank's blocks (:func:`repro_torch.training.init_params` under the
-    same rules), the rank serves its rows of ``batch`` (all of them at data
-    1), its caches hold its kv heads (whisper: of the self- and the cross
+    same rules: over ``data`` too in the FSDP storage, gathered a layer at a
+    time in the prefill and in every decode step; whole over ``data`` under
+    ``replicate_params_over_data``), the rank serves its rows of ``batch``
+    (all of them at data 1), its caches hold its kv heads (whisper: of the self- and the cross
     K/V) and its channels of every Mamba and RG-LRU layer's conv window and
     state, the logits are its vocab block (``V / model``; whole on every
     rank where ``model`` does not divide the vocab, as internvl2-2b's) and

@@ -19,9 +19,13 @@ training, ``-1`` masking a position; ``prefix_embeds`` (vlm) and
 load-balance loss for configs with experts.  Serving runs without autograd;
 a decode step updates the cache in place and returns it.
 
-Under ``use_sharding_rules`` with a running mesh whose ``model`` axis has
-more than one process, the params are this rank's blocks
-(:func:`repro_torch.training.steps.init_params`) and ``forward`` /
+Under ``use_sharding_rules`` with a running sharded mesh the params are
+this rank's blocks (:func:`repro_torch.training.steps.init_params`): over
+``data`` too (the reference's FSDP storage), where every entry point
+gathers the weights outside the layer stacks (the embedding, the
+unembedding) once over ``data`` and the stacks gather theirs layer by
+layer (:func:`~repro_torch.sharding.collectives.gather_weights`).  With
+more than one ``model`` process ``forward`` /
 ``prefill`` / ``decode_step`` return the logits of the rank's vocab block
 (``V / model``); :func:`cross_entropy` reduces them over ``model``.  Every
 layer of the ten archs shards: attention, MLP, embedding and unembedding,
@@ -83,15 +87,25 @@ def init_model(gen, cfg, device) -> Params:
 
 def _vocab_layout(params: Params, cfg):
     """:func:`~repro_torch.sharding.collectives.vocab_mesh`, once the params
-    are checked to be this rank's blocks under a running ``model`` axis
+    are checked to be this rank's blocks under a running sharded mesh
     (:func:`~repro_torch.sharding.specs.check_local_params`)."""
-    mesh = C.model_mesh()
+    mesh = C.sharded_mesh()
     if mesh is None:
         return None
     from repro_torch.sharding.specs import check_local_params
 
     check_local_params(params, cfg, mesh)
     return C.vocab_mesh(cfg)
+
+
+_STACKS = ("stack", "encoder", "decoder")
+
+
+def _outer(params: Params, cfg) -> Params:
+    """``params`` with the leaves outside the layer stacks (the embedding,
+    the unembedding, the final norms) gathered over ``data``, once for the
+    step: a tied table's embedding and unembedding read one gather."""
+    return {k: v if k in _STACKS else C.gather_weights(v, k, cfg) for k, v in params.items()}
 
 
 def _embed_with_prefix(params: Params, batch: dict[str, Any], cfg, vmesh
@@ -121,6 +135,7 @@ def forward(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, t
     """Full-sequence pass -> (logits (B, S, V) aligned with the tokens,
     aux_loss f32 scalar)."""
     vmesh = _vocab_layout(params, cfg)
+    params = _outer(params, cfg)
     if cfg.is_encoder_decoder:
         logits = W.decode_train(params, batch["tokens"], _encode(params, batch, cfg), cfg,
                                 vmesh=vmesh)
@@ -192,7 +207,8 @@ def loss_fn(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, d
 def _data_parallel_aux(aux: torch.Tensor) -> torch.Tensor:
     """The router's aux loss under :func:`cross_entropy`'s data-parallel
     convention (every rank holds the global loss, its gradient is its
-    rows' share, the caller sums the gradients over ``data``): the mean over
+    rows' share, summed over ``data`` by the FSDP gather's backward or, for
+    the leaves whole over ``data``, by the caller): the mean over
     the data ranks, the reference's ``pmean``.  With one model rank the MoE
     routes each rank's rows alone, and the mean is taken here (one f32
     all-reduce).  The expert-parallel MoE (``model`` > 1) returns that mean
@@ -237,6 +253,7 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor, pos, cfg):
     Returns (logits (B, V), cache), the cache updated in place.
     """
     vmesh = _vocab_layout(params, cfg)
+    params = _outer(params, cfg)
     if cfg.is_encoder_decoder:
         return W.whisper_decode_step(params, cache, token, pos, cfg, vmesh=vmesh)
     act_dt = dtype_of(cfg.activation_dtype)
@@ -256,6 +273,7 @@ def prefill(params: Params, batch: dict[str, Any], cfg, capacity: int, *,
     """Process a prompt -> (last-position logits (B, V), decode cache).  A
     vlm prompt is its prefix and its tokens, so ``capacity`` counts both."""
     vmesh = _vocab_layout(params, cfg)
+    params = _outer(params, cfg)
     if cfg.is_encoder_decoder:
         memory = _encode(params, batch, cfg)
         logits = W.decode_train(params, batch["tokens"], memory, cfg, vmesh=vmesh)

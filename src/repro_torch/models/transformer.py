@@ -25,7 +25,14 @@ load-balance loss the full-sequence path returns beside ``x`` and sums over
 the stack in layer order; a block without experts contributes no term (the
 reference's zero, not materialised, so a dense stack runs no extra op).
 
-Under a running ``model`` axis the blocks need nothing of their own: the
+Under a running sharded mesh a rank stores its block of every weight over
+``data`` too (the reference's FSDP storage): each layer's subtree is
+gathered over ``data`` just before the layer runs
+(:func:`~repro_torch.sharding.collectives.gather_weights`), inside the block
+that ``cfg.remat`` checkpoints, so the recompute gathers it again and no
+more than a layer's weights are whole at once; the gather's backward
+reduce-scatters their gradient.  Under a running ``model`` axis the blocks
+need nothing more of their own: the
 attention, MLP, MoE, Mamba and RG-LRU layers shard themselves (their params
 are the rank's blocks), each ends in an all-reduce over ``model``, and so
 the norms (replicated), the residual stream and the local / global windows
@@ -297,8 +304,8 @@ def _per_layer(tree: Params, cfg) -> list[tuple[str, str, Params]]:
 
 def remat_call(fn, x: torch.Tensor, cfg):
     """``fn(x)``; under ``cfg.remat`` checkpointed (``jax.checkpoint``'s
-    counterpart).  Under a running model axis the recompute runs the whole
-    block: with early stopping it would end before the block's last
+    counterpart).  Under a running sharded mesh the recompute runs the
+    whole block: with early stopping it would end before the block's last
     all-reduce, so the collectives of a step would depend on which tensors
     autograd saved.  And it re-enters the sharding rules: a CUDA backward
     recomputes on autograd's device thread, which does not see this
@@ -311,18 +318,29 @@ def remat_call(fn, x: torch.Tensor, cfg):
         with rules_in_force(rules):
             return fn(x)
 
-    with set_checkpoint_early_stop(False) if C.model_mesh() is not None else \
+    with set_checkpoint_early_stop(False) if C.sharded_mesh() is not None else \
             contextlib.nullcontext():
         return checkpoint(block, x, use_reentrant=False)
+
+
+def gathered(apply, p: Params, prefix: str, cfg):
+    """``apply`` with its first argument, the layer's params at ``prefix``,
+    gathered over ``data`` when it runs
+    (:func:`~repro_torch.sharding.collectives.gather_weights`)."""
+
+    def run(*args, **kwargs):
+        return apply(C.gather_weights(p, prefix, cfg), *args, **kwargs)
+
+    return run
 
 
 def apply_stack(params: Params, x: torch.Tensor, io: LayerIO, cfg):
     """-> (x, aux_total): the blocks' aux losses summed in layer order (f32;
     zero for a stack without experts)."""
     aux_total = None
-    for _, t, p in _per_layer(params, cfg):
-        x, a = remat_call(functools.partial(apply_block, p, layer_type=t, io=io, cfg=cfg), x,
-                          cfg)
+    for g, t, p in _per_layer(params, cfg):
+        x, a = remat_call(functools.partial(gathered(apply_block, p, f"stack/{g}", cfg),
+                                            layer_type=t, io=io, cfg=cfg), x, cfg)
         if a is not None:  # 0 + a is a exactly: the reference's sum from zero
             aux_total = a if aux_total is None else aux_total + a
     if aux_total is None:
@@ -348,8 +366,8 @@ def init_stack_cache(cfg, batch: int, capacity: int, dtype, device) -> Params:
 
 def apply_stack_step(params: Params, x: torch.Tensor, cache: Params, pos, cfg):
     """One token through every layer; the cache is updated in place."""
-    for (_, t, p), (_, _, c) in zip(_per_layer(params, cfg), _per_layer(cache, cfg)):
-        x, _ = apply_block_step(p, x, c, t, pos, cfg)
+    for (g, t, p), (_, _, c) in zip(_per_layer(params, cfg), _per_layer(cache, cfg)):
+        x, _ = apply_block_step(C.gather_weights(p, f"stack/{g}", cfg), x, c, t, pos, cfg)
     return x, cache
 
 
@@ -358,7 +376,8 @@ def prefill_stack(params: Params, x: torch.Tensor, io: LayerIO, cfg, capacity: i
     the params)."""
     groups: dict[str, list] = {}
     for g, t, p in _per_layer(params, cfg):
-        x, c = prefill_block_cache(p, x, t, io, cfg, capacity, cache_dtype)
+        x, c = prefill_block_cache(C.gather_weights(p, f"stack/{g}", cfg), x, t, io, cfg,
+                                   capacity, cache_dtype)
         groups.setdefault(g, []).append(c)
     cache = {g: _stack_trees(cs) if g.startswith("pos") else cs[0] for g, cs in groups.items()}
     return x, cache

@@ -24,8 +24,11 @@ trunk's decode step (``transformer._attn_decode``), it follows jnp's type
 promotion: attention read from an f32 cache gives an f32 output, and the
 weights are cast to the dtype the activations then have.
 
-Under a running ``model`` axis the params are the rank's blocks, as the
-decoder trunk's: every attention (the encoder's, the decoder's self- and
+Under a running sharded mesh the params are the rank's blocks, as the
+decoder trunk's: over ``data`` they are gathered layer by layer (the
+encoder's and the decoder's, inside the block ``cfg.remat`` checkpoints;
+the cross K/V projections' ``wk`` / ``wv`` alone for the cache).  Under a
+running ``model`` axis every attention (the encoder's, the decoder's self- and
 cross-attention) runs the rank's heads and every MLP the rank's d_ff, each
 ending in an all-reduce over ``model``; the embedding and unembedding are
 split by vocab where ``model`` divides it (``vmesh``, else whole on every
@@ -56,7 +59,7 @@ from repro_torch.models.layers import (
     mlp_mesh,
     position_table,
 )
-from repro_torch.models.transformer import _unstack, init_stacked_blocks, remat_call
+from repro_torch.models.transformer import _unstack, gathered, init_stacked_blocks, remat_call
 from repro_torch.sharding import collectives as C
 
 __all__ = ["init_whisper", "encode", "decode_train", "init_whisper_cache", "whisper_decode_step"]
@@ -135,7 +138,7 @@ def encode(params: Params, frame_embeds: torch.Tensor, cfg) -> torch.Tensor:
     x = frame_embeds + position_table(T, D, frame_embeds.device, frame_embeds.dtype)[None]
     io = LayerIO(positions=_positions(B, T, x.device), causal=False)
     for p in _unstack(params["encoder"], cfg.num_encoder_layers):
-        x = apply_encoder_block(p, x, io, cfg)
+        x = apply_encoder_block(C.gather_weights(p, "encoder", cfg), x, io, cfg)
     return apply_layernorm(params["encoder_norm"], x, cfg.norm_eps)
 
 
@@ -153,8 +156,8 @@ def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor, cfg
     if hmesh is not None:
         mem = C.copy_to_model(mem, hmesh)
     for p in _unstack(params["decoder"], cfg.num_layers):
-        x = remat_call(functools.partial(apply_decoder_block, p, memory=mem, io=io, cfg=cfg), x,
-                       cfg)
+        x = remat_call(functools.partial(gathered(apply_decoder_block, p, "decoder", cfg),
+                                         memory=mem, io=io, cfg=cfg), x, cfg)
     x = apply_layernorm(params["decoder_norm"], x, cfg.norm_eps)
     return apply_unembed(params["embed"], x, softcap=cfg.final_logit_softcap, mesh=vmesh)
 
@@ -174,8 +177,10 @@ def init_whisper_cache(params: Params, memory: torch.Tensor, cfg, capacity: int,
     kv = {name: torch.empty((L, B, T, N, H), dtype=dtype, device=memory.device)
           for name in ("k", "v")}
     for i in range(L):
+        kv_w = C.gather_weights({"wk": cross["wk"][i], "wv": cross["wv"][i]},
+                                "decoder/cross_attn", cfg)
         for name, w in (("k", "wk"), ("v", "wv")):
-            proj = torch.einsum("btd,dnh->btnh", memory, cross[w][i].to(memory.dtype))
+            proj = torch.einsum("btd,dnh->btnh", memory, kv_w[w].to(memory.dtype))
             kv[name][i].copy_(proj)
     self_kv = {name: torch.zeros((L, B, capacity, N, H), dtype=dtype, device=memory.device)
                for name in ("k", "v")}
@@ -217,6 +222,9 @@ def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos,
                  _unstack(cache["self"], cfg.num_layers),
                  _unstack(cache["cross"], cfg.num_layers))
     for p, self_kv, cross_kv in layers:
+        # the cross-attention's wk / wv are not read: the cache holds its K/V
+        ca = {k: w for k, w in p["cross_attn"].items() if k not in ("wk", "wv")}
+        p = C.gather_weights({**p, "cross_attn": ca}, "decoder", cfg)
         dt = x.dtype
         sa = p["self_attn"]
         h = apply_layernorm(p["self_norm"], x, cfg.norm_eps)

@@ -34,7 +34,15 @@ that the params are the rank's blocks
 (:func:`~repro_torch.sharding.specs.check_local_params`), so a tree held
 whole raises there instead of running whole on every rank.
 * :func:`sum_over_data`: the data-parallel sum (the loss, the token count,
-  the gradient).
+  the gradient of the leaves replicated over ``data``);
+* :func:`gather_weights`: the FSDP gather.  A rank stores its block of every
+  weight over ``data`` (the reference's ``param_spec_for``), and a layer's
+  weights are gathered over the batch axes just before it runs
+  (``dist.all_gather_into_tensor`` of the blocks, put side by side along
+  the dim :func:`~repro_torch.sharding.specs.gather_dim` names: no sum, so
+  every bit moves as it is); the backward reduce-scatters the cotangent
+  over the batch axes (``dist.reduce_scatter_tensor``), so the gradient
+  arrives as the rank's block, already summed over ``data``.
 
 The expert-parallel MoE's general form, :func:`_sum_over` (a sum over one
 group whose backward sums over another), lives here too.
@@ -46,7 +54,8 @@ one rank that owns it, as bits (point to point over gloo, as CPU tensors: no sum
 turns ``-0.0`` into ``+0.0``, and no rank ever holds more than a chunk);
 :func:`check_same_on_every_rank` holds the replicated leaves to one value.
 
-Every all-reduce adds its buffer's bytes to :data:`COLLECTIVE_BYTES` under
+Every all-reduce, all-gather and reduce-scatter adds the bytes of its whole
+buffer (the gathered one, the one scattered) to :data:`COLLECTIVE_BYTES` under
 its purpose (a measurement count: the size handed to the collective, never
 waited for).  :func:`repro_torch.launch.analysis.port_collective_bytes`
 plans the same counts from a config and a layout; the tests and
@@ -58,6 +67,8 @@ copies its chunks to the host).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -74,6 +85,8 @@ __all__ = [
     "greedy_argmax",
     "gather_over_model",
     "sum_over_data",
+    "gather_weights",
+    "data_layout",
     "sum_grads_over_data",
     "scale_grad",
     "local_rows",
@@ -90,11 +103,15 @@ __all__ = [
 # x_proj, the (dt, B, C) partial sums), "ssm_out" (its out_proj output),
 # "lru_gather" (the RG-LRU's conv output gathered over model), "lru_out"
 # (its out_proj output); the data-parallel ones: "loss" (token count and
-# loss), "grad" (the flat gradient); "norm" (the clip link's squared
-# norm); and "backward", every all-reduce of a backward pass.
+# loss), "grad" (the gradient of the leaves replicated over data); the
+# FSDP ones: "fsdp_gather" (a weight gathered over data, the bytes of the
+# gathered leaf) and "fsdp_grad" (its gradient reduce-scattered, the same
+# bytes); "norm" (the clip link's squared norm); and "backward", every
+# other all-reduce of a backward pass.
 COLLECTIVE_BYTES = {k: 0 for k in ("combine", "gather", "aux", "embed", "attn", "mlp", "logits",
                                    "argmax", "ssm_proj", "ssm_out", "lru_gather", "lru_out",
-                                   "loss", "grad", "norm", "backward")}
+                                   "loss", "grad", "fsdp_gather", "fsdp_grad", "norm",
+                                   "backward")}
 
 
 def reset_collective_bytes() -> None:
@@ -315,36 +332,179 @@ def scale_grad(t: torch.Tensor, s: float) -> torch.Tensor:
     return t
 
 
-def sum_grads_over_data(grads, mesh):
-    """The data-parallel gradient sum, in place: a flat buffer in one
-    all-reduce, a tree leaf by leaf."""
+# ---------------------------------------------------------------------------
+# FSDP storage over `data`
+# ---------------------------------------------------------------------------
+
+class DataLayout:
+    """Where a config's param leaves sit over a layout, for the current
+    ``SPEC_OPTIONS``, in the param tree's leaf order (the flat buffer's):
+    ``shapes`` each leaf's block as a rank stores it, by path; ``sizes``
+    their numels; ``axes`` the axes each leaf is split over (``()`` for a
+    replicated one); ``whole`` whether a leaf is whole over the batch axes;
+    ``dims`` the dim (from the end) each gathered leaf is gathered along,
+    by path."""
+
+    def __init__(self, cfg, mesh):
+        from repro_torch.models import model as M
+        from repro_torch.sharding.specs import (
+            _axes_of,
+            gather_dim,
+            leaf_paths,
+            local_shape,
+            storage_spec_for,
+        )
+
+        daxes = batch_axes(mesh)
+        self.shapes, self.axes, self.dims = {}, [], {}
+        for path, leaf in leaf_paths(M.init_model(None, cfg, "meta")):
+            shape = tuple(leaf.shape)
+            spec = storage_spec_for(path, shape, mesh, cfg)
+            dim = gather_dim(path, shape, mesh, cfg)
+            if dim is not None:
+                self.dims[path] = dim
+            self.shapes[path] = tuple(local_shape(shape, spec, mesh))
+            self.axes.append(tuple(a for a in mesh.axis_names
+                                   if any(a in _axes_of(e) for e in spec)))
+        self.sizes = [math.prod(s) for s in self.shapes.values()]
+        self.whole = [not any(a in daxes for a in axes) for axes in self.axes]
+
+    def whole_runs(self) -> list[tuple[int, int]]:
+        """``(offset, length)`` of each run of leaves whole over the batch
+        axes in the rank's flat buffer (every leaf, replicated over data)."""
+        runs, start = [], 0
+        for n, whole in zip(self.sizes, self.whole):
+            if whole:
+                if runs and sum(runs[-1]) == start:
+                    runs[-1] = (runs[-1][0], runs[-1][1] + n)
+                else:
+                    runs.append((start, n))
+            start += n
+        return runs
+
+
+def data_layout(cfg, mesh) -> DataLayout:
+    """:class:`DataLayout` of ``cfg`` on ``mesh``, built once per config and
+    layout option (kept on the mesh)."""
+    from repro_torch.sharding.specs import SPEC_OPTIONS
+
+    key = (cfg, SPEC_OPTIONS["replicate_params_over_data"])
+    got = mesh.data_layouts.get(key)
+    if got is None:
+        got = mesh.data_layouts[key] = DataLayout(cfg, mesh)
+    return got
+
+
+def _all_gather(t: torch.Tensor, mesh, dim: int, what: str) -> torch.Tensor:
+    """The blocks of ``t`` of the ranks of the batch axes, side by side along
+    ``dim`` in their order (no sum: every bit as the ranks hold it)."""
+    import torch.distributed as dist
+
+    axes = batch_axes(mesh)
+    n = mesh.size(axes)
+    dim %= t.dim()
+    out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    COLLECTIVE_BYTES[what] += out.numel() * out.element_size()
+    dist.all_gather_into_tensor(out, t.contiguous(), group=mesh.group(axes))
+    if dim == 0:
+        return out
+    return out.unflatten(0, (n, t.shape[0])).movedim(0, dim).flatten(dim, dim + 1)
+
+
+class _GatherOverData(torch.autograd.Function):
+    """The FSDP gather of a leaf along ``dim``; the backward reduce-scatters
+    the cotangent over the batch axes: the rank's block of its sum."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim % t.dim()
+        return _all_gather(t, mesh, dim, "fsdp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        mesh, dim = ctx.mesh, ctx.dim
+        axes = batch_axes(mesh)
+        g = g.movedim(dim, 0).contiguous()
+        out = torch.empty((g.shape[0] // mesh.size(axes),) + tuple(g.shape[1:]), dtype=g.dtype,
+                          device=g.device)
+        COLLECTIVE_BYTES["fsdp_grad"] += g.numel() * g.element_size()
+        dist.reduce_scatter_tensor(out, g, group=mesh.group(axes))
+        return out.movedim(0, dim), None, None
+
+
+def gather_weights(tree, prefix: str, cfg):
+    """``tree`` (the param subtree at ``prefix``: one layer's, or the
+    embedding's) with every leaf the storage layout splits over ``data``
+    gathered over the batch axes, as a layer reads it: its block over
+    ``model`` alone (module docstring).  The identity with no running
+    mesh, one data rank or ``replicate_params_over_data``.  Differentiated,
+    each gathered leaf's gradient is the rank's block of the sum over
+    ``data``."""
+    mesh = sharded_mesh()
+    if mesh is None or data_size(mesh) == 1:
+        return tree
+    dims = data_layout(cfg, mesh).dims
+    if not dims:
+        return tree
+    from repro_torch.sharding.specs import _map_with_path
+
+    def one(path, t):
+        dim = dims.get(path)
+        if dim is None:
+            return t
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _GatherOverData.apply(t, mesh, dim)
+        return _all_gather(t, mesh, dim, "fsdp_gather")
+
+    return _map_with_path(one, tree, prefix)
+
+
+def sum_grads_over_data(grads, mesh, cfg):
+    """The data-parallel gradient sum of the leaves the storage layout keeps
+    whole over ``data``, in place (the leaves split over ``data`` come out
+    of :func:`gather_weights`' backward summed): a flat buffer in one
+    all-reduce per run of such leaves, a tree leaf by leaf."""
     from repro_torch.tree import tree_leaves
 
+    layout = data_layout(cfg, mesh)
     group = mesh.group(batch_axes(mesh))
-    for g in ([grads] if isinstance(grads, torch.Tensor) else tree_leaves(grads)):
+    if isinstance(grads, torch.Tensor):
+        parts = [grads.narrow(0, a, n) for a, n in layout.whole_runs()]
+    else:
+        parts = [g for g, whole in zip(tree_leaves(grads), layout.whole) if whole]
+    for g in parts:
         _all_reduce(g, group, "grad")
     return grads
 
 
-def make_sq_norm(sizes: list[int], replicated: list[bool], mesh):
+def make_sq_norm(cfg, mesh):
     """The squared global norm of a gradient held as this rank's blocks
-    (a flat buffer of leaves of ``sizes``, or a tree in the same leaf
-    order): the squares of the leaves split over ``model`` are summed over
-    ``model``, those of the replicated leaves counted once, and nothing is
-    summed over ``data`` (the gradient is already the same there)."""
+    (a flat buffer packed from the rank's blocks, or a tree in the same
+    leaf order): each leaf's square summed over the axes the storage
+    layout splits it over (:class:`DataLayout`), a replicated leaf's
+    counted once."""
     from repro_torch.tree import tree_leaves
 
+    layout = data_layout(cfg, mesh)
+    kinds = sorted(set(layout.axes), key=lambda axes: (len(axes), axes))
+
     def sq_norm(u) -> torch.Tensor:
-        parts = torch.split(u, sizes) if isinstance(u, torch.Tensor) else tree_leaves(u)
-        split = torch.zeros((1,), dtype=torch.float32, device=parts[0].device)
-        whole = torch.zeros((1,), dtype=torch.float32, device=parts[0].device)
-        for part, rep in zip(parts, replicated):
-            sq = torch.sum(torch.square(part.to(torch.float32)))
-            if rep:
-                whole = whole + sq
-            else:
-                split = split + sq
-        return (reduce_from_model(split, mesh, "norm") + whole)[0]
+        parts = torch.split(u, layout.sizes) if isinstance(u, torch.Tensor) else tree_leaves(u)
+        sums = {axes: torch.zeros((1,), dtype=torch.float32, device=parts[0].device)
+                for axes in kinds}
+        for part, axes in zip(parts, layout.axes):
+            sums[axes] = sums[axes] + torch.sum(torch.square(part.to(torch.float32)))
+        total = None
+        for axes in kinds:
+            if axes:
+                s = _sum_over(sums[axes], mesh.group(axes), "norm")
+                total = s if total is None else total + s
+        whole = sums.get(())
+        if whole is not None:
+            total = whole if total is None else total + whole
+        return total[0]
 
     return sq_norm
 

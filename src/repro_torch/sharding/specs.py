@@ -23,7 +23,11 @@ The reference's ``*_shardings`` functions wrap each spec in a
 ``NamedSharding`` for ``jax.jit``; the port has no partitioner to hand them
 to, so :func:`local_shape` and :func:`local_shard` give this card's block of
 a leaf instead, and :func:`local_template` the shapes of a rank's param
-blocks under the port's storage layout (:func:`storage_spec_for`).
+blocks under the port's storage layout (:func:`storage_spec_for`: the
+reference's FSDP storage over ``data``, or with
+``SPEC_OPTIONS["replicate_params_over_data"]`` every weight whole over
+``data``).  :func:`gather_dim` names the dim a rank gathers over ``data``
+before a layer runs.
 """
 
 from __future__ import annotations
@@ -36,7 +40,6 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.sharding.ctx import PartitionSpec as P
-from repro_torch.tree import tree_map
 
 __all__ = [
     "param_spec_for",
@@ -56,6 +59,7 @@ __all__ = [
     "owns_block",
     "block_part",
     "storage_spec_for",
+    "gather_dim",
     "local_template",
     "localize",
     "check_local_params",
@@ -440,33 +444,39 @@ def block_part(run, offsets: tuple[int, ...], lengths: tuple[int, ...]):
 # The port's storage layout: what a rank of a running mesh holds
 # ---------------------------------------------------------------------------
 
-def _keeps_data(path: str, cfg, mesh) -> bool:
-    """The weights-stationary MoE's expert stacks keep their d_ff split over
-    the batch axes (the layout of :func:`repro_torch.models.moe.local_expert_params`)."""
-    daxes = _data_axes(mesh)
-    return bool(cfg is not None and cfg.moe_weights_stationary and daxes
-                and re.search(r"w_(gate|up|down)_e$", path)
-                and cfg.d_ff_expert % math.prod(_axis_sizes(mesh)[a] for a in daxes) == 0)
+def _stationary_stack(path: str, cfg) -> bool:
+    """An expert stack of the weights-stationary MoE, whose d_ff stays over
+    the batch axes in both layouts (the layout of
+    :func:`repro_torch.models.moe.local_expert_params`: its weights never
+    move)."""
+    return bool(cfg is not None and cfg.moe_weights_stationary
+                and re.search(r"w_(gate|up|down)_e$", path))
 
 
 def storage_spec_for(path: str, shape: tuple[int, ...], mesh, cfg=None) -> P:
-    """The spec a rank of the port stores a parameter leaf by: the rule's
-    spec (:func:`param_spec_for`) with the batch axes dropped, so every leaf
-    is replicated over ``data`` (the reference's
-    ``SPEC_OPTIONS["replicate_params_over_data"]`` layout; its FSDP storage
-    sharding over ``data`` is not run by the port).  The one exception is
-    the weights-stationary MoE's expert stacks, whose d_ff stays over the
-    batch axes.  An SSM's ``in_proj`` splits where ``model`` divides each of
+    """The spec a rank of the port stores a parameter leaf by: the
+    reference's :func:`param_spec_for` (FSDP storage over the batch axes:
+    d_model, d_ff or the expert d_ff over ``data``, and ``pod`` when
+    present; heads, d_ff, vocab or inner width over ``model``; each only
+    where the axes divide the dimension).  Under
+    ``SPEC_OPTIONS["replicate_params_over_data"]`` (the reference's serving
+    layout) the batch axes are dropped and every leaf is whole over
+    ``data``, but for the weights-stationary MoE's expert stacks, whose d_ff
+    stays over them in both layouts.  One difference from the reference: an
+    SSM's ``in_proj`` splits over ``model`` where ``model`` divides each of
     its halves, and its block is ``[u_r | z_r]`` (:func:`block_view`).
 
-    It reads the rule table itself (``model`` where ``model`` divides the
-    dimension, as :func:`param_spec_for` resolves it): the layers decide
-    from it on every call
+    The layers run on the leaves gathered over ``data``
+    (:func:`gather_dim`,
+    :func:`repro_torch.sharding.collectives.gather_weights`).  It reads the
+    rule table itself: the layers decide from it on every call
     (:func:`repro_torch.sharding.collectives.layout_mesh`), and
     ``tools.reprolint`` joins :func:`param_spec_for` by name with the
     reference's, whose host-side ``int`` it would report in the step."""
     sizes = _axis_sizes(mesh)
-    keep = _keeps_data(path, cfg, mesh) and not SPEC_OPTIONS["replicate_params_over_data"]
+    daxes = _data_axes(mesh)
+    n_data = math.prod(sizes[a] for a in daxes) if daxes else 1
+    keep = not SPEC_OPTIONS["replicate_params_over_data"] or _stationary_stack(path, cfg)
     for pattern, trailing in _RULES:
         if not re.search(pattern, path):
             continue
@@ -479,22 +489,39 @@ def storage_spec_for(path: str, shape: tuple[int, ...], mesh, cfg=None) -> P:
                 dim //= _halves(path)  # each of in_proj's halves splits on its own
             if ax == "model" and "model" in sizes and dim % sizes["model"] == 0:
                 tail.append("model")
-            elif ax == "data" and keep:
-                tail.append(_data_axes(mesh))
+            elif ax == "data" and keep and daxes and dim % n_data == 0:
+                tail.append(daxes)
             else:
                 tail.append(None)
         return P(*((None,) * (len(shape) - n) + tuple(tail)))
     return P()
 
 
+def gather_dim(path: str, shape: tuple[int, ...], mesh, cfg=None) -> int | None:
+    """The dim of a leaf (counted from the end, so that it holds for a
+    stacked leaf and for one layer's slice of it) that a rank gathers over
+    the batch axes before a layer reads it: the one its
+    :func:`storage_spec_for` splits over them, but for the
+    weights-stationary MoE's expert stacks, which are never gathered.  None
+    for a leaf whole over ``data``."""
+    if _stationary_stack(path, cfg):
+        return None
+    spec = storage_spec_for(path, shape, mesh, cfg)
+    daxes = _data_axes(mesh)
+    for i, e in enumerate(spec):
+        if daxes and e == daxes:
+            return i - len(shape)
+    return None
+
+
 def local_template(cfg, mesh) -> Any:
     """The param tree's ``(shape, dtype)`` leaves as one rank of ``mesh``
     stores them (the counterpart of
     :func:`repro_torch.training.steps.param_template`): every leaf at
-    ``local_shape(shape, storage_spec_for(path, shape, mesh, cfg), mesh)``.
-    With data > 1 every leaf is replicated over ``data``
-    (:func:`storage_spec_for`).  Only the layout's sizes are read, so a
-    mesh with no running processes plans a rank's blocks."""
+    ``local_shape(shape, storage_spec_for(path, shape, mesh, cfg), mesh)``,
+    its block over ``data`` and ``model`` (over ``model`` alone under
+    ``replicate_params_over_data``).  Only the layout's sizes are read, so
+    a mesh with no running processes plans a rank's blocks."""
     from repro_torch.models import model as M
 
     meta = M.init_model(None, cfg, "meta")
@@ -532,17 +559,17 @@ def localize(tree: Any, cfg, mesh) -> Any:
 
 def check_local_params(params: Any, cfg, mesh) -> None:
     """Raise unless every leaf of ``params`` has its :func:`local_template`
-    shape.  Under a running ``model`` axis the layers take the rank's
-    blocks; a tree held whole must not run whole on every rank."""
-    want = mesh.local_shapes.get(cfg)
-    if want is None:
-        want = mesh.local_shapes[cfg] = dict(
-            leaf_paths(tree_map(lambda t: P(*t[0]), local_template(cfg, mesh))))
+    shape.  Under a running sharded mesh the layers take the rank's blocks
+    (gathered over ``data`` layer by layer); a tree held whole must not run
+    whole on every rank."""
+    from repro_torch.sharding.collectives import data_layout
+
+    want = data_layout(cfg, mesh).shapes
     for path, t in leaf_paths(params):
-        if tuple(t.shape) != tuple(want[path]):
+        if tuple(t.shape) != want[path]:
             raise ValueError(
-                f"{path}: shape {tuple(t.shape)} under a `model` axis of {mesh.shape['model']}, "
-                f"where the rank's block is {tuple(want[path])}: build the rank's blocks "
+                f"{path}: shape {tuple(t.shape)} under a {dict(mesh.shape)} layout, where the "
+                f"rank's block is {want[path]}: build the rank's blocks "
                 "(training.init_params or bridge.params_from_jax under the mesh)")
 
 

@@ -256,8 +256,11 @@ def make_step(
     is one rank's: it takes its rows of the global batch, its loss is the
     token mean over the global batch
     (:func:`repro_torch.models.model.cross_entropy`), its gradient the
-    rank's blocks, summed over ``data`` in one all-reduce before the ring
-    push, and the clip link's norm sums over ``model``.  Every rank draws
+    rank's blocks, summed over ``data`` before the ring push (the blocks of
+    the weights split over ``data`` by the FSDP gather's backward, the
+    leaves whole over ``data`` by one all-reduce per run of them in the
+    flat buffer), and the clip link's norm sums each leaf's square over the
+    axes it is split over.  Every rank draws
     the same uniforms (the same seeded generator, or ``tau_source``), so
     taus, tables and histograms agree everywhere.
     """
@@ -285,7 +288,8 @@ def make_step(
     if n_data > 1 and cfg.moe_weights_stationary:
         raise NotImplementedError("data-parallel training of the weights-stationary MoE "
                                   "(ROADMAP Queue 1, item 3)")
-    sq_norm = None if tp is None or C.model_mesh() is None else _sq_norm_for(cfg, tp)
+    split = tp is not None and any(C.data_layout(cfg, tp).axes)
+    sq_norm = C.make_sq_norm(cfg, tp) if split else None
 
     def apply_fn(grads, opt_state, params, ctx):
         return T.run_pipeline(transform, grads, opt_state, params, ctx)
@@ -307,7 +311,7 @@ def make_step(
             grads = tree_map(lambda _: next(it), leaves)
         if n_data > 1:
             with torch.no_grad():
-                C.sum_grads_over_data(grads, tp)
+                C.sum_grads_over_data(grads, tp, cfg)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def _flat_grads(grads):
@@ -437,20 +441,6 @@ def make_step(
         }
 
     return train_step
-
-
-def _sq_norm_for(cfg, mesh):
-    """The clip link's squared norm over the rank's blocks (the leaves the
-    storage layout splits over ``model`` summed over it, the rest once)."""
-    from repro_torch.sharding.specs import leaf_paths, storage_spec_for
-
-    sizes, replicated = [], []
-    for path, leaf in leaf_paths(M.init_model(None, cfg, "meta")):
-        spec = storage_spec_for(path, tuple(leaf.shape), mesh, cfg)
-        n = mesh.shape["model"] if "model" in spec else 1
-        sizes.append(leaf.numel() // n)
-        replicated.append(n == 1)
-    return C.make_sq_norm(sizes, replicated, mesh)
 
 
 def make_train_step(cfg, opt) -> Callable:

@@ -12,7 +12,12 @@ spawn of its ranks from a script (``_WORKER``), all under
 
 * ``1x2``: data 1 x model 2;
 * ``1x4``: data 1 x model 4 (one query head a rank);
-* ``2x2``: data 2 x model 2 (each data group its batch row).
+* ``2x2``: data 2 x model 2 (each data group its batch row), in the
+  reference's FSDP storage over ``data`` (the default: each rank stores
+  its block over ``data`` too, gathers a layer's weights before it runs
+  and reduce-scatters their gradient);
+* ``2x2-repl``: the same under ``SPEC_OPTIONS["replicate_params_over_data"]``
+  (every weight whole over ``data``, the gradient summed in all-reduces).
 
 Bounds, each with its reason:
 * loss within 1e-6 relative and the gathered flat gradient within 1e-5 of
@@ -23,7 +28,8 @@ Bounds, each with its reason:
   same injected uniforms: gathered params within 1e-5 of one process's;
   every rank's losses, alpha tables, CDFs and histograms after every tick
   bitwise equal to one process's (the taus are the same draws looked up in
-  the same tables); the data replicas' blocks bitwise equal;
+  the same tables); the data replicas' blocks of the leaves whole over
+  ``data`` bitwise equal;
 * prefill and 8 greedy steps against the reference's ``prefill`` /
   ``decode_step``: logits within 1e-4 (phase 6's bound), ids equal;
 * the kv-replicated layout (``num_kv_heads=1``, which no model axis here
@@ -71,10 +77,20 @@ from repro_torch.sharding.specs import local_template
 from repro_torch.training import init_params
 from repro_torch.training.steps import param_template
 from repro_torch.tree import tree_leaves
-from torch_tp_common import B, GEN, S, TICKS, Tables, async_spec, clip_spec, config
+from torch_tp_common import (
+    B,
+    GEN,
+    S,
+    TICKS,
+    Tables,
+    async_spec,
+    clip_spec,
+    config,
+    layout_of,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LAYOUTS = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
+LAYOUTS = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2), "2x2-repl": (2, 2)}
 VARIANTS = ("mha", "kv1")
 
 _WORKER = textwrap.dedent('''
@@ -95,11 +111,12 @@ _WORKER = textwrap.dedent('''
     from repro_torch.run import run
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding import use_sharding_rules
-    from repro_torch.sharding.specs import leaf_paths
-    from repro_torch.training.steps import _sq_norm_for, _template
+    from repro_torch.sharding.specs import SPEC_OPTIONS, leaf_paths
+    from repro_torch.training.steps import _template
 
     sys.path.insert(0, sys.argv[2])  # the tests directory
-    from torch_tp_common import GEN, Tables, async_spec, clip_spec, config, differ  # noqa: E402
+    from torch_tp_common import (  # noqa: E402
+        GEN, Tables, async_spec, clip_spec, config, differ, whole_over_data)
 
 
     def grads(cfg, local, batch, mesh, other_thread=False):
@@ -121,19 +138,21 @@ _WORKER = textwrap.dedent('''
         else:
             (g,) = torch.autograd.grad(loss, leaf)
         if C.data_size(mesh) > 1:
-            C.sum_grads_over_data(g, mesh)
+            C.sum_grads_over_data(g, mesh, cfg)
         counted = dict(C.COLLECTIVE_BYTES)
         with torch.no_grad():
-            sq = _sq_norm_for(cfg, mesh)(g)
+            sq = C.make_sq_norm(cfg, mesh)(g)
         return loss.detach(), g, counted, sq
 
 
-    def worker(rank, world, data, model, tmp):
+    def worker(rank, world, data, model, tmp, repl):
         torch.set_num_threads(1)
-        dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{data}x{model}",
+        SPEC_OPTIONS["replicate_params_over_data"] = repl
+        name = f"{data}x{model}" + ("-repl" if repl else "")
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{name}",
                                 rank=rank, world_size=world)
         mesh = make_mesh((data, model), ("data", "model"), device="cpu")
-        tag = f"{data}x{model}_{rank}"
+        tag = f"{name}_{rank}"
         out = {"data": mesh.index("data"), "model": mesh.index("model")}
         with use_sharding_rules(mesh):
             for variant in ("mha", "kv1"):
@@ -166,6 +185,7 @@ _WORKER = textwrap.dedent('''
             state = run(async_spec(cfg, local, np.load(f"{tmp}/draws.npy")), hooks=[hook]).state
             out.update(hook.arrays())
             out["async_local"] = state.params.numpy()
+            out["async_whole_over_data"] = whole_over_data(state.params, cfg, mesh).numpy()
             out["async_params"] = bridge.gather_params(state.params, cfg, mesh).numpy()
             out["async_ring_shape"] = np.array(state.delayed.ring.shape)
             out["state_bytes"] = sum(t.numel() * t.element_size() for _, t in leaf_paths(state)
@@ -197,8 +217,8 @@ _WORKER = textwrap.dedent('''
 
     if __name__ == "__main__":
         tmp = sys.argv[1]
-        for data, model in ((1, 2), (1, 4), (2, 2)):
-            torch.multiprocessing.spawn(worker, args=(data * model, data, model, tmp),
+        for data, model, repl in ((1, 2, False), (1, 4, False), (2, 2, False), (2, 2, True)):
+            torch.multiprocessing.spawn(worker, args=(data * model, data, model, tmp, repl),
                                         nprocs=data * model, join=True)
         print("OK tensor parallel")
 ''')
@@ -283,7 +303,7 @@ def runs(tmp_path_factory):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OK tensor parallel" in proc.stdout
-    ranks = {name: [dict(np.load(tmp / f"rank_{d}x{m}_{r}.npz")) for r in range(d * m)]
+    ranks = {name: [dict(np.load(tmp / f"rank_{name}_{r}.npz")) for r in range(d * m)]
              for name, (d, m) in LAYOUTS.items()}
     return dict(want=want, ranks=ranks)
 
@@ -348,14 +368,18 @@ def test_async_fused_run_matches_one_process(runs, name):
             else:
                 np.testing.assert_array_equal(r[k], want[k])
     data, model = LAYOUTS[name]
-    n_local = sum(int(np.prod(s)) for s, _ in tree_leaves(
-        local_template(config("mha"), make_mesh((data, model), ("data", "model")))))
+    with layout_of(name):
+        n_local = sum(int(np.prod(s)) for s, _ in tree_leaves(
+            local_template(config("mha"), make_mesh((data, model), ("data", "model")))))
     assert n_local < want["params"].shape[0]
     for r in ranks:
         assert r["async_local"].shape[0] == n_local
         assert tuple(r["async_ring_shape"]) == (4, n_local)
         for twin in (o for o in ranks if int(o["model"]) == int(r["model"])):
-            np.testing.assert_array_equal(twin["async_local"], r["async_local"])
+            np.testing.assert_array_equal(twin["async_whole_over_data"],
+                                          r["async_whole_over_data"])
+        if name.endswith("-repl"):
+            np.testing.assert_array_equal(r["async_whole_over_data"], r["async_local"])
 
 
 @pytest.mark.parametrize("name", list(LAYOUTS))
@@ -367,7 +391,8 @@ def test_rank_state_bytes_equal_the_plan(runs, name):
 
     data, model = LAYOUTS[name]
     spec = async_spec(config("mha"), None, np.zeros((TICKS, 4), np.float32))
-    planned = plan_run(spec, mesh=make_mesh((data, model), ("data", "model")))
+    with layout_of(name):
+        planned = plan_run(spec, mesh=make_mesh((data, model), ("data", "model")))
     for r in runs["ranks"][name]:
         assert int(r["state_bytes"]) == planned["memory"]["argument_bytes"]
 
@@ -390,9 +415,10 @@ def test_counted_all_reduce_bytes_equal_the_plan(runs, name, variant):
     mesh = make_mesh((data, model), ("data", "model"))
     cfg = config(variant)
     keys = sorted(COLLECTIVE_BYTES)
-    train = port_collective_bytes(cfg, "train", B, S, mesh)["counted"]
-    pre = port_collective_bytes(cfg, "prefill", B, S, mesh)["counted"]
-    dec = port_collective_bytes(cfg, "decode", B, S, mesh)["counted"]
+    with layout_of(name):
+        train = port_collective_bytes(cfg, "train", B, S, mesh)["counted"]
+        pre = port_collective_bytes(cfg, "prefill", B, S, mesh)["counted"]
+        dec = port_collective_bytes(cfg, "decode", B, S, mesh)["counted"]
     want_train = [train.get(k, 0) for k in keys]
     want_serve = [pre.get(k, 0) + GEN * dec.get(k, 0) for k in keys]
     for r in runs["ranks"][name]:
@@ -404,18 +430,25 @@ def test_counted_all_reduce_bytes_equal_the_plan(runs, name, variant):
 @pytest.mark.parametrize("name", list(LAYOUTS))
 def test_remat_recomputes_every_forward_all_reduce(runs, name):
     """With ``cfg.remat`` the backward recomputes each block whole, its two
-    all-reduces included, and the gradient is the one without remat, also
+    all-reduces and its FSDP gathers included, and the gradient is the one
+    without remat, also
     when the backward runs on a thread of its own (a CUDA backward runs on
     autograd's device thread)."""
     from repro_torch.sharding.collectives import COLLECTIVE_BYTES
 
     data, model = LAYOUTS[name]
     cfg = dataclasses.replace(config("mha"), remat=True)
-    plan = port_collective_bytes(cfg, "train", B, S, make_mesh((data, model), ("data", "model")))
+    with layout_of(name):
+        plan = port_collective_bytes(cfg, "train", B, S,
+                                     make_mesh((data, model), ("data", "model")))
+        base = port_collective_bytes(config("mha"), "train", B, S,
+                                     make_mesh((data, model), ("data", "model")))["counted"]
     want = [plan["counted"].get(k, 0) for k in sorted(COLLECTIVE_BYTES)]
-    base = port_collective_bytes(config("mha"), "train", B, S,
-                                 make_mesh((data, model), ("data", "model")))["counted"]
     assert plan["counted"]["attn"] == 2 * base["attn"] and plan["counted"]["mlp"] == 2 * base["mlp"]
+    # the recompute gathers each layer's weights again (the embedding is gathered once)
+    assert plan["counted"]["fsdp_grad"] == base["fsdp_grad"]
+    fsdp = data > 1 and not name.endswith("-repl")
+    assert (plan["counted"]["fsdp_gather"] > base["fsdp_gather"]) == fsdp
     scale = np.abs(runs["want"]["mha"]["grad"]).max()
     for r in runs["ranks"][name]:
         assert r["remat_grad_bytes"].tolist() == want
@@ -437,15 +470,28 @@ def test_unsharded_layouts_raise_and_sharded_checkpoints_resume(runs):
         assert r["ckpt_differ"].tolist() == []
 
 
-def test_the_plan_counts_the_data_parallel_gradient():
-    """data 2 x model 2: the rank's flat gradient is its blocks; model 1 x
-    data 2 adds nothing over model but the gradient and the loss."""
+@pytest.mark.parametrize("name", ["2x1", "2x1-repl"])
+def test_the_plan_counts_the_data_parallel_gradient(name):
+    """data 2 x model 1 adds nothing over model but the gradient and the
+    loss: replicated, the whole flat gradient in one all-reduce; in FSDP
+    the gradient of the leaves whole over data (the norms) in an all-reduce
+    and the rest reduce-scattered, every weight gathered once in the
+    forward."""
     cfg = config("mha")
     n = sum(int(np.prod(s)) for s, _ in tree_leaves(param_template(cfg)))
-    only_data = port_collective_bytes(cfg, "train", B, S, make_mesh((2, 1), ("data", "model")))
-    assert only_data["counted"]["grad"] == 4 * n and only_data["counted"]["loss"] == 8
-    assert only_data["counted"]["embed"] == only_data["counted"]["backward"] == 0
-    assert only_data["all-reduce"] == pytest.approx(only_data["counted_total"])
+    with layout_of(name):
+        only_data = port_collective_bytes(cfg, "train", B, S,
+                                          make_mesh((2, 1), ("data", "model")))
+    c = only_data["counted"]
+    assert c["grad"] + c["fsdp_grad"] == 4 * n and c["loss"] == 8
+    assert c["embed"] == c["backward"] == 0
+    assert only_data["all-reduce"] == pytest.approx(c["loss"] + c["grad"])
+    if name.endswith("-repl"):
+        assert c["fsdp_grad"] == c["fsdp_gather"] == 0
+    else:
+        assert 0 < c["grad"] < c["fsdp_grad"] == c["fsdp_gather"]
+        assert only_data["all-gather"] == only_data["reduce-scatter"] == \
+            pytest.approx(c["fsdp_grad"] / 2)
 
 
 def test_one_process_layout_takes_the_one_process_path():

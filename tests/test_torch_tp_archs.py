@@ -14,8 +14,10 @@ their gradients and params are put back together with
 script (``_WORKER``), all under ``use_sharding_rules(mesh)`` with a running
 ``make_mesh`` layout: ``1x2`` (data 1 x model 2), ``1x4`` (data 1 x model 4:
 every width of the four divides; whisper's vocab of 514 does not, so its
-embedding stays whole there) and ``2x2`` (data 2 x model 2, each data group
-its batch row).
+embedding stays whole there), ``2x2`` (data 2 x model 2, each data group
+its batch row, in the reference's FSDP storage over ``data``: each rank
+gathers a layer's weights before it runs) and ``2x2-repl`` (the same with
+every weight whole over ``data``, ``replicate_params_over_data``).
 
 Bounds, each with its reason:
 * loss within 1e-6 relative and the gathered flat gradient within 1e-5 of
@@ -76,10 +78,10 @@ from repro_torch.run import run
 from repro_torch.sharding.collectives import COLLECTIVE_BYTES
 from repro_torch.training.steps import param_template
 from repro_torch.tree import tree_paths
-from torch_tp_common import ARCHS, B, GEN, S, arch_async_spec, arch_config
+from torch_tp_common import REPL, ARCHS, B, GEN, S, arch_async_spec, arch_config, layout_of
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LAYOUTS = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
+LAYOUTS = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2), "2x2-repl": (2, 2)}
 
 _WORKER = textwrap.dedent('''
     import dataclasses
@@ -98,7 +100,7 @@ _WORKER = textwrap.dedent('''
     from repro_torch.run import run
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding import use_sharding_rules
-    from repro_torch.sharding.specs import leaf_paths, localize
+    from repro_torch.sharding.specs import SPEC_OPTIONS, leaf_paths, localize
     from repro_torch.training.steps import _template, param_template
 
     sys.path.insert(0, sys.argv[2])  # the tests directory
@@ -109,12 +111,14 @@ _WORKER = textwrap.dedent('''
         return np.array([C.COLLECTIVE_BYTES[k] for k in sorted(C.COLLECTIVE_BYTES)])
 
 
-    def worker(rank, world, data, model, tmp):
+    def worker(rank, world, data, model, tmp, repl):
         torch.set_num_threads(1)
-        dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{data}x{model}",
+        SPEC_OPTIONS["replicate_params_over_data"] = repl
+        name = f"{data}x{model}" + ("-repl" if repl else "")
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{name}",
                                 rank=rank, world_size=world)
         mesh = make_mesh((data, model), ("data", "model"), device="cpu")
-        tag = f"{data}x{model}_{rank}"
+        tag = f"{name}_{rank}"
         out = {"data": mesh.index("data"), "model": mesh.index("model")}
         draws = np.load(f"{tmp}/draws.npy")
         with use_sharding_rules(mesh):
@@ -144,7 +148,7 @@ _WORKER = textwrap.dedent('''
                                     C.local_rows(batch, mesh), cfg)
                 (g,) = torch.autograd.grad(loss, leaf)
                 if C.data_size(mesh) > 1:
-                    C.sum_grads_over_data(g, mesh)
+                    C.sum_grads_over_data(g, mesh, cfg)
                 out[f"{arch}_grad_bytes"] = counted()
                 out[f"{arch}_loss"] = loss.detach().numpy()
                 out[f"{arch}_grad"] = bridge.gather_params(g, cfg, mesh).numpy()
@@ -205,8 +209,8 @@ _WORKER = textwrap.dedent('''
 
     if __name__ == "__main__":
         tmp = sys.argv[1]
-        for data, model in ((1, 2), (1, 4), (2, 2)):
-            torch.multiprocessing.spawn(worker, args=(data * model, data, model, tmp),
+        for data, model, repl in ((1, 2, False), (1, 4, False), (2, 2, False), (2, 2, True)):
+            torch.multiprocessing.spawn(worker, args=(data * model, data, model, tmp, repl),
                                         nprocs=data * model, join=True)
         print("OK tensor parallel archs")
 ''')
@@ -298,7 +302,7 @@ def runs(tmp_path_factory):
                           env=env, cwd=str(tmp), capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OK tensor parallel archs" in proc.stdout
-    ranks = {name: [dict(np.load(tmp / f"rank_{d}x{m}_{r}.npz")) for r in range(d * m)]
+    ranks = {name: [dict(np.load(tmp / f"rank_{name}_{r}.npz")) for r in range(d * m)]
              for name, (d, m) in LAYOUTS.items()}
     return dict(want=want, ranks=ranks)
 
@@ -383,9 +387,10 @@ def test_counted_all_reduce_bytes_equal_the_plan(runs, name, arch):
     mesh = make_mesh((data, model), ("data", "model"))
     cfg = arch_config(arch)
     keys = sorted(COLLECTIVE_BYTES)
-    train = port_collective_bytes(cfg, "train", B, S, mesh)["counted"]
-    pre = port_collective_bytes(cfg, "prefill", B, S, mesh)["counted"]
-    dec = port_collective_bytes(cfg, "decode", B, S, mesh)["counted"]
+    with layout_of(name):
+        train = port_collective_bytes(cfg, "train", B, S, mesh)["counted"]
+        pre = port_collective_bytes(cfg, "prefill", B, S, mesh)["counted"]
+        dec = port_collective_bytes(cfg, "decode", B, S, mesh)["counted"]
     want_train = [train.get(k, 0) for k in keys]
     want_serve = [pre.get(k, 0) + GEN * dec.get(k, 0) for k in keys]
     for r in runs["ranks"][name]:
@@ -468,7 +473,8 @@ def test_bf16_serve_bytes_equal_the_plan(runs, arch):
 def test_layout_gathers_back_to_the_whole_tree(runs, name, arch):
     """``localize`` and ``params_from_jax(mesh=)`` cut the same blocks, and
     ``gather_params`` puts them back bit for bit; every leaf split over
-    ``model`` is a rank's block, whole over ``data``."""
+    ``model`` is a rank's block, of the same shape on each data replica
+    (whole over ``data`` in the replicated layout)."""
     data, model = LAYOUTS[name]
     for r in runs["ranks"][name]:
         assert bool(r[f"{arch}_localize_equal"]) and bool(r[f"{arch}_gathered_whole"])
@@ -482,17 +488,23 @@ def test_layout_gathers_back_to_the_whole_tree(runs, name, arch):
     whole = {"/".join(p): s for p, (s, _) in tree_paths(param_template(cfg))}
     split = [p for p in whole if tuple(shapes[p]) != tuple(whole[p])]
     assert split, "no leaf is split"
-    if arch == "internvl2-2b" or (arch == "whisper-large-v3" and model == 4):
-        assert tuple(shapes["embed/embedding"]) == tuple(whole["embed/embedding"])
-    else:
-        assert shapes["embed/embedding"][0] == whole["embed/embedding"][0] // model
+    V, D = whole["embed/embedding"]
+    # internvl2's vocab and whisper's at model 4 do not split: whole over model
+    rows = V if arch == "internvl2-2b" or (arch == "whisper-large-v3" and model == 4) else V // model
+    # d_model over data in the FSDP storage, whole in the replicated layout
+    cols = D if data == 1 or name.endswith(REPL) else D // data
+    assert tuple(shapes["embed/embedding"]) == (rows, cols)
 
 
 @pytest.mark.parametrize("name", list(LAYOUTS))
 def test_in_proj_block_is_the_ranks_columns_of_u_and_of_z(runs, name):
     """The SSM's ``in_proj`` (d, 2 d_inner) stacks u and z: a rank holds
-    ``[u_r | z_r]``, so ``chunk(2)`` splits its block into its u and z."""
-    _, model = LAYOUTS[name]
+    ``[u_r | z_r]``, so ``chunk(2)`` splits its block into its u and z (of
+    its d rows, in the FSDP storage over ``data``)."""
+    data, model = LAYOUTS[name]
+    rows = cfg_rows = arch_config("falcon-mamba-7b").d_model
+    if not name.endswith(REPL):
+        rows //= data
     cfg = arch_config("falcon-mamba-7b")
     whole = M.init_model(None, cfg, "meta")  # the template's layout
     assert tuple(whole["stack"]["pos0"]["ssm"]["in_proj"].shape[-2:]) == \
@@ -505,4 +517,5 @@ def test_in_proj_block_is_the_ranks_columns_of_u_and_of_z(runs, name):
         m = int(r["model"])
         want = np.concatenate([full[..., m * w:(m + 1) * w], full[..., di + m * w:di + (m + 1) * w]],
                               axis=-1)
-        np.testing.assert_array_equal(r["in_proj_block"], want)
+        d = int(r["data"]) if rows < cfg_rows else 0
+        np.testing.assert_array_equal(r["in_proj_block"], want[..., d * rows:(d + 1) * rows, :])

@@ -10,7 +10,10 @@ d_model 64 (and the four other families of ``ARCH_UPDATES``), params from
 the port's ``init_params(0)``, batches from numpy, the workers' uniforms
 handed in.  One subprocess spawns the ranks of each layout in turn
 (``_WORKER``): data 2 x model 2 first (its checkpoint is restored at 1 x 2
-and in one process), then 1 x 2, 1 x 4 and the 2-process sharded engine.
+and in one process), then 1 x 2, 1 x 4, data 2 x model 2 again with every
+weight whole over ``data`` (``2x2-repl``: ``replicate_params_over_data``;
+the first 2 x 2 runs the reference's FSDP storage over ``data``) and the
+2-process sharded engine.
 
 Gates, each exact unless it says otherwise:
 * same-layout resume at 1 x 2, 1 x 4 and 2 x 2, for the fused momentum run
@@ -80,6 +83,7 @@ from torch_tp_common import (
     ckpt_spec,
     config,
     file_leaves,
+    layout_of,
     np_bits,
     restored,
     sharded_spec,
@@ -87,7 +91,7 @@ from torch_tp_common import (
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LAYOUTS = {"2x2": (2, 2), "1x2": (1, 2), "1x4": (1, 4)}  # spawned in this order
+LAYOUTS = {"2x2": (2, 2), "1x2": (1, 2), "1x4": (1, 4), "2x2-repl": (2, 2)}  # spawned in order
 CROSS = ("2x2_to_1x2", "one_to_1x2", "2x2_to_one")
 
 _WORKER = textwrap.dedent('''
@@ -109,6 +113,7 @@ _WORKER = textwrap.dedent('''
     from repro_torch.run.engine import make_engine
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding import use_sharding_rules
+    from repro_torch.sharding.specs import SPEC_OPTIONS
     from repro_torch.training import merge_worker_hist
 
     sys.path.insert(0, sys.argv[2])  # the tests directory
@@ -143,12 +148,13 @@ _WORKER = textwrap.dedent('''
         return res_a
 
 
-    def tp_worker(rank, world, data, model, tmp):
+    def tp_worker(rank, world, data, model, tmp, repl):
         torch.set_num_threads(1)
-        dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{data}x{model}",
+        SPEC_OPTIONS["replicate_params_over_data"] = repl
+        name = f"{data}x{model}" + ("-repl" if repl else "")
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{name}",
                                 rank=rank, world_size=world)
         mesh = make_mesh((data, model), ("data", "model"), device="cpu")
-        name = f"{data}x{model}"
         out = {}
         draws = np.load(f"{tmp}/draws.npy")
         with use_sharding_rules(mesh):
@@ -260,8 +266,8 @@ _WORKER = textwrap.dedent('''
 
     if __name__ == "__main__":
         tmp = sys.argv[1]
-        for data, model in ((2, 2), (1, 2), (1, 4)):
-            torch.multiprocessing.spawn(tp_worker, args=(data * model, data, model, tmp),
+        for data, model, repl in ((2, 2, False), (1, 2, False), (1, 4, False), (2, 2, True)):
+            torch.multiprocessing.spawn(tp_worker, args=(data * model, data, model, tmp, repl),
                                         nprocs=data * model, join=True)
         torch.multiprocessing.spawn(sharded_worker, args=(2, tmp), nprocs=2, join=True)
         print("OK tp checkpoint")
@@ -373,9 +379,10 @@ def test_the_file_is_the_one_process_checkpoint(runs, name, variant):
     for r in range(data * model):
         at_save = dict(np.load(tmp / f"ck_{name}_{variant}" / f"rank_{r}_at_save.npz"))
         assert list(at_save) == list(got)
-        for k, v in at_save.items():
-            np.testing.assert_array_equal(
-                blocks_of(k, got[k], v.shape, runs["cfg"], mesh.at(r)), v, err_msg=k)
+        with layout_of(name):
+            for k, v in at_save.items():
+                np.testing.assert_array_equal(
+                    blocks_of(k, got[k], v.shape, runs["cfg"], mesh.at(r)), v, err_msg=k)
 
 
 @pytest.mark.parametrize("case", CROSS)

@@ -13,7 +13,12 @@ as numpy.  Three layouts, one spawn of its ranks each (``_WORKER``), under
 * ``1x2``: data 1 x model 2 (expert-parallel MoE, attention and shared
   expert split over ``model``);
 * ``2x1``: data 2 x model 1 (each rank routes its own row);
-* ``2x2``: data 2 x model 2.
+* ``2x2``: data 2 x model 2;
+* ``2x1-repl`` and ``2x2-repl``: the same two with every weight whole over
+  ``data`` (``replicate_params_over_data``); the two above run the
+  reference's FSDP storage over ``data`` (the expert stacks' d_ff, the
+  router's and the attention's d_model split over ``data`` and gathered a
+  layer at a time).
 
 Each rank takes one sync step of ``make_step`` (``trace(0.9)`` then
 ``scale``: after one step the trace is the gradient itself) and hands back
@@ -60,9 +65,10 @@ from repro_torch.models import model as M
 from repro_torch.optim import transform as T
 from repro_torch.sharding.collectives import COLLECTIVE_BYTES
 from repro_torch.training.steps import param_template
+from torch_tp_common import REPL, layout_of
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LAYOUTS = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
+LAYOUTS = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2), "2x1-repl": (2, 1), "2x2-repl": (2, 2)}
 B, S, AUX = 2, 16, 0.5
 
 _WORKER = textwrap.dedent('''
@@ -81,13 +87,15 @@ _WORKER = textwrap.dedent('''
     from repro_torch.optim import transform as T
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding import use_sharding_rules
-    from repro_torch.sharding.specs import local_template
+    from repro_torch.sharding.specs import SPEC_OPTIONS, local_template
     from repro_torch.training.steps import init_train_state, make_step
 
 
-    def worker(rank, world, data, model, tmp):
+    def worker(rank, world, data, model, tmp, repl):
         torch.set_num_threads(1)
-        dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{data}x{model}",
+        SPEC_OPTIONS["replicate_params_over_data"] = repl
+        layout = f"{data}x{model}" + ("-repl" if repl else "")
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store_{layout}",
                                 rank=rank, world_size=world)
         mesh = make_mesh((data, model), ("data", "model"), device="cpu")
         cfg = dataclasses.replace(reduced(get_config("qwen2-moe-a2.7b")), router_aux_coef=0.5)
@@ -117,7 +125,7 @@ _WORKER = textwrap.dedent('''
                         fn()
                     except ValueError as e:
                         errors[name] = str(e)
-        np.savez(f"{tmp}/rank_{data}x{model}_{rank}.npz", loss=metrics["loss"].numpy(),
+        np.savez(f"{tmp}/rank_{layout}_{rank}.npz", loss=metrics["loss"].numpy(),
                  grad=grad.numpy(), bytes=np.array([counted[k] for k in sorted(counted)]),
                  **errors)
         dist.barrier()
@@ -126,8 +134,9 @@ _WORKER = textwrap.dedent('''
 
     if __name__ == "__main__":
         tmp = sys.argv[1]
-        for data, model in ((1, 2), (2, 1), (2, 2)):
-            torch.multiprocessing.spawn(worker, args=(data * model, data, model, tmp),
+        for data, model, repl in ((1, 2, False), (2, 1, False), (2, 2, False), (2, 1, True),
+                                  (2, 2, True)):
+            torch.multiprocessing.spawn(worker, args=(data * model, data, model, tmp, repl),
                                         nprocs=data * model, join=True)
         print("OK tensor parallel MoE")
 ''')
@@ -185,7 +194,7 @@ def runs(tmp_path_factory):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OK tensor parallel MoE" in proc.stdout
-    ranks = {name: [dict(np.load(tmp / f"rank_{d}x{m}_{r}.npz")) for r in range(d * m)]
+    ranks = {name: [dict(np.load(tmp / f"rank_{name}_{r}.npz")) for r in range(d * m)]
              for name, (d, m) in LAYOUTS.items()}
     return dict(want=want, ranks=ranks)
 
@@ -203,8 +212,10 @@ def test_moe_step_matches_one_process_and_reference(runs, name):
 @pytest.mark.parametrize("name", list(LAYOUTS))
 def test_moe_step_all_reduce_bytes_equal_the_plan(runs, name):
     data, model = LAYOUTS[name]
-    plan = port_collective_bytes(config(), "train", B, S,
-                                 make_mesh((data, model), ("data", "model")))["counted"]
+    with layout_of(name):
+        plan = port_collective_bytes(config(), "train", B, S,
+                                     make_mesh((data, model), ("data", "model")))["counted"]
+    assert (plan["fsdp_gather"] > 0) == (data > 1 and not name.endswith(REPL))
     want = [plan.get(k, 0) for k in sorted(COLLECTIVE_BYTES)]
     for r in runs["ranks"][name]:
         assert r["bytes"].tolist() == want

@@ -4,11 +4,12 @@ registered arch.
 ``repro_torch.launch.dryrun --cards 4`` (data 1 x model 4): a stablelm-1.6b
 record's and a falcon-mamba-7b record's ``layout`` reads as the port's and
 the collective term is ``port_collective_bytes`` (the all-reduces a port
-rank runs, no FSDP all-gather); only a ``sequence_parallel`` /
+rank runs, no FSDP all-gather at data 1); only a ``sequence_parallel`` /
 ``shard_grads`` config, whose layout the port does not run, raises, in the
-port and in the planner.  On
-``--small_mesh`` (data 2 x model 2) the port keeps every weight whole over
-``data``, so a stablelm-1.6b rank holds the params of a ``--cards 2`` rank.
+port and in the planner.  On ``--small_mesh`` (data 2 x model 2) a
+stablelm-1.6b rank holds its FSDP block over ``data`` of a ``--cards 2``
+rank's params, and with ``--repl_params`` (every weight whole over
+``data``) the params of a ``--cards 2`` rank.
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ from repro_torch.sharding.specs import (
 )
 from repro_torch.training.steps import param_template
 from repro_torch.tree import tree_leaves
+from torch_tp_common import REPL, layout_of
 
 
 @pytest.fixture(scope="module")
@@ -125,17 +127,32 @@ def test_the_planner_refuses_a_layout_the_port_does_not_run(monkeypatch):
         D.plan_run(spec, mesh=make_mesh((1, 2), ("data", "model")))
 
 
-def test_small_mesh_keeps_weights_whole_over_data():
+@pytest.mark.parametrize("name", ["2x2-repl", "2x2"])
+def test_small_mesh_keeps_weights_whole_over_data(name):
+    """Replicated over data (``--repl_params``), a data 2 x model 2 rank
+    holds a model-2 rank's params; in the FSDP storage (the default) its
+    block over data of them, gathered a layer at a time when it serves."""
     cfg = get_config("stablelm-1.6b")
     small = make_mesh((2, 2), ("data", "model"))
     two = make_mesh((1, 2), ("data", "model"))
-    assert [s for s, _ in tree_leaves(local_template(cfg, small))] == \
-        [s for s, _ in tree_leaves(local_template(cfg, two))]
-    rec = D.dryrun_extrapolated("stablelm-1.6b", "prefill_32k", small_mesh=True)
-    params = sum(4 * math.prod(s) for s, _ in tree_leaves(local_template(cfg, two)))
+    with layout_of(name):
+        small_t = [s for s, _ in tree_leaves(local_template(cfg, small))]
+        two_t = [s for s, _ in tree_leaves(local_template(cfg, two))]
+        rec = D.dryrun_extrapolated("stablelm-1.6b", "prefill_32k", small_mesh=True)
+    params = sum(4 * math.prod(s) for s in small_t)
     # + its rows of the int32 tokens and labels (32 x 32768 over data 2)
     assert rec["memory"]["argument_bytes"] == params + 2 * 32 * 32_768 * 4 // 2
     assert rec["collectives"]["counted"]["grad"] == 0  # serving: no gradient
+    if name.endswith(REPL):
+        assert small_t == two_t and rec["collectives"]["counted"]["fsdp_gather"] == 0
+        assert rec["layout"].endswith("every weight whole over data")
+    else:
+        whole = sum(4 * math.prod(s) for s in two_t)
+        assert whole // 2 < params < whole // 2 + whole // 100  # the norms stay whole
+        # one prefill gathers every leaf split over data once, whole over data
+        assert rec["collectives"]["counted"]["fsdp_gather"] == \
+            sum(4 * math.prod(t) for t, s in zip(two_t, small_t) if s != t)
+        assert "FSDP" in rec["layout"]
 
 
 def test_plan_run_on_a_layout_holds_the_rank_state():

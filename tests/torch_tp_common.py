@@ -4,6 +4,7 @@ specs that the one-process and the sharded runs both take
 and their spawned ranks, ``tests/test_torch_cuda_tensor_parallel.py``).
 Imports no JAX."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -234,3 +235,62 @@ def blocks_differ(directory, state, cfg, mesh):
     _, whole = file_leaves(directory)
     return [k for k, v in state_bits(state).items()
             if not np.array_equal(blocks_of(k, whole[k], v.shape, cfg, mesh), v)]
+
+
+# ---------------------------------------------------------------------------
+# FSDP storage over data (tests/test_torch_fsdp.py and its spawned ranks)
+# ---------------------------------------------------------------------------
+
+FSDP_GEN = 4
+
+
+def fsdp_arch_config(arch):
+    """``arch`` at d_model 64, cut as ``ARCH_UPDATES`` cuts the four
+    families it names."""
+    return dataclasses.replace(reduced(get_config(arch), d_model=64),
+                               **ARCH_UPDATES.get(arch, {}))
+
+
+def mode_spec(mode, fuse, cfg, params, draws):
+    """2 ticks of ``mode`` (sync: momentum alone; async: :func:`async_spec`'s),
+    fused or link by link."""
+    if mode == "async":
+        return dataclasses.replace(async_spec(cfg, params, draws), num_steps=2, fuse=fuse)
+    pipe = T.chain(T.scale(-0.05), T.trace(0.9))
+    return dataclasses.replace(clip_spec(cfg, params), pipeline=pipe, fuse=fuse)
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's bits (a state's leaves compared exactly)."""
+    import hashlib
+
+    t = t.detach().contiguous()
+    return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+REPL = "-repl"  # a layout's name with this suffix ran replicate_params_over_data
+
+
+@contextlib.contextmanager
+def layout_of(name):
+    """The storage layout the ranks of layout ``name`` ran (``...-repl``:
+    every weight whole over ``data``; else FSDP storage over ``data``),
+    for planning in this process."""
+    from repro_torch.sharding.specs import SPEC_OPTIONS
+
+    old = SPEC_OPTIONS["replicate_params_over_data"]
+    SPEC_OPTIONS["replicate_params_over_data"] = name.endswith(REPL)
+    try:
+        yield
+    finally:
+        SPEC_OPTIONS["replicate_params_over_data"] = old
+
+
+def whole_over_data(t, cfg, mesh):
+    """The parts of a rank's flat buffer ``t`` (..., N_local) that hold the
+    leaves the storage layout keeps whole over ``data`` (all of them in the
+    replicated layout): what every data replica holds the same."""
+    from repro_torch.sharding import collectives as C
+
+    runs = C.data_layout(cfg, mesh).whole_runs()
+    return torch.cat([t[..., a:a + n] for a, n in runs], dim=-1)
