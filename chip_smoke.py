@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-resume-layers 24   # phase 16 (a) alone
     python3 chip_smoke.py --fsdp                       # phase 17 alone
+    python3 chip_smoke.py --parallel                   # phases 13 and 14 alone
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit.  It imports nothing of JAX or of the JAX package, and fails
@@ -196,9 +197,21 @@ Phases, each fatal on failure (each one's seconds printed as it ends, as
    full-width MoE block weights-stationary (d_ff over data too) at the
    decode shape (B 4, S 1) and at B 4 x S 512, each rank its two rows:
    out and aux within 3e-4 of the one-process block (the reference's
-   bound).  Prints each path's ms, the peak memory per process and the
-   bytes its all-reduces took.  A rank that fails, or the group past 300
-   s, fails the phase (every rank is stopped).
+   bound).  The same 4 ranks then train full-width qwen2-moe-a2.7b
+   weights-stationary (expert stacks over model x d_ff over data, never
+   gathered; the other weights in the FSDP storage over data) at depth 2 of
+   24 (N = 1,832,663,040: params, momentum, f32 ring and gradient about
+   36.7 GB over the 4 ranks), f32 activations, async fused momentum, W = K
+   = 2, batch 4 x 512, 3 ticks: gates, finite losses equal on every rank, 3
+   ``au_fused_tick`` launches a rank (on its ``N_local``) and no other
+   adaptive_update kernel, each rank's state bytes equal to ``plan_run``
+   and its collective bytes to ``port_collective_bytes``; and at depth 1
+   one tick against one process on the card on the same global batch (its
+   params cut to each rank's blocks and handed to the rank): loss within
+   1e-6 relative, params within 1e-5 of max |p|.  Prints each path's ms,
+   each rank's tick seconds, the peak memory per process and the bytes its
+   collectives took.  A rank that fails, or the group past 300 s, fails the
+   phase (every rank is stopped).
 14. tensor parallelism — Megatron-style over ``model``, data parallelism
    over ``data``, as gloo processes sharing the one card (NCCL refuses two
    ranks on one card), each under ``use_sharding_rules`` with its blocks.
@@ -209,12 +222,26 @@ Phases, each fatal on failure (each one's seconds printed as it ends, as
    refresh that rewrote the table in place, each rank's state bytes equal
    to ``plan_run`` for the layout and its all-reduce bytes to
    ``port_collective_bytes``); then full width at depth 2 in f32 without
-   remat against one process (loss within 1e-5 relative, the gathered
-   gradient within 1e-4 of max |g|, and after 3 fused ticks with the same
-   uniforms and an f32 ring the gathered params within 1e-5); then the
+   remat against one process (loss within 1e-5 relative, the gradient
+   within 1e-4 of max |g|, and after 3 fused ticks with the same uniforms
+   and an f32 ring the params within 1e-5; one process's gradient and
+   params cut to each rank's blocks and handed to the rank, which holds
+   its own to them); the same again with ``sequence_parallel`` (Megatron
+   sequence parallelism: the residual stream the rank's half of the
+   sequence, the layers' inputs gathered and their outputs
+   reduce-scattered over model; the same params and state layout), its
+   loss, gradient and params held to the same bounds against one process
+   and against the ranks' run without it, its bytes to the plan; then the
    full-depth f32 serve on the flash kernel (batch 4, prompt 512, 8 greedy
    steps) against one process: logits within 1e-4 + 1e-4 |one process|,
-   ids equal, 24 flash launches a rank, bytes equal to the plan.  Then 4
+   ids equal, 24 flash launches a rank, bytes equal to the plan; then the
+   depth-2 f32 serve without and with ``sequence_parallel``: prefill logits
+   within 1e-4 + 1e-4 |without|, ids equal, 2 flash launches a rank each
+   (with it, on the rank's heads over the gathered sequence), bytes equal
+   to the plan; then what sequence parallelism saves: one gradient of
+   batch 1 x 4096 at 4 layers in the config's own dtypes, without and with
+   it, each without and with remat, each rank's peak above its params
+   printed (finite losses gated).  Then 4
    ranks (data 2 x model 2, in the FSDP storage over data of phase 17)
    train depth 2 of 24 for 3 ticks: 3 ``fused_tick`` launches a rank,
    collective bytes (the FSDP gathers and reduce-scatters and the
@@ -223,7 +250,9 @@ Phases, each fatal on failure (each one's seconds printed as it ends, as
    leaves whole over data (params, momentum and ring) bitwise equal
    (SHA-256).  Prints ticks, prefill and decode times,
    peaks and bytes; a rank that fails, or a group past 300 s, fails the
-   phase.
+   phase.  ``--parallel`` builds the adaptive_update and flash kernels and
+   runs phases 13 and 14 alone, printing their rows and the card, and no
+   result line.
 15. tensor parallelism of the other families — 2 gloo ranks (data 1 x
    model 2) sharing the card, each under ``use_sharding_rules`` with its
    blocks, f32 activations, ``use_pallas=True``, each arch at full width
@@ -1958,6 +1987,12 @@ def plan_against_card(full, main, qwen_row, sharded):
 
 EP_LAYERS, EP_PROMPT, EP_GEN = 4, 512, 8
 EP_TIMEOUT_S = 300  # a rank, or a collective, that takes longer fails the phase
+# The weights-stationary MoE trained on the block's 4 ranks: depth 2 (N =
+# 1,832,663,040; params, momentum, f32 ring and gradient about 36.7 GB over
+# the 4 ranks: depth 4 would not leave room for 4 CUDA contexts and the
+# gathered layers), W = K = 2, 3 ticks; and depth 1 for one tick against
+# one process.
+WS_LAYERS, WS_AGREE_LAYERS, WS_TICKS, WS_WK = 2, 1, 3, 2
 
 
 def ep_config(**upd):
@@ -1969,6 +2004,55 @@ def ep_config(**upd):
     cfg = get_config("qwen2-moe-a2.7b")
     return dataclasses.replace(cfg, num_layers=EP_LAYERS, activation_dtype="float32",
                                use_pallas=True, **upd)
+
+
+def ws_spec(layers, device="cuda", **upd):
+    """Full-width qwen2-moe-a2.7b, weights-stationary, at ``layers`` layers,
+    f32 activations without remat (the one process and the ranks sum the
+    experts in other orders, which bf16 would round apart), async fused
+    momentum, W = K = 2 with an f32 ring, batch 4 x 512, ``WS_TICKS`` ticks
+    and a refresh every 2."""
+    from repro_torch.configs import get_config
+    from repro_torch.run import RunSpec
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=layers,
+                              activation_dtype="float32", remat=False,
+                              moe_weights_stationary=True)
+    pipe, adapt = lm_pipeline(0.01, WS_WK, WS_WK)
+    spec = RunSpec(cfg=cfg, pipeline=pipe, mode="async", num_steps=WS_TICKS, batch_size=4,
+                   seq_len=EP_PROMPT, num_workers=WS_WK, ring=WS_WK, adapt=adapt, fuse=True,
+                   refresh_every=2, seed=0, device=device)
+    return dataclasses.replace(spec, **upd)
+
+
+def ws_one_process():
+    """One process's tick of :func:`ws_spec` at ``WS_AGREE_LAYERS`` layers
+    -> (its loss, the max |p| after it, each of the 4 ranks' blocks of the
+    params after it, as host arrays)."""
+    from repro_torch.run import run
+
+    spec = ws_spec(WS_AGREE_LAYERS, num_steps=1)
+    hook = TickLog("ws one process")
+    params = run(spec, hooks=[hook]).state.params.cpu()
+    free_cuda()
+    return hook.rows[0]["loss"], float(params.abs().max()), rank_blocks(params, spec.cfg, (2, 2))
+
+
+def rank_blocks(flat, cfg, shape) -> list:
+    """Each rank's flat blocks (``specs.localize``, the FSDP storage) of one
+    process's flat ``(N,)`` host buffer, as host arrays, for the ``shape``
+    (data, model) layout."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import transform as T
+    from repro_torch.sharding.specs import localize
+    from repro_torch.training.steps import param_view
+
+    flat = torch.as_tensor(flat)
+    grid = make_mesh(shape, ("data", "model"), device="meta")
+    return [T.pack_flat(localize(param_view(flat, cfg), cfg, grid.at(r))).numpy()
+            for r in range(math.prod(shape))]
 
 
 def serve_with_routes(cfg, params, batch):
@@ -1999,8 +2083,10 @@ def serve_warm_up(cfg, params, batch):
     serve(cfg, params, batch, gen=1)
 
 
-def ep_rank(rank, world, data, model, what, store, out_dir):
-    """One rank of phase 13 (a spawned process): gloo over the one card."""
+def ep_rank(rank, world, data, model, what, store, out_dir, given=None):
+    """One rank of phase 13 (a spawned process): gloo over the one card.
+    ``given`` (the block's ranks): this rank's blocks of one process's
+    params after the weights-stationary depth-1 tick."""
     import datetime
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -2069,9 +2155,22 @@ def ep_rank(rank, world, data, model, what, store, out_dir):
                 out[f"ms_{S}"] = (time.perf_counter() - t0) * 1e3
             out[f"out_{S}"], out[f"aux_{S}"] = o.cpu().numpy(), float(a)
         out["expert_shape"] = np.array(p["w_up_e"].shape)
-    out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, data=mesh.index("data"),
-               model=mesh.index("model"),
-               collective_bytes=json.dumps(counted_bytes()))
+        out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   collective_bytes=json.dumps(counted_bytes()))
+        del p, x
+        # the weights-stationary MoE trained over data: depth 2, then depth
+        # 1 for one tick against one process
+        state = train_rank(ws_spec(WS_LAYERS), "ws", out, mesh, f"ws train rank {rank}",
+                           replay=False)
+        del state
+        state = train_rank(ws_spec(WS_AGREE_LAYERS, num_steps=1), "wsa", out, mesh,
+                           f"ws agree rank {rank}", replay=False)
+        want = torch.from_numpy(given).to(state.params.device)
+        out["wsa_params_max_abs"] = float((state.params - want).abs().max())
+        del state, want
+    out.setdefault("peak_gb", torch.cuda.max_memory_allocated() / 1e9)
+    out.setdefault("collective_bytes", json.dumps(counted_bytes()))
+    out.update(data=mesh.index("data"), model=mesh.index("model"))
     np.savez(f"{out_dir}/{what}_{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
@@ -2144,16 +2243,20 @@ def alongside(fn, *args, **kwargs):
         pool.shutdown(wait=False)
 
 
-def run_ranks(world, data, model, what, out_dir, target=None, timeout_s=EP_TIMEOUT_S):
+def run_ranks(world, data, model, what, out_dir, target=None, timeout_s=EP_TIMEOUT_S,
+              given=None):
     """Spawn ``world`` ranks of ``target`` (default :func:`ep_rank`) and wait
     for them; a rank that fails, or the group past ``timeout_s``, fails the
-    phase (every rank is stopped)."""
+    phase (every rank is stopped).  ``given[r]`` (host arrays: one
+    process's results cut to rank r's blocks) is handed to rank r as its
+    last argument, through the pipe that starts it (no file)."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     store = out_dir / f"store_{what}"
-    procs = [ctx.Process(target=target or ep_rank, args=(r, world, data, model, what, str(store),
-                                                         str(out_dir)), daemon=True)
+    procs = [ctx.Process(target=target or ep_rank,
+                         args=(r, world, data, model, what, str(store), str(out_dir))
+                         + (() if given is None else (given[r],)), daemon=True)
              for r in range(world)]
     t0 = time.perf_counter()
     for pr in procs:
@@ -2183,6 +2286,8 @@ def expert_parallel(root):
 
     from repro_torch.data import make_batch_for
     from repro_torch.kernels.flash_attention import cuda as FA
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe as MOE
     from repro_torch.training import init_params
 
@@ -2268,7 +2373,19 @@ def expert_parallel(root):
             block[S] = (o.cpu().numpy(), float(a), (time.perf_counter() - t0) * 1e3)
     del p, x
     free_cuda()
-    wall = run_ranks(4, 2, 2, "block", out_dir)
+    # one process: the weights-stationary training's depth-1 tick; then the
+    # plans (on a thread beside the ranks: no kernel runs here meanwhile)
+    t0 = time.perf_counter()
+    ws_loss, ws_max_p, ws_blocks = ws_one_process()
+    t_ws_one = time.perf_counter() - t0
+    wspec = ws_spec(WS_LAYERS, device="cpu")
+    grid = make_mesh((2, 2), ("data", "model"), device="meta")
+    planning = alongside(D.plan_run, wspec, mesh=grid)
+    plan_ws = train_plan(wspec.cfg, 4, EP_PROMPT, WS_TICKS, (2, 2))
+    plan_wsa = train_plan(ws_spec(WS_AGREE_LAYERS).cfg, 4, EP_PROMPT, 1, (2, 2))
+    wall = run_ranks(4, 2, 2, "block", out_dir, given=ws_blocks)
+    planned_ws = planning.result()
+    del ws_blocks
     ranks = [dict(np.load(out_dir / f"block_{r}.npz")) for r in range(4)]
     ws_row = dict(one_process_ms={S: block[S][2] for S in block}, wall_s=wall,
                   ms={S: [float(r[f"ms_{S}"]) for r in ranks] for S in block},
@@ -2285,9 +2402,43 @@ def expert_parallel(root):
         check(d_out <= 3e-4 and d_aux <= 3e-4,
               f"weights-stationary block at S {S}: out {d_out:.3e}, aux {d_aux:.3e} past 3e-4")
     log(f"[ep] weights-stationary block {json.dumps(ws_row)}")
+
+    # the weights-stationary MoE trained over data, full width
+    for r in ranks:
+        for tag, ticks, plan in (("ws", WS_TICKS, plan_ws), ("wsa", 1, plan_wsa)):
+            launches = json.loads(str(r[f"{tag}_launches"]))
+            check(launches["fused_tick"] == ticks and launches["fused_chain"] ==
+                  launches["fused_combine"] == launches["fused_update"] == 0,
+                  f"ws training ({tag}): launches {launches}, expected {ticks} fused_tick alone")
+            check(bool(np.isfinite(r[f"{tag}_losses"]).all()),
+                  f"ws training ({tag}): a non-finite loss")
+            check(bytes_by_key(r[f"{tag}_bytes"]) == plan,
+                  f"ws training ({tag}): collective bytes {bytes_by_key(r[f'{tag}_bytes'])} != "
+                  f"the plan {plan}")
+        check(int(r["ws_state_bytes"]) == planned_ws["memory"]["argument_bytes"],
+              f"ws training: state bytes {int(r['ws_state_bytes'])} != the plan's "
+              f"{planned_ws['memory']['argument_bytes']}")
+        for k in ("ws_losses", "ws_tables", "ws_hists"):
+            check(np.array_equal(r[k], ranks[0][k]), f"ws training: ranks disagree on {k}")
+    d_loss = max(abs(float(r["wsa_losses"][0]) - ws_loss) / abs(ws_loss) for r in ranks)
+    d_params = max(float(r["wsa_params_max_abs"]) for r in ranks) / ws_max_p
+    train_row = dict(
+        layout="data 2 x model 2, weights-stationary", layers=WS_LAYERS, ticks=WS_TICKS,
+        n_local=[int(r["ws_n_local"]) for r in ranks],
+        state_bytes=[int(r["ws_state_bytes"]) for r in ranks],
+        planned_state_bytes=planned_ws["memory"]["argument_bytes"],
+        median_tick_s=[float(r["ws_median_ms"]) / 1e3 for r in ranks],
+        peak_gb=[float(r["ws_peak_gb"]) for r in ranks],
+        fused_tick=[json.loads(str(r["ws_launches"]))["fused_tick"] for r in ranks],
+        losses=ranks[0]["ws_losses"].tolist(), collective_bytes=bytes_by_key(ranks[0]["ws_bytes"]),
+        agree=dict(layers=WS_AGREE_LAYERS, loss_rel=d_loss, params_over_max=d_params,
+                   one_process_loss=ws_loss, one_process_s=t_ws_one), wall_s=wall)
+    log(f"[ep] weights-stationary training {json.dumps(train_row)}")
+    check(d_loss <= 1e-6, f"ws training: loss {d_loss:.3e} relative to one process past 1e-6")
+    check(d_params <= 1e-5, f"ws training: params {d_params:.3e} of max |p| past 1e-5")
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"[ep] phase 13 took {time.perf_counter() - t_phase:.1f} s")
-    return {"serve": serve_row, "weights_stationary": ws_row}
+    return {"serve": serve_row, "weights_stationary": ws_row, "ws_training": train_row}
 
 
 # ---------------------------------------------------------------------------
@@ -2297,6 +2448,9 @@ def expert_parallel(root):
 TP_TIMEOUT_S = 300  # a rank, or a collective, that takes longer fails the phase
 TP_TICKS, TP_AGREE_TICKS, TP_DXM_TICKS = 4, 3, 3
 TP_AGREE_LAYERS, TP_DXM_LAYERS, TP_GEN = 2, 2, 8
+# the sequence-parallel memory probe: one gradient of batch 1 x 4096 at 4
+# layers, in the config's own activation dtype
+SP_MEM_LAYERS, SP_MEM_SEQ = 4, 4096
 
 
 def tp_train_spec(cfg, device="cuda", **upd):
@@ -2328,6 +2482,45 @@ def tp_serve_config(full):
     """Full-width stablelm-1.6b in f32 activations on the kernels (flash at
     H 64 on 32 / model heads)."""
     return dataclasses.replace(full, activation_dtype="float32", use_pallas=True)
+
+
+def sp_memory(full, mesh) -> dict:
+    """One rank's gradient of one batch of 1 x ``SP_MEM_SEQ`` tokens at
+    ``SP_MEM_LAYERS`` layers of ``full``, without and with sequence
+    parallelism, each without and with remat -> {tag: the peak allocated
+    above the params (GB; the activations and the flat gradient), seconds,
+    loss}."""
+    import torch
+
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import model as M
+    from repro_torch.optim import transform as T
+    from repro_torch.sharding import use_sharding_rules
+    from repro_torch.training import init_params
+    from repro_torch.training.steps import param_view
+
+    rows = {}
+    for remat in (False, True):
+        for sp in (False, True):
+            cfg = dataclasses.replace(full, num_layers=SP_MEM_LAYERS, remat=remat,
+                                      sequence_parallel=sp)
+            batch = {k: v.to(mesh.device)
+                     for k, v in make_batch_for(cfg, batch=1, seq=SP_MEM_SEQ, seed=0).items()}
+            with use_sharding_rules(mesh):
+                leaf = T.pack_flat(init_params(0, cfg, mesh.device)).requires_grad_()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                loss, _ = M.loss_fn(param_view(leaf, cfg), batch, cfg)
+                (g,) = torch.autograd.grad(loss, leaf)
+                torch.cuda.synchronize()
+                rows[f"remat={remat},sp={sp}"] = dict(
+                    peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                    s=time.perf_counter() - t0, loss=loss.item())
+            del leaf, g, loss, batch
+            free_cuda()
+    return rows
 
 
 def tp_gradient(cfg, device, mesh=None):
@@ -2467,11 +2660,15 @@ def train_rank(spec, tag, out, mesh, name, replay=True):
     return state
 
 
-def tp_rank(rank, world, data, model, what, store, out_dir):
+def tp_rank(rank, world, data, model, what, store, out_dir, given=None):
     """One rank of phase 14 (a spawned process): gloo over the one card.
     ``what`` is ``"tp"`` (data 1 x model 2: the full-width training, the
-    depth-2 agreement and the serve, in turn) or ``"dxm"`` (data 2 x model
-    2: depth 6 training)."""
+    depth-2 agreement without and with sequence parallelism, the serve, the
+    depth-2 serve without and with it and the sequence-parallel memory
+    probe, in turn) or ``"dxm"`` (data 2 x model 2: depth 2 training).
+    ``given`` (``"tp"``): this rank's blocks of one process's depth-2
+    gradient and of its params after the agreement ticks, which both
+    agreements are held to here."""
     import datetime
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -2480,7 +2677,6 @@ def tp_rank(rank, world, data, model, what, store, out_dir):
     import torch.distributed as dist
 
     import repro_torch  # noqa: F401  (sets TF32 off)
-    from repro_torch.bridge import gather_params
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.sharding import use_sharding_rules
@@ -2499,26 +2695,43 @@ def tp_rank(rank, world, data, model, what, store, out_dir):
         # depth 2, f32: loss, gradient and 3 ticks against one process
         cfg = tp_agree_config(full)
         free_cuda()
-        with use_sharding_rules(mesh):
-            loss, g = tp_gradient(cfg, "cuda", mesh)
-            g_all = gather_params(g, cfg, mesh)
-        out["agree_loss"] = loss.item()
-        if rank == 0:
-            np.save(f"{out_dir}/tp_grad.npy", g_all.cpu().numpy())
-        del g, g_all
+        one_grad, one_params = (torch.from_numpy(t) for t in given)
         draws = np.load(f"{out_dir}/tp_draws.npy")
-        state = train_rank(tp_agree_spec(cfg, draws), "agree", out, mesh, f"tp agree rank {rank}",
-                           replay=False)
-        with use_sharding_rules(mesh):
-            p_all = gather_params(state.params, cfg, mesh)
-        if rank == 0:
-            np.save(f"{out_dir}/tp_params.npy", p_all.cpu().numpy())
-        del state, p_all
+        grads, params = {}, {}
+        # without, then with Megatron sequence parallelism: the same params
+        # and state template, the residual stream the rank's half of the
+        # sequence; what is compared is kept on the host, so that the two
+        # runs' peaks on the card hold the same
+        for tag, sp in (("agree", False), ("sp_agree", True)):
+            acfg = dataclasses.replace(cfg, sequence_parallel=sp)
+            with use_sharding_rules(mesh):
+                loss, g = tp_gradient(acfg, "cuda", mesh)
+            grads[tag] = g.cpu()
+            del g
+            state = train_rank(tp_agree_spec(acfg, draws), tag, out, mesh,
+                               f"tp {tag} rank {rank}", replay=False)
+            params[tag] = state.params.cpu()
+            del state
+            out.update({f"{tag}_loss": loss.item(),
+                        f"{tag}_grad_vs_one": float((grads[tag] - one_grad).abs().max()),
+                        f"{tag}_params_vs_one": float((params[tag] - one_params).abs().max())})
+        out.update(sp_grad_vs_tp=float((grads["sp_agree"] - grads["agree"]).abs().max()),
+                   sp_params_vs_tp=float((params["sp_agree"] - params["agree"]).abs().max()))
+        del one_grad, one_params, grads, params
         # serving at full width and depth, f32, on the flash kernel
         with use_sharding_rules(mesh):
             got = seeded_serve(tp_serve_config(full), EP_PROMPT, TP_GEN, mesh.device, mesh)
         out.update({f"serve_{k}": v for k, v in saved(got).items()})
         del got
+        # serving at depth 2 without and with sequence parallelism
+        for tag, sp in (("serve2", False), ("sp_serve2", True)):
+            scfg = dataclasses.replace(tp_serve_config(full), num_layers=TP_AGREE_LAYERS,
+                                       sequence_parallel=sp)
+            with use_sharding_rules(mesh):
+                got = seeded_serve(scfg, EP_PROMPT, TP_GEN, mesh.device, mesh)
+            out.update({f"{tag}_{k}": v for k, v in saved(got).items()})
+            del got
+        out["sp_memory"] = json.dumps(sp_memory(full, mesh))
     else:
         cfg = dataclasses.replace(full, num_layers=TP_DXM_LAYERS)
         state = train_rank(tp_train_spec(cfg, num_steps=TP_DXM_TICKS), "dxm", out, mesh,
@@ -2571,8 +2784,18 @@ def tensor_parallel(root, full, main_summary):
     dcfg = dataclasses.replace(full, num_layers=TP_DXM_LAYERS)
     plan_dxm = train_plan(dcfg, 4, 512, TP_DXM_TICKS, (2, 2))
     plan_serve = serve_plan(scfg, 4, EP_PROMPT, TP_GEN, (1, 2))
+    spc = dataclasses.replace(acfg, sequence_parallel=True)
+    plan_sp_agree = train_plan(spc, 4, 512, TP_AGREE_TICKS, (1, 2))
+    s2cfg = dataclasses.replace(scfg, num_layers=TP_AGREE_LAYERS)
+    plan_serve2 = {sp: serve_plan(dataclasses.replace(s2cfg, sequence_parallel=sp), 4, EP_PROMPT,
+                                  TP_GEN, (1, 2)) for sp in (False, True)}
+    given = list(zip(rank_blocks(one_grad, acfg, (1, 2)), rank_blocks(one_params, acfg, (1, 2))))
+    one_max_grad = float(np.abs(one_grad).max())
+    del one_grad, one_params
 
-    wall_tp = run_ranks(2, 1, 2, "tp", out_dir, target=tp_rank, timeout_s=TP_TIMEOUT_S)
+    wall_tp = run_ranks(2, 1, 2, "tp", out_dir, target=tp_rank, timeout_s=TP_TIMEOUT_S,
+                        given=given)
+    del given
     planned_state = planning.result()
     ranks = [dict(np.load(out_dir / f"tp_{r}.npz")) for r in range(2)]
     rows = {}
@@ -2608,11 +2831,9 @@ def tensor_parallel(root, full, main_summary):
     log(f"[tp] training {json.dumps(rows['train'])}")
 
     # -- agreement at depth 2 in f32 -----------------------------------------
-    got_grad = np.load(out_dir / "tp_grad.npy")
-    got_params = np.load(out_dir / "tp_params.npy")
     d_loss = max(abs(float(r["agree_loss"]) - one_loss) / abs(one_loss) for r in ranks)
-    d_grad = float(np.abs(got_grad - one_grad).max() / np.abs(one_grad).max())
-    d_params = float(np.abs(got_params - one_params).max())
+    d_grad = max(float(r["agree_grad_vs_one"]) for r in ranks) / one_max_grad
+    d_params = max(float(r["agree_params_vs_one"]) for r in ranks)
     for r in ranks:
         check(bytes_by_key(r["agree_bytes"]) == plan_agree,
               f"tp agreement: all-reduce bytes {bytes_by_key(r['agree_bytes'])} != {plan_agree}")
@@ -2623,7 +2844,35 @@ def tensor_parallel(root, full, main_summary):
     check(d_grad <= 1e-4, f"tp agreement: gradient {d_grad:.3e} of max |g| past 1e-4")
     check(d_params <= 1e-5, f"tp agreement: params {d_params:.3e} past 1e-5 after "
           f"{TP_AGREE_TICKS} ticks")
-    del got_grad, got_params, one_grad, one_params
+
+    # -- the same with sequence parallelism, against one process and the ranks
+    sp_row = dict(
+        loss_rel=max(abs(float(r["sp_agree_loss"]) - one_loss) / abs(one_loss) for r in ranks),
+        loss_rel_vs_tp=max(abs(float(r["sp_agree_loss"]) - float(r["agree_loss"]))
+                           / abs(one_loss) for r in ranks),
+        grad_over_max=max(float(r["sp_agree_grad_vs_one"]) for r in ranks) / one_max_grad,
+        grad_over_max_vs_tp=max(float(r["sp_grad_vs_tp"]) for r in ranks) / one_max_grad,
+        params_max_abs=max(float(r["sp_agree_params_vs_one"]) for r in ranks),
+        params_max_abs_vs_tp=max(float(r["sp_params_vs_tp"]) for r in ranks),
+        median_tick_ms=[float(r["sp_agree_median_ms"]) for r in ranks],
+        median_tick_ms_without=[float(r["agree_median_ms"]) for r in ranks],
+        fused_tick=[json.loads(str(r["sp_agree_launches"]))["fused_tick"] for r in ranks],
+        peak_gb=[float(r["sp_agree_peak_gb"]) for r in ranks],
+        peak_gb_without=[float(r["agree_peak_gb"]) for r in ranks],
+        collective_bytes=bytes_by_key(ranks[0]["sp_agree_bytes"]))
+    for r in ranks:
+        check(bytes_by_key(r["sp_agree_bytes"]) == plan_sp_agree,
+              f"tp sp agreement: bytes {bytes_by_key(r['sp_agree_bytes'])} != {plan_sp_agree}")
+        check(json.loads(str(r["sp_agree_launches"]))["fused_tick"] == TP_AGREE_TICKS,
+              "tp sp agreement: fused_tick launches")
+    log(f"[tp] sequence-parallel agreement {json.dumps(sp_row)}")
+    check(max(sp_row["loss_rel"], sp_row["loss_rel_vs_tp"]) <= 1e-5,
+          f"tp sp agreement: loss past 1e-5 relative ({sp_row})")
+    check(max(sp_row["grad_over_max"], sp_row["grad_over_max_vs_tp"]) <= 1e-4,
+          f"tp sp agreement: gradient past 1e-4 of max |g| ({sp_row})")
+    check(max(sp_row["params_max_abs"], sp_row["params_max_abs_vs_tp"]) <= 1e-5,
+          f"tp sp agreement: params past 1e-5 ({sp_row})")
+    rows["sp_agree"] = sp_row
 
     # -- serving at full width and depth, f32 ---------------------------------
     d_pre = d_dec = 0.0
@@ -2658,6 +2907,41 @@ def tensor_parallel(root, full, main_summary):
     check(max(d_pre, d_dec) <= 1.0, f"tp serve: logits miss 1e-4 + 1e-4|ref| "
           f"({max(d_pre, d_dec):.3f} of the bound)")
     check(one_flash == full.num_layers, f"one-process serve: {one_flash} flash")
+
+    # -- serving at depth 2 with sequence parallelism against without --------
+    d_pre = 0.0
+    for r in ranks:
+        want = r["serve2_prefill"]
+        d_pre = max(d_pre, float(np.max(np.abs(r["sp_serve2_prefill"] - want)
+                                        / (1e-4 + 1e-4 * np.abs(want)))))
+        check(np.array_equal(r["sp_serve2_tokens"], r["serve2_tokens"]),
+              "tp sp serve: greedy ids differ from the serve without sequence parallelism")
+        for tag, sp in (("serve2", False), ("sp_serve2", True)):
+            flash = json.loads(str(r[f"{tag}_launches"]))["flash_attention"]
+            check(flash == TP_AGREE_LAYERS,
+                  f"tp {tag}: {flash} flash launches, expected {TP_AGREE_LAYERS}")
+            check(bytes_by_key(r[f"{tag}_bytes"]) == plan_serve2[sp],
+                  f"tp {tag}: bytes {bytes_by_key(r[f'{tag}_bytes'])} != {plan_serve2[sp]}")
+    rows["sp_serve"] = dict(
+        layers=TP_AGREE_LAYERS, prefill_err_over_bound=d_pre,
+        prefill_s=[float(r["sp_serve2_prefill_s"]) for r in ranks],
+        prefill_s_without=[float(r["serve2_prefill_s"]) for r in ranks],
+        decode_ms_per_step=[float(r["sp_serve2_decode_ms_per_step"]) for r in ranks],
+        peak_gb=[float(r["sp_serve2_peak_gb"]) for r in ranks],
+        peak_gb_without=[float(r["serve2_peak_gb"]) for r in ranks],
+        flash=[json.loads(str(r["sp_serve2_launches"]))["flash_attention"] for r in ranks],
+        collective_bytes=bytes_by_key(ranks[0]["sp_serve2_bytes"]))
+    log(f"[tp] sequence-parallel serve {json.dumps(rows['sp_serve'])}")
+    check(d_pre <= 1.0, f"tp sp serve: prefill logits miss 1e-4 + 1e-4|without| "
+          f"({d_pre:.3f} of the bound)")
+
+    # -- what sequence parallelism saves: a long sequence's gradient peak ----
+    rows["sp_memory"] = [json.loads(str(r["sp_memory"])) for r in ranks]
+    log(f"[tp] sequence-parallel memory (batch 1 x {SP_MEM_SEQ}, {SP_MEM_LAYERS} layers; the peak "
+        f"above the params, each rank) {json.dumps(rows['sp_memory'])}")
+    for mem in rows["sp_memory"]:
+        check(all(math.isfinite(v["loss"]) for v in mem.values()),
+              "tp sp memory: a non-finite loss")
 
     # -- data 2 x model 2, depth 6 --------------------------------------------
     planning = alongside(D.plan_run, tp_train_spec(dcfg, device="cpu", num_steps=TP_DXM_TICKS),
@@ -3565,6 +3849,20 @@ def main() -> int:
         log(json.dumps({"fsdp": rows}))
         print(nvidia_smi())
         return 0
+    if sys.argv[1:2] == ["--parallel"]:
+        # phases 13 and 14 alone
+        compile_libraries([C.SOURCE, FA.SOURCE], force=True, verbose=True)
+        t0 = time.perf_counter()
+        rows = {"expert_parallel": expert_parallel(root)}
+        free_cuda()
+        log(f"[time] phase 13: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rows["tensor_parallel"] = tensor_parallel(root, get_config("stablelm-1.6b"),
+                                                  {"losses": []})
+        log(f"[time] phase 14: {time.perf_counter() - t0:.1f} s")
+        log(json.dumps(rows))
+        print(nvidia_smi())
+        return 0
     if sys.argv[1:2] == ["--sharded-resume-layers"]:
         # phase 16 (a) alone, at the depth asked for
         compile_libraries([C.SOURCE], force=True, verbose=True)
@@ -3832,6 +4130,8 @@ def main() -> int:
         tp["serve"]["flash"][0]
     flash_paths[f"FSDP serve, stablelm-1.6b at {FS_SERVE_LAYERS} layers, data 2 x model 1 (each "
                 "of 2 ranks)"] = fsdp["serve"]["flash"][0]
+    flash_paths[f"sequence-parallel serve, stablelm-1.6b at {TP_AGREE_LAYERS} layers, data 1 x "
+                "model 2 (each of 2 ranks)"] = tp["sp_serve"]["flash"][0]
     by_path = {name: {} for name in ("flash_attention", "rg_lru", "selective_scan")}
     for arch in OF_SERVES:
         where = (f"tensor-parallel serve, {arch} at {OF_SERVES[arch][0]} layers, data 1 x model 2 "
@@ -3854,7 +4154,11 @@ def main() -> int:
         "(each of 2 ranks)": families["train"]["fused_tick"][0],
         "tensor-parallel training saved at step 3 and resumed, data 1 x model 2 (phase 16, run "
         "A + run B, each of 2 ranks)": sum(sharded_ckpt["same_layout"]["fused_tick"][0]),
-        "FSDP training, data 2 x model 1 (each of 2 ranks)": fsdp["train"]["fused_tick"][0]}
+        "FSDP training, data 2 x model 1 (each of 2 ranks)": fsdp["train"]["fused_tick"][0],
+        f"weights-stationary training, qwen2-moe-a2.7b at {WS_LAYERS} layers, data 2 x model 2 "
+        "(each of 4 ranks)": ep["ws_training"]["fused_tick"][0],
+        f"sequence-parallel training, stablelm-1.6b at {TP_AGREE_LAYERS} layers, data 1 x model 2 "
+        "(each of 2 ranks)": tp["sp_agree"]["fused_tick"][0]}
     kernels[[k["name"] for k in kernels].index("fused_chain")]["launches_by_path"] = {
         "sharded_async": sharded_counts["fused_chain"],
         "sync_fuse": path_counts["sync_fuse"]["fused_chain"],

@@ -100,7 +100,10 @@ class ModelConfig:
     scan_layers: bool = True
     use_pallas: bool = False  # TPU fast path; CPU tests force the jnp path
     sequence_parallel: bool = False  # shard the residual seq axis over `model`
-    shard_grads: bool = False  # constrain grads to the param sharding (FSDP RS)
+    # the reference pins the grads to the param sharding (FSDP RS); the
+    # port's grads come out in each weight's storage layout already, so it
+    # changes nothing there
+    shard_grads: bool = False
     # weights-stationary MoE: shard expert d_ff over `data` as well as experts
     # over `model`; tokens are gathered (tiny at decode) instead of expert
     # weights — kills the per-step expert all-gather.  Decode-oriented.

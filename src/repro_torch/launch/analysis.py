@@ -180,10 +180,10 @@ def _data_bytes(cfg, mesh, dtype) -> dict:
 def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
                           cache_dtype=None) -> dict:
     """The collectives ONE rank of the port runs per step under the layout
-    ``mesh`` (every arch but a ``sequence_parallel`` / ``shard_grads`` one:
-    :func:`repro_torch.sharding.specs.tensor_parallel_unsupported`).
+    ``mesh``, for every arch and every layout option.
 
-    ``counted`` holds, by purpose, the bytes handed to all-reduce, exactly
+    ``counted`` holds, by purpose, the bytes handed to all-reduce (and, for
+    the ``sp_*`` purposes, to all-gather and reduce-scatter), exactly
     what :data:`repro_torch.sharding.collectives.COLLECTIVE_BYTES` counts in
     a run of that step (the tests and ``chip_smoke.py`` hold one to the
     other).  ``kind`` is ``train`` (a gradient), ``prefill`` or ``decode``
@@ -209,10 +209,12 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
       gathered over ``model``, T W a, and its output, T D a (a decode
       step's conv output in the promotion of the cache's dtype);
     * training with ``cfg.remat`` counts the stack's (whisper: the
-      decoder's) forward all-reduces again for the recomputed forward;
+      decoder's) forward collectives again for the recomputed forward;
     * ``combine`` / ``aux`` / ``gather``: the MoE's expert combine (T D a),
-      its load-balance loss (4) and, weights-stationary, the token gather
-      (n_data T D a, and the combine over every rank of the same size);
+      its load-balance loss (4) and, weights-stationary
+      (:func:`repro_torch.models.moe.moe_layout`, which at one ``model``
+      rank too), the token gather (n_data T D a, and the combine over every
+      rank of the same size);
     * ``logits`` (training, vocab split): the vocab-parallel
       cross-entropy's max, sum of exponentials and target logit, 3 B_loc S 4;
     * ``argmax`` (prefill and decode, vocab split): the greedy pick,
@@ -223,9 +225,27 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
       RG-LRU's ``in_x`` / ``in_gate`` input, T D a, and its gather's, T W
       a; whisper's decoder its self- and cross-attention queries and, once,
       the encoder's output; the unembedding's, B_loc S D a), the MoE's
-      router (D E 4) and tokens (T D a) and aux's data sum (4), and the
-      replicated ``wk`` / ``wv`` of layers whose kv heads do not split over
-      ``model`` (their gradient);
+      router (D E 4) and tokens (T D a), aux's data sum (4) and,
+      weights-stationary, the token gather's and the combine's cotangents
+      summed over ``data`` (n_data T D a each), and the replicated ``wk`` /
+      ``wv`` of layers whose kv heads do not split over ``model`` (their
+      gradient);
+    * with ``cfg.sequence_parallel`` (:func:`repro_torch.sharding.collectives.seq_mesh`:
+      training and prefill, ``model`` dividing the P + S positions) the
+      residual stream between the blocks is the rank's chunk of the
+      sequence: ``sp_gather`` counts each mixer's, MLP's and MoE's input
+      gathered over ``model`` (T D a; the MoE's once) and, training, again
+      in the backward for the weights' gradients (the MoE's where it feeds
+      the router or a split shared expert), the stack's output gathered
+      before the final norm's row (T D a, once) and, training, the
+      backward gather of every reduce-scatter or cut (T D a each, the
+      stack's input among them); ``sp_scatter`` each row-parallel output
+      reduce-scattered in place of its ``attn`` / ``mlp`` / ``combine`` /
+      ``ssm_out`` / ``lru_out`` all-reduce (T D a) and, training, each
+      gather's cotangent (T D a) in place of its column-parallel
+      ``backward`` term; ``backward`` adds every norm's gradient and the
+      shared expert's gate's (and, held whole, its three weights'), whose
+      rows are the rank's chunk, summed over ``model`` (the leaf's bytes);
 
     and with data > 1 ``fsdp_gather``, every weight the storage layout
     splits over ``data`` gathered (the bytes of the gathered leaf, a rank's
@@ -236,18 +256,20 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
     the cross-attention's ``wk`` / ``wv``; its decode step, the embedding
     and the decoder's layers but those two, whose K/V the cache holds); and training ``fsdp_grad``, their
     gradients reduce-scattered over ``data`` (the same bytes, once), ``loss``
-    (the token count and the loss, 2 x 4), with one model rank the MoE's
-    ``aux`` (its mean over ``data``, 4), and ``grad``, the rank's
-    gradient of the leaves whole over ``data`` (under
+    (the token count and the loss, 2 x 4), where the MoE routes each
+    rank's rows alone ``aux`` (its mean over ``data``, 4), and ``grad``,
+    the rank's gradient of the leaves whole over ``data`` (under
     ``replicate_params_over_data`` every leaf).  The clip link's 4-byte
     norm is not counted.  ``all-reduce``, ``all-gather`` and
     ``reduce-scatter`` are the bytes each rank sends (ring: 2 (n - 1) / n
     and (n - 1) / n per byte over the group of n ranks); the other
-    collectives are 0.
+    collectives are 0.  ``cfg.shard_grads`` changes nothing: the port's
+    gradients already come out in each weight's storage layout.
     """
     import torch
 
     from repro_torch.models.layers import dtype_of
+    from repro_torch.models.moe import moe_layout
 
     axes = tuple(mesh.axis_names)
     sizes = dict(zip(axes, mesh.devices.shape))
@@ -260,6 +282,7 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
         raise ValueError(f"batch {batch} does not split over {n_data} data ranks")
     act_dt = dtype_of(cfg.activation_dtype)
     a = act_dt.itemsize
+    pd = dtype_of(cfg.param_dtype).itemsize
     cd = torch.float32 if cache_dtype is None else cache_dtype
     # a serving batch whose rows do not split stays whole on every data rank
     b_loc = batch // n_data if batch % n_data == 0 else batch
@@ -268,20 +291,20 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
     fwd = 1 + (1 if train and cfg.remat else 0)
     c = {k: 0 for k in ("embed", "attn", "mlp", "combine", "gather", "aux", "logits", "argmax",
                         "ssm_proj", "ssm_out", "lru_gather", "lru_out", "loss", "grad",
-                        "fsdp_gather", "fsdp_grad", "backward")}
+                        "fsdp_gather", "fsdp_grad", "backward", "sp_gather", "sp_scatter")}
     sent = 0.0
-    stationary = False
-    if n_model > 1:
+    tp = n_model > 1
+    moe = moe_layout(cfg, mesh) if cfg.num_experts else None
+    stationary = bool(moe is not None and moe.stationary)
+    if tp or stationary:
         def splits(n: int) -> bool:
-            return n % n_model == 0
+            return tp and n % n_model == 0
 
         heads, vocab = splits(cfg.num_heads), splits(cfg.vocab_size)
-        mlp = splits(cfg.shared_expert_ff) if cfg.num_experts else splits(cfg.d_ff)
-        if cfg.num_experts:
-            stationary = bool(cfg.moe_weights_stationary and batch_axes
-                              and cfg.d_ff_expert % n_data == 0)
+        ffn = cfg.shared_expert_ff if cfg.num_experts else cfg.d_ff
+        mlp = bool(ffn) and splits(ffn)
         xd = act_dt  # the residual stream's dtype, as a decode step promotes it
-        back = 0
+        back = back_data = 0
 
         def attn_layer(tok, repeat):
             """An attention layer's output; its dtype under a decode step's
@@ -306,45 +329,97 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
         else:
             n_pre = cfg.num_prefix_embeddings if cfg.frontend == "vision" and not decode else 0
             tok = b_loc * (s_dec + n_pre)
+            sp = bool(cfg.sequence_parallel and tp and not decode
+                      and (s_dec + n_pre) % n_model == 0)
+            ta = tok * D * a  # a block input's bytes, the whole sequence
+            norm = (2 if cfg.norm_type == "layernorm" else 1) * D * pd  # a norm's leaves
+
+            def enter_leave(split: bool, gather: bool = True):
+                """A layer's sequence-parallel gather (``gather``: forward,
+                again in the backward for its weights' gradients, and its
+                cotangent reduce-scattered when ``split``) and its output
+                reduce-scattered (``split``, the layer split over
+                ``model``) or cut (whole), forward and backward."""
+                c["sp_gather"] += (fwd + train) * ta * gather + train * ta
+                c["sp_scatter"] += (fwd * ta + train * ta * gather) * split
+
             W, N, dtr = cfg.lru_width or D, cfg.ssm_state, cfg.dt_rank
             for t in cfg.layer_types():
+                if sp and train:
+                    back += norm * (1 + (t != "ssm") * (not cfg.parallel_residual)
+                                    + (t != "ssm") * 2 * cfg.use_post_norms)
                 if t == "ssm":
+                    if sp:
+                        enter_leave(splits(cfg.d_inner))
                     if splits(cfg.d_inner):
                         wd = torch.promote_types(cd, xd) if decode else xd
                         c["ssm_proj"] += fwd * tok * (dtr + 2 * N) * wd.itemsize
-                        c["ssm_out"] += fwd * tok * D * xd.itemsize
-                        back += tok * (D + dtr + 2 * N) * a
+                        c["ssm_out"] += 0 if sp else fwd * tok * D * xd.itemsize
+                        back += tok * ((0 if sp else D) + dtr + 2 * N) * a
                     continue
                 if t == "recurrent":
+                    if sp:
+                        enter_leave(splits(W))
                     if splits(W):
                         wd = torch.promote_types(cd, xd) if decode else xd
                         c["lru_gather"] += fwd * tok * W * wd.itemsize
-                        c["lru_out"] += fwd * tok * D * xd.itemsize
-                        back += tok * (D + W) * a
+                        c["lru_out"] += 0 if sp else fwd * tok * D * xd.itemsize
+                        back += tok * ((0 if sp else D) + W) * a
                     hd = xd
                 else:
-                    hd = attn_layer(tok, fwd)
+                    if sp:
+                        enter_leave(heads)
+                        hd = xd
+                    else:
+                        hd = attn_layer(tok, fwd)
                     if heads:
-                        back += tok * D * a
+                        back += 0 if sp else tok * D * a
                         if cfg.num_kv_heads % n_model:
                             kv = 2 * D * cfg.num_kv_heads * cfg.head_dim
-                            back += kv * dtype_of(cfg.param_dtype).itemsize
+                            back += kv * pd
                 # the MLP reads the normed residual, or with a parallel
                 # residual the block's input
                 md = xd if cfg.parallel_residual else torch.promote_types(xd, hd)
                 m_act = tok * D * md.itemsize
-                if mlp:
+                if cfg.num_experts:
+                    if sp:  # the MoE's input, gathered once (again in the backward
+                        # where the gather feeds the router or a split shared
+                        # expert); its shared gate, and a shared expert held
+                        # whole, on the chunk
+                        c["sp_gather"] += (fwd + train * (not stationary or mlp)) * ta
+                        c["sp_scatter"] += train * ta
+                        if mlp:
+                            enter_leave(True, gather=False)
+                        fs = cfg.shared_expert_ff
+                        back += train * (D + (0 if mlp else 3 * D * fs)) * pd * bool(fs)
+                    elif mlp:
+                        c["mlp"] += fwd * m_act
+                        back += tok * D * a
+                    tokens = n_data * m_act if stationary else m_act
+                    if stationary:
+                        c["gather"] += fwd * tokens
+                        c["combine"] += fwd * tokens
+                        back_data += 2 * n_data * tok * D * a
+                        if sp:
+                            c["sp_gather"] += train * ta  # the cut's backward gather
+                    elif sp:
+                        enter_leave(True, gather=False)
+                    else:
+                        c["combine"] += fwd * tokens
+                    c["aux"] += fwd * 4
+                    back_data += 4 if batch_axes else 0
+                    if tp:
+                        back += D * cfg.experts_padded * 4
+                        back += 0 if sp else (n_data * tok if stationary else tok) * D * a
+                elif sp:
+                    enter_leave(mlp)
+                elif mlp:
                     c["mlp"] += fwd * m_act
                     back += tok * D * a
-                if cfg.num_experts:
-                    tokens = n_data * m_act if stationary else m_act
-                    c["combine"] += fwd * tokens
-                    c["gather"] += fwd * tokens if stationary else 0
-                    c["aux"] += fwd * 4
-                    tokens = n_data * tok * D * a if stationary else tok * D * a
-                    back += (D * cfg.experts_padded * 4 + tokens
-                             + (2 * tokens if stationary else 0) + (4 if batch_axes else 0))
                 xd = torch.promote_types(xd, hd)
+            if sp:  # the stack's input cut, its output gathered, the final norm
+                c["sp_gather"] += ta + train * ta
+                back += train * norm
             emb_tok = b_loc * s_dec
         if vocab:
             c["embed"] = emb_tok * D * a
@@ -354,14 +429,14 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
             elif not (cfg.is_encoder_decoder and kind == "prefill"):
                 c["argmax"] = b_loc * (4 + 8)
         if train:
-            c["backward"] = back
+            c["backward"] = back + back_data
         m_ring = _ring(n_model, "all-reduce")
-        sent += m_ring * sum(c[k] for k in ("embed", "attn", "mlp", "logits", "argmax",
-                                            "ssm_proj", "ssm_out", "lru_gather", "lru_out",
-                                            "backward"))
+        sent += m_ring * (train * back + sum(c[k] for k in ("embed", "attn", "mlp", "logits",
+                                                             "argmax", "ssm_proj", "ssm_out",
+                                                             "lru_gather", "lru_out")))
         if cfg.num_experts:
             sent += _ring(world if stationary else n_model, "all-reduce") * c["combine"]
-            sent += _ring(n_data, "all-reduce") * c["gather"]
+            sent += _ring(n_data, "all-reduce") * (c["gather"] + train * back_data)
             sent += _ring(world, "all-reduce") * c["aux"]
     gathered = 0.0
     if n_data > 1:
@@ -377,17 +452,17 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
         gathered = _ring(n_data, "all-gather") * c["fsdp_gather"]
     if train and n_data > 1:
         c["loss"] = 2 * 4
-        if cfg.num_experts and n_model == 1:
-            c["aux"] = 4
+        mean_aux = 4 if cfg.num_experts and not moe.sharded else 0
+        c["aux"] += mean_aux
         c["fsdp_grad"] = sum(g[k] for k in ("outer", "stack", "encoder", "decoder"))
         c["grad"] = g["whole"]
-        sent += _ring(n_data, "all-reduce") * (c["loss"] + c["grad"]
-                                               + (c["aux"] if n_model == 1 else 0))
+        sent += _ring(n_data, "all-reduce") * (c["loss"] + c["grad"] + mean_aux)
     out = {k: 0.0 for k in _COLLECTIVES}
     out["all-reduce"] = sent
-    out["all-gather"] = gathered
-    out["reduce-scatter"] = _ring(n_data, "reduce-scatter") * c["fsdp_grad"]
-    out["total"] = sent + gathered + out["reduce-scatter"]
+    out["all-gather"] = gathered + _ring(n_model, "all-gather") * c["sp_gather"]
+    out["reduce-scatter"] = (_ring(n_data, "reduce-scatter") * c["fsdp_grad"]
+                             + _ring(n_model, "reduce-scatter") * c["sp_scatter"])
+    out["total"] = out["all-reduce"] + out["all-gather"] + out["reduce-scatter"]
     out["counted"] = c
     out["counted_total"] = sum(c.values())
     return out

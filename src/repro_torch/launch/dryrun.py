@@ -52,8 +52,7 @@ the card alike; on a card the record also gives the card's own
 (data 2 x model 2).  The reference's ``--multi_pod`` TPU layout has no
 counterpart.
 
-The multi-card layouts plan the PORT's layout for every registered arch
-(:func:`~repro_torch.sharding.specs.tensor_parallel_unsupported` is None):
+The multi-card layouts plan the PORT's layout for every registered arch:
 Megatron-style tensor parallelism over ``model`` (heads, d_ff, vocab, the
 experts, the Mamba and RG-LRU layers' inner width) and the reference's FSDP
 storage over ``data`` (the argument bytes per card from
@@ -63,10 +62,11 @@ reference's flag, plans the serving layout instead, every weight whole over
 port rank runs
 (:func:`repro_torch.launch.analysis.port_collective_bytes`, the count its
 byte counter is held to); the step's temporaries are split evenly over the
-cards (an estimate).  A config whose layout the port does not run
-(``sequence_parallel`` / ``shard_grads``) raises on a multi-card layout, as
-the port raises at ``init_model``
-(:func:`~repro_torch.sharding.specs.check_tensor_parallel`).
+cards (an estimate).  ``--set KEY=VALUE`` overrides a config field, as the
+reference's flag does (``--set sequence_parallel=true``: Megatron sequence
+parallelism, whose gathers and reduce-scatters over ``model`` the
+collective term counts; ``--set moe_weights_stationary=true``: the MoE's
+expert stacks over ``model`` x d_ff over ``data``).
 """
 
 from __future__ import annotations
@@ -108,7 +108,6 @@ from repro_torch.sharding.specs import (
     leaf_paths,
     local_shape,
     SPEC_OPTIONS,
-    check_tensor_parallel,
     storage_spec_for,
 )
 
@@ -430,13 +429,12 @@ def _serving(cfg, kind):
 
 
 def dryrun_extrapolated(arch: str, shape_name: str, *, cards: int = 4,
-                        small_mesh: bool = False) -> dict:
-    """The record of one (arch, input shape) on the layout."""
+                        small_mesh: bool = False, overrides: dict | None = None) -> dict:
+    """The record of one (arch, input shape) on the layout; ``overrides``
+    replaces config fields (the ``--set`` flag)."""
     seq, batch, kind = INPUT_SHAPES[shape_name]
-    cfg_full = _serving(get_config(arch), kind)
+    cfg_full = _serving(dataclasses.replace(get_config(arch), **(overrides or {})), kind)
     mesh, _ = _mesh_for(cards=cards, small_mesh=small_mesh)
-    if mesh.devices.size > 1:
-        check_tensor_parallel(cfg_full)
     core = plan_extrapolated(
         cfg_full, lambda c: (step_for_cfg(c, shape_name), specs_for_cfg(c, shape_name)))
     with planning_kernels():  # whisper's decode cache runs the encoder
@@ -457,8 +455,6 @@ def plan_run(spec, mesh=None) -> dict:
     buffers, optimizer state and ring are ``N_local`` long."""
     from repro_torch.run.engine import make_engine
 
-    if mesh is not None and mesh.devices.size > 1:
-        check_tensor_parallel(spec.cfg)
     spec = dataclasses.replace(spec, device="cpu", mesh=None)  # shapes only
     one_card = make_mesh((1, 1), ("data", "model"), device="meta")
 
@@ -580,6 +576,9 @@ def main(argv=None) -> int:
     ap.add_argument("--small_mesh", action="store_true", help="data 2 x model 2 (the CI layout)")
     ap.add_argument("--repl_params", action="store_true",
                     help="serving layout: params replicated over data (no FSDP storage)")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="config override, e.g. --set param_dtype=bfloat16 "
+                         "--set sequence_parallel=true")
     ap.add_argument("--out", default="build/dryrun", help="output dir for json records")
     args = ap.parse_args(argv)
     if not args.all and not (args.arch and args.shape):
@@ -592,6 +591,27 @@ def main(argv=None) -> int:
         SPEC_OPTIONS["replicate_params_over_data"] = old
 
 
+def _parse_overrides(pairs) -> dict:
+    """``KEY=VALUE`` strings -> config overrides, as the reference's
+    ``--set`` reads them: ``true`` / ``false`` as booleans, then an int, a
+    float, else the string."""
+    out = {}
+    for kv in pairs:
+        k, _, v = kv.partition("=")
+        if v.lower() in ("true", "false"):
+            out[k] = v.lower() == "true"
+            continue
+        for kind in (int, float):
+            try:
+                out[k] = kind(v)
+                break
+            except ValueError:
+                pass
+        else:
+            out[k] = v
+    return out
+
+
 def _plan_all(args) -> int:
     """Plan the combinations ``args`` names, one JSON record each."""
     os.makedirs(args.out, exist_ok=True)
@@ -600,6 +620,9 @@ def _plan_all(args) -> int:
     _, mesh_tag = _mesh_for(cards=args.cards, small_mesh=args.small_mesh)
     if args.repl_params:
         mesh_tag += "_repl"
+    overrides = _parse_overrides(args.set)
+    for key in sorted(overrides):
+        mesh_tag += f"_{key}"
 
     failures = 0
     for arch, shape in combos:
@@ -612,7 +635,9 @@ def _plan_all(args) -> int:
         else:
             try:
                 rec = dryrun_extrapolated(arch, shape, cards=args.cards,
-                                          small_mesh=args.small_mesh)
+                                          small_mesh=args.small_mesh, overrides=overrides)
+                if overrides:
+                    rec["overrides"] = overrides
                 r, m = rec["roofline"], rec["memory"]
                 print(f"[ok]   {arch} x {shape} ({mesh_tag}): "
                       f"{m['peak_bytes_per_card'] / 1e9:.2f} GB/card "

@@ -287,7 +287,7 @@ def _kv_weights(p: Params, cfg, mesh):
 
 
 def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,
-                       kv_source: torch.Tensor | None = None, use_rope: bool = True):
+                       kv_source: torch.Tensor | None = None, use_rope: bool = True, seq=None):
     """Projections + rope + attention + output projection -> (y, k, v), with
     ``k`` roped: prefill fills its decode cache from the same projections.
     ``kv_source`` (B, T, D): cross-attention memory, K and V projected from
@@ -298,18 +298,24 @@ def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: 
     caller hands ``kv_source`` in as a column-parallel input already
     (:func:`~repro_torch.sharding.collectives.copy_to_model`): every
     layer's cross-attention reads the one memory, whose cotangent is then
-    summed over ``model`` once."""
+    summed over ``model`` once.  With ``seq``
+    (:func:`~repro_torch.sharding.collectives.seq_mesh`) x is the rank's
+    chunk of the sequence, gathered before the projections, and the output
+    is the rank's chunk, reduce-scattered in place of the all-reduce
+    (:func:`~repro_torch.sharding.collectives.enter_linear` /
+    :func:`~repro_torch.sharding.collectives.leave_model`); ``k`` and ``v``
+    cover the whole sequence."""
     dt = x.dtype
     cross = kv_source is not None
     mesh = head_mesh(cfg)
-    if mesh is not None:
-        x = C.copy_to_model(x, mesh)
-    src = kv_source if cross else x
     # cross-attention is plain MHA: its kv heads split as the query heads
     wk, wv = (p["wk"], p["wv"]) if cross else _kv_weights(p, cfg, mesh)
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
-    k = torch.einsum("btd,dnh->btnh", src, wk.to(dt))
-    v = torch.einsum("btd,dnh->btnh", src, wv.to(dt))
+    if cross:
+        x, q = C.enter_linear(x, mesh, seq, [p["wq"].to(dt)])
+        k = torch.einsum("btd,dnh->btnh", kv_source, wk.to(dt))
+        v = torch.einsum("btd,dnh->btnh", kv_source, wv.to(dt))
+    else:
+        x, q, k, v = C.enter_linear(x, mesh, seq, [p["wq"].to(dt), wk.to(dt), wv.to(dt)])
     if use_rope and not cross:
         q = apply_rope(q, io.positions, cfg.rope_theta)
         k = apply_rope(k, io.positions, cfg.rope_theta)
@@ -320,6 +326,7 @@ def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: 
         out = flash_attention(q, k, v, causal=io.causal, window=window,
                               softcap=cfg.attn_logit_softcap, scale=1.0)
     else:
+        src = kv_source if cross else x
         B, T = src.shape[0], src.shape[1]
         kpos = torch.arange(T, device=x.device)[None].expand(B, T) if cross else io.positions
         out = blockwise_attention(
@@ -328,13 +335,12 @@ def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: 
             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
         )
     y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(dt))
-    if mesh is not None:
-        y = C.reduce_from_model(y, mesh, "attn")
-    return y, k, v
+    return C.leave_model(y, mesh, "attn", seq), k, v
 
 
 def attention_layer(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,
-                    kv_source: torch.Tensor | None = None, use_rope: bool = True) -> torch.Tensor:
+                    kv_source: torch.Tensor | None = None, use_rope: bool = True,
+                    seq=None) -> torch.Tensor:
     """Projections + rope + attention + output projection."""
     return attention_layer_kv(p, x, io, cfg, window=window, kv_source=kv_source,
-                              use_rope=use_rope)[0]
+                              use_rope=use_rope, seq=seq)[0]

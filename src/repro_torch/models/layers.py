@@ -153,20 +153,33 @@ def mlp_mesh(cfg):
     return C.layout_mesh("w_up", (cfg.d_model, cfg.d_ff))
 
 
-def apply_mlp(p: Params, x: torch.Tensor, act: str, *, mesh) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, act: str, *, mesh, seq=None) -> torch.Tensor:
     """The (gated) MLP.  With ``mesh`` (d_ff split over ``model``) ``p`` is
     the rank's d_ff block: ``w_gate`` / ``w_up`` column-split, ``w_down``
-    row-split, and one all-reduce over ``model``."""
-    dt = x.dtype
-    if mesh is not None:
-        x = C.copy_to_model(x, mesh)
-    up = x @ p["w_up"].to(dt)
-    if "w_gate" in p:
-        h = _act(act, x @ p["w_gate"].to(dt)) * up
-    else:
-        h = _act(act, up)
-    out = h @ p["w_down"].to(dt)
-    return out if mesh is None else C.reduce_from_model(out, mesh, "mlp")
+    row-split, and one all-reduce over ``model``.  With ``seq`` x and the
+    output are the rank's chunks of the sequence, gathered before and
+    reduce-scattered after (:func:`~repro_torch.sharding.collectives.enter_linear`)."""
+    _, *h = C.enter_linear(x, mesh, seq, mlp_in(p, x.dtype))
+    return C.leave_model(mlp_out(p, h, act), mesh, "mlp", seq)
+
+
+def mlp_in(p: Params, dt) -> list:
+    """The MLP's column-parallel weights in ``dt``: ``w_up`` and, gated,
+    ``w_gate``."""
+    return [p["w_up"].to(dt)] + ([p["w_gate"].to(dt)] if "w_gate" in p else [])
+
+
+def mlp_out(p: Params, h: list, act: str) -> torch.Tensor:
+    """The MLP from its column-parallel products ``h`` (the input times
+    :func:`mlp_in`'s weights) before the sum over ``model`` of a row-split
+    ``w_down``: a partial sum with the rank's d_ff block, the output with
+    the whole MLP.  ``h`` is emptied, so that no product outlives its use
+    (a serving pass holds none of them through the down projection)."""
+    up, *gate = h
+    h.clear()
+    hidden = _act(act, gate.pop()) * up if gate else _act(act, up)
+    del up
+    return hidden @ p["w_down"].to(hidden.dtype)
 
 
 # ---------------------------------------------------------------------------

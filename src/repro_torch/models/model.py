@@ -35,9 +35,14 @@ layers' inner width, whisper's encoder and cross-attention.  A vocab that
 unembedding and the logits whole on every rank
 (:func:`~repro_torch.sharding.collectives.vocab_mesh` is None); a vlm
 prefix joins the token embeddings after the vocab-parallel lookup's
-all-reduce.  Only ``sequence_parallel`` / ``shard_grads`` raise at
-:func:`init_model`, and params held whole raise at ``forward`` /
-``prefill`` / ``decode_step``.
+all-reduce.  Params held whole raise at ``forward`` / ``prefill`` /
+``decode_step``.  With ``cfg.sequence_parallel``
+(:func:`~repro_torch.sharding.collectives.seq_mesh` of the P + S
+positions) ``forward`` and ``prefill`` cut the embeddings to the rank's
+chunk of the sequence before the stack, and gather the stack's output
+(``forward``: after the final norm, which runs on the chunk) before the
+unembedding; ``cfg.shard_grads`` changes nothing (the gradients come out
+in each weight's storage layout already).
 """
 
 from __future__ import annotations
@@ -66,13 +71,7 @@ f32 = torch.float32
 
 def init_model(gen, cfg, device) -> Params:
     """The whole param tree (blocks are sliced from it by the caller:
-    :func:`repro_torch.training.steps.init_params`).  Under a running
-    ``model`` axis a config whose layout the port does not run raises
-    here (:func:`~repro_torch.sharding.specs.check_tensor_parallel`)."""
-    if C.model_mesh() is not None:
-        from repro_torch.sharding.specs import check_tensor_parallel
-
-        check_tensor_parallel(cfg)
+    :func:`repro_torch.training.steps.init_params`)."""
     if cfg.is_encoder_decoder:
         return W.init_whisper(gen, cfg, device)
     params: Params = {
@@ -141,8 +140,10 @@ def forward(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, t
                                 vmesh=vmesh)
         return logits, torch.zeros((), dtype=f32, device=logits.device)
     x, io, n_prefix = _embed_with_prefix(params, batch, cfg, vmesh)
-    x, aux = T.apply_stack(params["stack"], x, io, cfg)
-    x = T._norm(cfg, params["final_norm"], x)
+    seq = C.seq_mesh(cfg, x.shape[1])
+    x, aux = T.apply_stack(params["stack"], C.scatter_seq(x, seq, summed=False), io, cfg)
+    x = T._norm(cfg, T._norms_on_chunk(params, seq)["final_norm"], x)
+    x = C.gather_seq(x, seq, summed=False)
     if n_prefix:
         x = x[:, n_prefix:]
     logits = apply_unembed(params.get("unembed", params["embed"]), x,
@@ -197,29 +198,33 @@ def loss_fn(params: Params, batch: dict[str, Any], cfg) -> tuple[torch.Tensor, d
         labels = torch.cat([tokens[:, 1:], -torch.ones_like(tokens[:, :1])], dim=1)
     ce, n_tok = cross_entropy(logits, labels, mesh=C.vocab_mesh(cfg))
     if cfg.num_experts:
-        aux = _data_parallel_aux(aux)
+        aux = _data_parallel_aux(aux, cfg)
         loss = ce + cfg.router_aux_coef * aux
     else:
         loss = ce
     return loss, {"ce": ce, "aux": aux, "n_tokens": n_tok}
 
 
-def _data_parallel_aux(aux: torch.Tensor) -> torch.Tensor:
+def _data_parallel_aux(aux: torch.Tensor, cfg) -> torch.Tensor:
     """The router's aux loss under :func:`cross_entropy`'s data-parallel
     convention (every rank holds the global loss, its gradient is its
     rows' share, summed over ``data`` by the FSDP gather's backward or, for
     the leaves whole over ``data``, by the caller): the mean over
-    the data ranks, the reference's ``pmean``.  With one model rank the MoE
-    routes each rank's rows alone, and the mean is taken here (one f32
-    all-reduce).  The expert-parallel MoE (``model`` > 1) returns that mean
-    already, but its backward sums aux's cotangent over ``data``
+    the data ranks, the reference's ``pmean``.  Where the MoE routes each
+    rank's rows alone (one model rank, not weights-stationary) the mean is
+    taken here (one f32 all-reduce).  A sharded MoE branch
+    (:func:`~repro_torch.models.moe.sharded_layout`: expert-parallel, or
+    weights-stationary at any ``model`` width) returns that mean already,
+    but its backward sums aux's cotangent over ``data``
     (:mod:`repro_torch.models.moe`: the loss is the sum over data groups),
     so its gradient is divided by the data ranks here."""
+    from repro_torch.models.moe import sharded_layout
+
     mesh = C.sharded_mesh()
     n_data = 1 if mesh is None else C.data_size(mesh)
     if n_data == 1:
         return aux
-    if C.model_mesh() is None:
+    if sharded_layout(cfg) is None:
         return C.sum_over_data(aux.reshape(1), mesh, "aux")[0] / n_data
     return C.scale_grad(aux, 1.0 / n_data)
 
@@ -279,7 +284,10 @@ def prefill(params: Params, batch: dict[str, Any], cfg, capacity: int, *,
         logits = W.decode_train(params, batch["tokens"], memory, cfg, vmesh=vmesh)
         return logits[:, -1], W.init_whisper_cache(params, memory, cfg, capacity, cache_dtype)
     x, io, _ = _embed_with_prefix(params, batch, cfg, vmesh)
-    x, cache = T.prefill_stack(params["stack"], x, io, cfg, capacity, cache_dtype)
+    seq = C.seq_mesh(cfg, x.shape[1])
+    x, cache = T.prefill_stack(params["stack"], C.scatter_seq(x, seq, summed=False), io, cfg,
+                               capacity, cache_dtype)
+    x = C.gather_seq(x, seq, summed=False)
     # the norm is row-wise: normalizing the last position alone is the same
     x = T._norm(cfg, params["final_norm"], x[:, -1])
     logits = apply_unembed(params.get("unembed", params["embed"]), x,

@@ -17,8 +17,10 @@
   sigmoid gate, added to the routed output.
 
 Under :func:`~repro_torch.sharding.use_sharding_rules` with a running
-:class:`~repro_torch.launch.mesh.Mesh` whose ``model`` axis has more than
-one process, :func:`apply_moe` takes the reference's two ``shard_map``
+:class:`~repro_torch.launch.mesh.Mesh` whose :func:`moe_layout` is sharded
+(a ``model`` axis of more than one process, or the weights-stationary
+layout at any ``model`` width, 1 included, as the reference's branch
+condition), :func:`apply_moe` takes the reference's two ``shard_map``
 branches, written as explicit collectives over the mesh's process groups.
 Each process holds its own batch rows and its own block of the expert
 stacks (:func:`local_expert_params` slices them; stacks held whole raise);
@@ -38,7 +40,11 @@ the router is replicated.  The shared expert is the dense MLP of
   that divides d_ff): the stacks also split d_ff over ``data``.  The tokens
   of the ``data`` group are gathered, each rank runs its f-slice of its
   experts on all of them, the outputs are summed over every rank, and each
-  rank keeps its own rows.  Expert weights never move.
+  rank keeps its own rows.  Expert weights never move.  Every rank routes
+  the data group's tokens with the capacity of all of them, so the routes,
+  the drops and aux are those of one process on the whole global batch
+  (not the mean over data shards that the expert-parallel layout
+  computes); with one ``model`` rank nothing is summed over ``model``.
 
 The collectives are :mod:`repro_torch.sharding.collectives`' (one byte
 counter for the MoE's and the dense layers').  The gather is an all-reduce
@@ -66,21 +72,27 @@ The expert products are plain matrix products in the reference too
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.layers import Params, apply_mlp, truncated_normal, _act
+from repro_torch.models.layers import Params, apply_mlp, mlp_in, mlp_out, truncated_normal, _act
 from repro_torch.sharding.collectives import (  # noqa: F401  (the counter is re-exported)
     COLLECTIVE_BYTES,
     _gather,
     _sum_over,
     _to_model,
+    copy_to_model,
+    enter_linear,
     model_mesh,
     reset_collective_bytes,
+    scatter_seq,
+    sharded_mesh,
 )
 
-__all__ = ["init_moe", "capacity_for", "route", "apply_moe", "local_expert_params",
+__all__ = ["init_moe", "capacity_for", "route", "apply_moe", "local_expert_params", "moe_layout",
+           "sharded_layout",
            "COLLECTIVE_BYTES", "reset_collective_bytes"]
 
 f32 = torch.float32
@@ -131,12 +143,14 @@ def _slot_assignment(topk_idx: torch.Tensor, num_experts: int):
     return pos.reshape(T, K), counts
 
 
-def route(xt: torch.Tensor, p: Params, cfg):
+def route(xt: torch.Tensor, p: Params, cfg, logits: torch.Tensor | None = None):
     """The f32 router: xt (T, D) -> (probs (T, E) f32, top-k probabilities
     (T, K) renormalised in f32 and cast to xt's dtype, top-k expert ids
-    (T, K))."""
+    (T, K)).  ``logits``: xt's f32 product with the router, where the
+    caller has it already (:func:`apply_moe` under sequence parallelism)."""
     E, n = cfg.experts_padded, cfg.num_experts
-    logits = xt.to(f32) @ p["router"].to(f32)
+    if logits is None:
+        logits = xt.to(f32) @ p["router"].to(f32)
     if E != n:
         ids = torch.arange(E, device=xt.device)
         logits = logits + torch.where(ids >= n, -1e30, 0.0).to(f32)
@@ -156,17 +170,18 @@ def _expert_ffn(xin: torch.Tensor, p: Params, act: str) -> torch.Tensor:
 
 
 def _routed_local(xt: torch.Tensor, p: Params, cfg, C: int, e_start: int = 0,
-                  e_local: int | None = None):
+                  e_local: int | None = None, logits: torch.Tensor | None = None):
     """Dispatch -> expert FFN -> weighted combine for experts
     ``[e_start, e_start + e_local)`` (default: all E), whose stacks are
     exactly ``p``'s.  xt: (T, D) -> (partial out (T, D), zero rows where the
-    token's experts live elsewhere; aux f32 scalar)."""
+    token's experts live elsewhere; aux f32 scalar); ``logits``: see
+    :func:`route`."""
     dt = xt.dtype
     T, D = xt.shape
     E, K, n = cfg.experts_padded, cfg.top_k, cfg.num_experts
     e_local = E if e_local is None else e_local
 
-    probs, topk_p, topk_idx = route(xt, p, cfg)
+    probs, topk_p, topk_idx = route(xt, p, cfg, logits)
     pos, counts = _slot_assignment(topk_idx, E)
     keep = (topk_idx >= e_start) & (topk_idx < e_start + e_local) & (pos < C)
     # dropped or elsewhere -> the trash row
@@ -191,15 +206,35 @@ def _routed_local(xt: torch.Tensor, p: Params, cfg, C: int, e_start: int = 0,
     return out, aux
 
 
-def _moe_layout(cfg, mesh):
-    """``(batch axes, n_model, n_data, weights-stationary?)`` of a running
-    layout (the reference's branch condition; its ``(B * S) % n_data`` test
-    holds by construction here, since each rank holds whole batch rows)."""
+class MoeLayout(NamedTuple):
+    """Where an MoE layer runs over a layout (:func:`moe_layout`)."""
+
+    batch_axes: tuple[str, ...]
+    n_model: int
+    n_data: int
+    stationary: bool  # the weights-stationary branch
+
+    @property
+    def sharded(self) -> bool:
+        """Whether :func:`apply_moe` takes a sharded branch; else every
+        rank routes its own rows over all experts, as one process."""
+        return self.n_model > 1 or self.stationary
+
+
+def moe_layout(cfg, mesh) -> MoeLayout:
+    """The one decision of where an MoE layer runs over ``mesh`` (its
+    sizes are read, so a planning mesh gives a running one's answer), which
+    :func:`apply_moe`, :func:`local_expert_params`, the loss's aux
+    convention and ``launch.analysis.port_collective_bytes`` read.  As the
+    reference's branch condition, the weights-stationary branch runs
+    whenever the config asks for it and a batch axis divides the expert
+    d_ff, ``model`` of 1 included; its ``(B * S) % n_data`` test holds by
+    construction here, since each rank holds whole batch rows."""
     batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     n_data = mesh.size(batch_axes) if batch_axes else 1
     stationary = bool(cfg.moe_weights_stationary and batch_axes
                       and cfg.d_ff_expert % n_data == 0)
-    return batch_axes, mesh.shape["model"], n_data, stationary
+    return MoeLayout(batch_axes, mesh.shape.get("model", 1), n_data, stationary)
 
 
 def local_expert_params(p: Params, cfg, mesh) -> Params:
@@ -207,7 +242,7 @@ def local_expert_params(p: Params, cfg, mesh) -> Params:
     stacks, stacked layers included): the expert axis (dim -3) sliced over
     ``model``, and for the weights-stationary layout d_ff sliced over the
     batch axes; everything else is returned as is (replicated)."""
-    batch_axes, n_model, n_data, stationary = _moe_layout(cfg, mesh)
+    batch_axes, n_model, n_data, stationary = moe_layout(cfg, mesh)
     E = cfg.experts_padded
     if E % n_model:
         raise ValueError(f"experts {E} must divide the model axis {n_model}")
@@ -229,21 +264,36 @@ def local_expert_params(p: Params, cfg, mesh) -> Params:
     return walk(p)
 
 
-def _apply_sharded(p: Params, x: torch.Tensor, cfg, mesh):
+def _apply_sharded(p: Params, x: torch.Tensor, cfg, mesh, layout: MoeLayout, seq=None,
+                   logits=None):
     """The reference's two ``shard_map`` branches (module docstring).  x is
-    this rank's rows (B_loc, S, D); returns (out (B_loc, S, D), aux)."""
+    this rank's rows (B_loc, S, D); returns (out (B_loc, S, D), aux).  With
+    one ``model`` rank (weights-stationary alone) nothing is summed over
+    ``model``.  With ``seq`` x is already gathered from the ranks' chunks
+    of the sequence (its backward sums the tokens' cotangents over
+    ``model``), expert-parallel with its router ``logits`` (B_loc, S, E)
+    from the same gather, and out is the rank's chunk: the expert-parallel
+    partial sums reduce-scattered, the weights-stationary sum cut."""
     Bl, S, D = x.shape
     E = cfg.experts_padded
-    batch_axes, n_model, n_data, stationary = _moe_layout(cfg, mesh)
+    batch_axes, n_model, n_data, stationary = layout
     e_local = E // n_model
     if E % n_model or p["w_gate_e"].shape[-3] != e_local:
         raise ValueError(f"under a model axis of {n_model} the expert stacks must hold this "
                          f"rank's {E} / {n_model} experts (local_expert_params), not "
                          f"{p['w_gate_e'].shape[-3]}")
     e_start = mesh.index("model") * e_local
-    world = mesh.group(("model",) + batch_axes)
+    model_axes = ("model",) if n_model > 1 else ()
+    world = mesh.group(model_axes + batch_axes)
     data = mesh.group(batch_axes) if batch_axes else None
-    p = {**p, "router": _to_model(p["router"], mesh)}
+
+    def to_model(t):
+        return _to_model(t, mesh) if n_model > 1 else t
+
+    def tokens(t):
+        return t if seq is not None else to_model(t)
+
+    p = {**p, "router": to_model(p["router"])}
     T_loc = Bl * S
     xt = x.reshape(T_loc, D)
     if stationary:
@@ -252,35 +302,73 @@ def _apply_sharded(p: Params, x: torch.Tensor, cfg, mesh):
         d_idx = mesh.index(batch_axes)
         xg = _gather(xt, data, n_data, d_idx, "gather", dim=0)
         C = capacity_for(n_data * T_loc, E, cfg.top_k, cfg.capacity_factor)
-        out, aux = _routed_local(_to_model(xg, mesh), p, cfg, C, e_start, e_local)
+        out, aux = _routed_local(tokens(xg), p, cfg, C, e_start, e_local)
         out = _sum_over(out, world, "combine", back=data)
-        out = out.reshape(n_data, T_loc, D)[d_idx]
+        out = scatter_seq(out.reshape(n_data, T_loc, D)[d_idx].reshape(Bl, S, D), seq,
+                          summed=False)
     else:
         C = capacity_for(T_loc, E, cfg.top_k, cfg.capacity_factor)
-        out, aux = _routed_local(_to_model(xt, mesh), p, cfg, C, e_start, e_local)
-        out = _sum_over(out, mesh.group("model"), "combine")
+        out, aux = _routed_local(tokens(xt), p, cfg, C, e_start, e_local,
+                                 None if logits is None else logits.reshape(T_loc, E))
+        out = out.reshape(Bl, S, D)
+        if seq is None:
+            out = _sum_over(out, mesh.group("model"), "combine")
+        else:
+            out = scatter_seq(out, seq, summed=True)
     aux = _sum_over(aux.reshape(1), world, "aux", back=data)[0] / (n_model * n_data)
-    return out.reshape(Bl, S, D), aux
+    return out, aux
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss).  Under a running mesh with a
-    ``model`` axis of more than one process, x and the expert stacks are
-    this rank's blocks (module docstring)."""
+def sharded_layout(cfg) -> tuple | None:
+    """``(running mesh, its :func:`moe_layout`)`` when :func:`apply_moe`
+    takes a sharded branch under the current rules, else None."""
+    mesh = sharded_mesh()
+    if mesh is None:
+        return None
+    layout = moe_layout(cfg, mesh)
+    return (mesh, layout) if layout.sharded else None
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg, seq=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss).  Under a running mesh whose
+    :func:`moe_layout` is sharded, x and the expert stacks are this rank's
+    blocks (module docstring).  With ``seq``
+    (:func:`~repro_torch.sharding.collectives.seq_mesh`) x and out are the
+    rank's chunks of the sequence: x is gathered once (only the chunk kept
+    for the backward: :func:`~repro_torch.sharding.collectives.enter_linear`)
+    for the expert-parallel router, the experts and a shared expert split
+    over ``model``, whose outputs are reduce-scattered; the shared expert's
+    sigmoid gate, and a shared expert held whole, run token by token on the
+    chunk, their weights' gradients (of the chunk's rows) summed over
+    ``model``."""
     B, S, D = x.shape
+    run = sharded_layout(cfg)
+    shared = p.get("shared")
     mesh = model_mesh()
-    if mesh is not None:
-        out, aux = _apply_sharded(p, x, cfg, mesh)
+    # split in the storage layout, whole in local_expert_params' (module
+    # docstring)
+    split = shared is not None and mesh is not None and \
+        shared["w_up"].shape[-1] < cfg.shared_expert_ff
+    xin, logits, h = x, None, []
+    if seq is not None:
+        # the weights-stationary branch routes the data group's tokens
+        router = [] if run[1].stationary else [_to_model(p["router"], mesh).to(f32)]
+        xin, *h = enter_linear(x, mesh, seq, router + (mlp_in(shared, x.dtype) if split else []))
+        logits = h.pop(0) if router else None
+    if run is not None:
+        out, aux = _apply_sharded(p, xin, cfg, *run, seq=seq, logits=logits)
     else:
         C = capacity_for(B * S, cfg.experts_padded, cfg.top_k, cfg.capacity_factor)
         out, aux = _routed_local(x.reshape(B * S, D), p, cfg, C)
         out = out.reshape(B, S, D)
-    if "shared" in p:
-        sp = p["shared"]
-        # split in the storage layout, whole in local_expert_params' (module
-        # docstring)
-        split = mesh is not None and sp["w_up"].shape[-1] < cfg.shared_expert_ff
-        sh = apply_mlp(sp, x, cfg.act, mesh=mesh if split else None)
-        sgate = torch.sigmoid(x @ sp["gate_proj"].to(x.dtype))
+    if shared is not None:
+        if seq is not None and split:
+            sh = scatter_seq(mlp_out(shared, h, cfg.act), seq, summed=True)
+            gate = copy_to_model(shared["gate_proj"], seq)
+        else:
+            held = shared if seq is None else {k: copy_to_model(w, seq) for k, w in shared.items()}
+            sh = apply_mlp(held, x, cfg.act, mesh=mesh if split else None)
+            gate = held["gate_proj"]
+        sgate = torch.sigmoid(x @ gate.to(x.dtype))
         out = out + sgate * sh
     return out, aux

@@ -85,40 +85,40 @@ def _gates(p: Params, u: torch.Tensor, mesh):
     return log_a, x_in
 
 
-def _branches(p: Params, x: torch.Tensor, mesh):
-    """The recurrent branch before its conv, and the GeLU branch."""
+def _branches(p: Params, x: torch.Tensor, mesh, seq=None):
+    """The recurrent branch before its conv, and the GeLU branch (with
+    ``seq``, of the sequence gathered from the ranks' chunks)."""
     dt = x.dtype
-    if mesh is not None:
-        x = C.copy_to_model(x, mesh)
-    u = x @ p["in_x"].to(dt)
-    g = F.gelu(x @ p["in_gate"].to(dt), approximate="tanh")
-    return u, g
+    _, u, g = C.enter_linear(x, mesh, seq, [p["in_x"].to(dt), p["in_gate"].to(dt)])
+    return u, F.gelu(g, approximate="tanh")
 
 
-def _out(p: Params, h: torch.Tensor, g: torch.Tensor, mesh) -> torch.Tensor:
+def _out(p: Params, h: torch.Tensor, g: torch.Tensor, mesh, seq=None) -> torch.Tensor:
     out = (h.to(g.dtype) * g) @ p["out_proj"].to(g.dtype)
-    return out if mesh is None else C.reduce_from_model(out, mesh, "lru_out")
+    return C.leave_model(out, mesh, "lru_out", seq)
 
 
-def _forward(p: Params, x: torch.Tensor, cfg):
+def _forward(p: Params, x: torch.Tensor, cfg, seq=None):
     """Full-sequence pass -> (out, the branch before its conv, ys).
 
     Under ``cfg.use_pallas`` the recurrence runs the :func:`rg_lru` wrapper
     (the kernel on the card), else the plain loop, as the reference's
     ``lax.scan``.  Under :func:`lru_mesh` on the rank's channels (module
-    docstring)."""
+    docstring); with ``seq`` x and the output are the rank's chunks of the
+    sequence (:func:`~repro_torch.sharding.collectives.enter_linear`)."""
     dt = x.dtype
     mesh = lru_mesh(cfg)
-    u_raw, g = _branches(p, x, mesh)
+    u_raw, g = _branches(p, x, mesh, seq)
     u = causal_conv(u_raw, p["conv_w"].to(dt), p["conv_b"].to(dt))
     log_a, x_in = _gates(p, u, mesh)
     ys = rg_lru(log_a, x_in) if cfg.use_pallas else rg_lru_ref(log_a, x_in)
-    return _out(p, ys, g, mesh), u_raw, ys
+    return _out(p, ys, g, mesh, seq), u_raw, ys
 
 
-def apply_rglru(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence path.  x: (B, S, D)."""
-    return _forward(p, x, cfg)[0]
+def apply_rglru(p: Params, x: torch.Tensor, cfg, seq=None) -> torch.Tensor:
+    """Full-sequence path.  x: (B, S, D), or with ``seq`` the rank's chunk
+    of it."""
+    return _forward(p, x, cfg, seq)[0]
 
 
 def init_rglru_cache(batch: int, cfg, dtype, device) -> Params:
@@ -153,7 +153,7 @@ def apply_rglru_step(p: Params, x: torch.Tensor, cache: Params, cfg):
     return out, cache
 
 
-def rglru_prefill_cache(p: Params, x: torch.Tensor, cfg, dtype):
+def rglru_prefill_cache(p: Params, x: torch.Tensor, cfg, dtype, seq=None):
     """Full-sequence pass that also emits the decode cache.
 
     The reference always runs its own ``lax.scan`` a second time here and
@@ -162,7 +162,7 @@ def rglru_prefill_cache(p: Params, x: torch.Tensor, cfg, dtype):
     recurrence starts from ``h0 = 0`` — and on the card a Python loop of S
     steps in every recurrent layer would dwarf the rest of the prefill.
     """
-    out, u_raw, ys = _forward(p, x, cfg)
+    out, u_raw, ys = _forward(p, x, cfg, seq)
     K = cfg.ssm_conv
     # copies, not views: a view would keep the whole (B, S, W) tensor alive
     return out, {"conv": u_raw[:, -(K - 1):, :].to(dtype).clone(), "h": ys[:, -1].clone()}

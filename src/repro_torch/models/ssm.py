@@ -102,35 +102,38 @@ def _ssm_params(p: Params, u: torch.Tensor, cfg, mesh):
     return delta, A, Bm.to(f32), Cm.to(f32)
 
 
-def _forward(p: Params, x: torch.Tensor, cfg):
+def _forward(p: Params, x: torch.Tensor, cfg, seq=None):
     """Full-sequence pass -> (out, u before its conv, final state hT).
 
     Under ``cfg.use_pallas`` the scan runs the :func:`selective_scan` wrapper
     (the kernel on the card), else the plain loop; both leave the skip term
     ``u * d_skip`` to the caller, as the reference's kernel does.  Under
-    :func:`ssm_mesh` on the rank's channels (module docstring)."""
+    :func:`ssm_mesh` on the rank's channels (module docstring); with
+    ``seq`` x and the output are the rank's chunks of the sequence
+    (:func:`~repro_torch.sharding.collectives.enter_linear`), the rest runs on
+    the whole of it."""
     dt = x.dtype
     mesh = ssm_mesh(cfg)
-    if mesh is not None:
-        x = C.copy_to_model(x, mesh)
-    u_raw, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
+    _, xz = C.enter_linear(x, mesh, seq, [p["in_proj"].to(dt)])
+    u_raw, z = torch.chunk(xz, 2, dim=-1)
     u = F.silu(causal_conv(u_raw, p["conv_w"].to(dt), p["conv_b"].to(dt)))
     delta, A, Bm, Cm = _ssm_params(p, u, cfg, mesh)
     scan = selective_scan if cfg.use_pallas else selective_scan_ref
     y, hT = scan(u, delta, A, Bm, Cm)
     y = y + u.to(f32) * p["d_skip"][None, None, :]
-    return _out(p, y, z, mesh), u_raw, hT
+    return _out(p, y, z, mesh, seq), u_raw, hT
 
 
-def _out(p: Params, y: torch.Tensor, z: torch.Tensor, mesh) -> torch.Tensor:
+def _out(p: Params, y: torch.Tensor, z: torch.Tensor, mesh, seq=None) -> torch.Tensor:
     """The gated output projection, in z's dtype; with ``mesh`` row-parallel."""
     out = (y.to(z.dtype) * F.silu(z)) @ p["out_proj"].to(z.dtype)
-    return out if mesh is None else C.reduce_from_model(out, mesh, "ssm_out")
+    return C.leave_model(out, mesh, "ssm_out", seq)
 
 
-def apply_ssm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence (train / prefill) path.  x: (B, S, D)."""
-    return _forward(p, x, cfg)[0]
+def apply_ssm(p: Params, x: torch.Tensor, cfg, seq=None) -> torch.Tensor:
+    """Full-sequence (train / prefill) path.  x: (B, S, D), or with ``seq``
+    the rank's chunk of it."""
+    return _forward(p, x, cfg, seq)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +175,7 @@ def apply_ssm_step(p: Params, x: torch.Tensor, cache: Params, cfg):
     return out, cache
 
 
-def ssm_prefill_cache(p: Params, x: torch.Tensor, cfg, dtype):
+def ssm_prefill_cache(p: Params, x: torch.Tensor, cfg, dtype, seq=None):
     """Full-sequence pass that also emits the decode cache at position S.
 
     The reference runs its full-sequence path and then the plain scan a
@@ -181,7 +184,7 @@ def ssm_prefill_cache(p: Params, x: torch.Tensor, cfg, dtype):
     the plain loop) returns the final state with ``y``.  Under
     :func:`ssm_mesh` the cache holds the rank's channels.
     """
-    out, u_raw, hT = _forward(p, x, cfg)
+    out, u_raw, hT = _forward(p, x, cfg, seq)
     K = cfg.ssm_conv
     # a copy, not a view: a view would keep the whole (B, S, Di) branch alive
     return out, {"conv": u_raw[:, -(K - 1):, :].to(dtype).clone(), "h": hT}

@@ -36,7 +36,17 @@ need nothing more of their own: the
 attention, MLP, MoE, Mamba and RG-LRU layers shard themselves (their params
 are the rank's blocks), each ends in an all-reduce over ``model``, and so
 the norms (replicated), the residual stream and the local / global windows
-see the whole ``(B, S, D)`` activations on every rank.  A decode cache
+see the whole ``(B, S, D)`` activations on every rank.  With
+``cfg.sequence_parallel`` (Megatron sequence parallelism, the reference's
+``seq_sp`` rule in its ``apply_block``; training and prefill, where
+``model`` divides the sequence:
+:func:`~repro_torch.sharding.collectives.seq_mesh`) the residual stream
+is the rank's ``(B, S / model, D)`` chunk instead: the norms and the
+residual adds run on the chunk (each norm's gradient summed over
+``model``), every mixer, MLP and MoE gathers its input over ``model`` and
+reduce-scatters its output back to the chunks, and the local / global
+windows see the whole gathered sequence.  A decode step (S = 1) runs as
+without it.  A decode cache
 holds the rank's kv heads, or the rank's channels of a Mamba or RG-LRU
 layer's conv window and state.  Whether the Mamba and RG-LRU layers run
 sharded is the storage layout's one decision
@@ -115,9 +125,22 @@ def init_block(gen, layer_type: str, cfg, device) -> Params:
     return p
 
 
-def _mlp_residual(p: Params, x, pre, h, cfg):
+def _norms_on_chunk(p: Params, seq) -> Params:
+    """A block's params with its norms' leaves passed through
+    :func:`~repro_torch.sharding.collectives.copy_to_model` under ``seq``:
+    a norm that runs on the rank's chunk of the sequence gives its scale a
+    gradient of that chunk's rows alone, summed over ``model`` in the
+    backward (one all-reduce of the leaf)."""
+    if seq is None:
+        return p
+    return {k: (tree_map(lambda w: C.copy_to_model(w, seq), v) if k.endswith("norm") else v)
+            for k, v in p.items()}
+
+
+def _mlp_residual(p: Params, x, pre, h, cfg, seq=None):
     """The block's second half: post-norm of the mixer output, residual, MLP
-    (or MoE) -> (x, the MoE's aux loss or None)."""
+    (or MoE) -> (x, the MoE's aux loss or None); with ``seq`` on the
+    rank's chunk of the sequence."""
     if cfg.use_post_norms:
         h = _norm(cfg, p["post_norm"], h)
     if cfg.parallel_residual:
@@ -127,9 +150,9 @@ def _mlp_residual(p: Params, x, pre, h, cfg):
         m_in = _norm(cfg, p["mlp_pre_norm"], x)
     aux = None
     if cfg.num_experts:
-        m, aux = MOE.apply_moe(p["moe"], m_in, cfg)
+        m, aux = MOE.apply_moe(p["moe"], m_in, cfg, seq)
     else:
-        m = apply_mlp(p["mlp"], m_in, cfg.act, mesh=mlp_mesh(cfg))
+        m = apply_mlp(p["mlp"], m_in, cfg.act, mesh=mlp_mesh(cfg), seq=seq)
     if cfg.use_post_norms:
         m = _norm(cfg, p["mlp_post_norm"], m)
     return ((x + h + m) if cfg.parallel_residual else (x + m)), aux
@@ -137,17 +160,22 @@ def _mlp_residual(p: Params, x, pre, h, cfg):
 
 def apply_block(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg):
     """Full-sequence (train / prefill) path of one pre-norm residual block ->
-    (x, aux): the MoE's load-balance loss, None for a block without experts."""
+    (x, aux): the MoE's load-balance loss, None for a block without experts.
+    Under :func:`~repro_torch.sharding.collectives.seq_mesh` of the
+    sequence ``io`` describes, x and the output are the rank's chunk of it
+    (module docstring)."""
     _check_supported(layer_type, cfg)
+    seq = C.seq_mesh(cfg, io.positions.shape[1])
+    p = _norms_on_chunk(p, seq)
     pre = _norm(cfg, p["pre_norm"], x)
     if layer_type == "ssm":
-        return x + S.apply_ssm(p["ssm"], pre, cfg), None
+        return x + S.apply_ssm(p["ssm"], pre, cfg, seq), None
     if layer_type == "recurrent":
-        h = R.apply_rglru(p["rglru"], pre, cfg)
+        h = R.apply_rglru(p["rglru"], pre, cfg, seq)
     else:
         h = A.attention_layer(p["attn"], pre, io, cfg, window=_window_for(layer_type, cfg),
-                              use_rope=cfg.use_rope)
-    return _mlp_residual(p, x, pre, h, cfg)
+                              use_rope=cfg.use_rope, seq=seq)
+    return _mlp_residual(p, x, pre, h, cfg, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -220,19 +248,21 @@ def prefill_block_cache(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO
     are the same values.
     """
     _check_supported(layer_type, cfg)
+    seq = C.seq_mesh(cfg, io.positions.shape[1])
     pre = _norm(cfg, p["pre_norm"], x)
     if layer_type == "ssm":
-        h, cache = S.ssm_prefill_cache(p["ssm"], pre, cfg, cache_dtype)
+        h, cache = S.ssm_prefill_cache(p["ssm"], pre, cfg, cache_dtype, seq)
         return x + h, cache
     if layer_type == "recurrent":
-        h, cache = R.rglru_prefill_cache(p["rglru"], pre, cfg, cache_dtype)
+        h, cache = R.rglru_prefill_cache(p["rglru"], pre, cfg, cache_dtype, seq)
     else:
         h, k, v = A.attention_layer_kv(p["attn"], pre, io, cfg,
-                                       window=_window_for(layer_type, cfg), use_rope=cfg.use_rope)
+                                       window=_window_for(layer_type, cfg), use_rope=cfg.use_rope,
+                                       seq=seq)
         ring = layer_type == "local"
         cap = min(cfg.window_size, capacity) if ring else capacity
         cache = A.fill_cache_from_prefill(k.to(cache_dtype), v.to(cache_dtype), cap, ring)
-    return _mlp_residual(p, x, pre, h, cfg)[0], cache
+    return _mlp_residual(p, x, pre, h, cfg, seq)[0], cache
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,20 @@ whole raises there instead of running whole on every rank.
   over the batch axes (``dist.reduce_scatter_tensor``), so the gradient
   arrives as the rank's block, already summed over ``data``.
 
+* :func:`seq_mesh`, :func:`gather_seq`, :func:`scatter_seq`: Megatron
+  sequence parallelism (``cfg.sequence_parallel``, the reference's
+  ``seq_sp`` rule).  Between the blocks the residual stream is the rank's
+  chunk of the sequence; :func:`enter_linear` gathers a layer's input over
+  ``model`` along the sequence (``dist.all_gather_into_tensor``; the
+  backward reduce-scatters the cotangent, or takes the rank's chunk of it
+  for a layer held whole) and, as Megatron does, keeps only the chunk for
+  the backward, which gathers it again for the weights' gradients (the
+  column-parallel products are computed in the same autograd function);
+  :func:`leave_model` reduce-scatters its
+  row-parallel output to the chunks (``dist.reduce_scatter_tensor``, in
+  place of :func:`reduce_from_model`'s all-reduce; the backward gathers the
+  chunks' cotangents).
+
 The expert-parallel MoE's general form, :func:`_sum_over` (a sum over one
 group whose backward sums over another), lives here too.
 
@@ -86,6 +100,11 @@ __all__ = [
     "gather_over_model",
     "sum_over_data",
     "gather_weights",
+    "seq_mesh",
+    "gather_seq",
+    "scatter_seq",
+    "enter_linear",
+    "leave_model",
     "data_layout",
     "sum_grads_over_data",
     "scale_grad",
@@ -106,12 +125,16 @@ __all__ = [
 # loss), "grad" (the gradient of the leaves replicated over data); the
 # FSDP ones: "fsdp_gather" (a weight gathered over data, the bytes of the
 # gathered leaf) and "fsdp_grad" (its gradient reduce-scattered, the same
-# bytes); "norm" (the clip link's squared norm); and "backward", every
-# other all-reduce of a backward pass.
+# bytes); "norm" (the clip link's squared norm); "backward", every
+# other all-reduce of a backward pass; and the sequence-parallel ones (bytes
+# handed to all-gather and to reduce-scatter, not to all-reduce, in the
+# forward and the backward alike): "sp_gather" (a chunked sequence gathered
+# over model, the bytes of the gathered buffer) and "sp_scatter" (a
+# sequence reduce-scattered to the chunks, the bytes of the whole buffer).
 COLLECTIVE_BYTES = {k: 0 for k in ("combine", "gather", "aux", "embed", "attn", "mlp", "logits",
                                    "argmax", "ssm_proj", "ssm_out", "lru_gather", "lru_out",
                                    "loss", "grad", "fsdp_gather", "fsdp_grad", "norm",
-                                   "backward")}
+                                   "backward", "sp_gather", "sp_scatter")}
 
 
 def reset_collective_bytes() -> None:
@@ -432,6 +455,183 @@ class _GatherOverData(torch.autograd.Function):
         COLLECTIVE_BYTES["fsdp_grad"] += g.numel() * g.element_size()
         dist.reduce_scatter_tensor(out, g, group=mesh.group(axes))
         return out.movedim(0, dim), None, None
+
+
+# ---------------------------------------------------------------------------
+# Megatron sequence parallelism over `model`
+# ---------------------------------------------------------------------------
+
+def seq_mesh(cfg, seq: int):
+    """:func:`model_mesh` when ``cfg.sequence_parallel`` holds the residual
+    stream of a ``seq``-long sequence as the rank's ``seq / model`` chunk
+    between the blocks (the reference's ``seq_sp`` rule), else None: with
+    one ``model`` process, or where ``model`` does not divide ``seq`` (a
+    decode step's 1 among them), the residual stays whole."""
+    mesh = model_mesh()
+    if not cfg.sequence_parallel or mesh is None or seq % mesh.shape["model"]:
+        return None
+    return mesh
+
+
+def _seq_gather(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The ranks' chunks of dim 1, side by side in ``model`` order (every
+    bit as the ranks hold them)."""
+    import torch.distributed as dist
+
+    n = mesh.shape["model"]
+    part = t.movedim(1, 0).contiguous()
+    out = torch.empty((n * part.shape[0],) + tuple(part.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    COLLECTIVE_BYTES["sp_gather"] += out.numel() * out.element_size()
+    dist.all_gather_into_tensor(out, part, group=mesh.group("model"))
+    return out.movedim(0, 1)
+
+
+def _seq_scatter(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's chunk of dim 1 of the sum over ``model``."""
+    import torch.distributed as dist
+
+    n = mesh.shape["model"]
+    whole = t.movedim(1, 0).contiguous()
+    out = torch.empty((whole.shape[0] // n,) + tuple(whole.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    COLLECTIVE_BYTES["sp_scatter"] += whole.numel() * whole.element_size()
+    dist.reduce_scatter_tensor(out, whole, group=mesh.group("model"))
+    return out.movedim(0, 1)
+
+
+def _seq_chunk(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's chunk of dim 1 (no communication)."""
+    n = t.shape[1] // mesh.shape["model"]
+    return t.narrow(1, mesh.index("model") * n, n)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The chunks of the sequence gathered over ``model``; the backward
+    reduce-scatters the cotangent (``summed``: the layer after the gather
+    is split over ``model``, each rank's cotangent a partial sum) or takes
+    the rank's chunk of it (the layer runs whole on every rank, whose
+    cotangents are the same)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, summed):
+        ctx.mesh, ctx.summed = mesh, summed
+        return _seq_gather(t, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            return _seq_scatter(g, ctx.mesh), None, None
+        return _seq_chunk(g, ctx.mesh), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """The rank's chunk of the sequence of a sum over ``model`` (``summed``:
+    the row-parallel output) or of a tensor every rank holds whole; the
+    backward gathers the chunks' cotangents over ``model``."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, summed):
+        ctx.mesh = mesh
+        if summed:
+            return _seq_scatter(t, mesh)
+        return _seq_chunk(t, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_gather(g, ctx.mesh), None, None
+
+
+def gather_seq(t: torch.Tensor, mesh, *, summed: bool) -> torch.Tensor:
+    """``(B, S / model, ...)`` -> ``(B, S, ...)``: the sequence gathered over
+    ``model`` (:class:`_GatherSeq`); the identity with no ``mesh``."""
+    if mesh is None:
+        return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GatherSeq.apply(t, mesh, summed)
+    return _seq_gather(t, mesh)
+
+
+def scatter_seq(t: torch.Tensor, mesh, *, summed: bool) -> torch.Tensor:
+    """``(B, S, ...)`` -> the rank's ``(B, S / model, ...)`` chunk: of the
+    sum over ``model`` (a reduce-scatter) when ``summed``, else of ``t``
+    itself (:class:`_ScatterSeq`); the identity with no ``mesh``."""
+    if mesh is None:
+        return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ScatterSeq.apply(t, mesh, summed)
+    return _seq_scatter(t, mesh) if summed else _seq_chunk(t, mesh)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., D) against a column-parallel weight: ``x @ w`` for a
+    (D, F) matrix, the heads' product for a (D, N, H) stack."""
+    return x @ w if w.dim() == 2 else torch.einsum("bsd,dnh->bsnh", x, w)
+
+
+class _GatherLinear(torch.autograd.Function):
+    """Megatron's sequence-parallel column-parallel input: the chunks of
+    the sequence gathered over ``model`` and projected by each weight
+    (:func:`_proj`, in the weight's dtype) -> (the gathered input, *the
+    products).  Only the chunk is kept for the backward, which gathers it
+    again for the weights' gradients; the input's cotangent (the gathered
+    input's and each product's) is reduce-scattered (``summed``) or cut to
+    the rank's chunk (a layer held whole), as :class:`_GatherSeq`'s."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, summed, *ws):
+        ctx.mesh, ctx.summed = mesh, summed
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(t, *ws)
+        xg = _seq_gather(t, mesh)
+        return (xg,) + tuple(_proj(xg.to(w.dtype), w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, g_x, *g_out):
+        t, *ws = ctx.saved_tensors
+        xg = _seq_gather(t, ctx.mesh)
+        dx, dws = g_x, []
+        for w, g in zip(ws, g_out):
+            if g is None:
+                dws.append(None)
+                continue
+            w2 = w.reshape(w.shape[0], -1)
+            g2 = g.reshape(-1, w2.shape[1])
+            dws.append((xg.reshape(-1, w2.shape[0]).to(w.dtype).t() @ g2).reshape(w.shape))
+            d = (g2 @ w2.t()).reshape(xg.shape).to(xg.dtype)
+            dx = d if dx is None else dx + d
+        dx = _seq_scatter(dx, ctx.mesh) if ctx.summed else _seq_chunk(dx, ctx.mesh)
+        return (dx, None, None) + tuple(dws)
+
+
+def enter_linear(t: torch.Tensor, mesh, seq, ws=()) -> tuple:
+    """A layer's input and its column-parallel products -> ``(input,
+    *[input @ w for w in ws])`` (:func:`_proj`, each in ``w``'s dtype).
+    With ``seq`` (:func:`seq_mesh`; ``t`` is the rank's chunk of the
+    sequence) the input is gathered over ``model``, its cotangent
+    reduce-scattered when ``mesh`` splits the layer (else cut to the
+    chunk), and under autograd only the chunk is kept for the backward,
+    which gathers it again (:class:`_GatherLinear`); else with ``mesh``
+    (the layer split over ``model``) the input is the column-parallel
+    :func:`copy_to_model`, else ``t``."""
+    if seq is not None and ws and torch.is_grad_enabled() and (
+            t.requires_grad or any(w.requires_grad for w in ws)):
+        return _GatherLinear.apply(t, seq, mesh is not None, *ws)
+    if seq is not None:
+        x = gather_seq(t, seq, summed=mesh is not None)
+    else:
+        x = t if mesh is None else copy_to_model(t, mesh)
+    return (x,) + tuple(_proj(x.to(w.dtype), w) for w in ws)
+
+
+def leave_model(t: torch.Tensor, mesh, what: str, seq) -> torch.Tensor:
+    """A layer's output: with ``seq`` the rank's chunk of the sequence (of
+    the sum over ``model`` when ``mesh`` splits the layer, a reduce-scatter
+    in place of the all-reduce), else with ``mesh`` the row-parallel sum
+    (:func:`reduce_from_model`, counted under ``what``), else ``t``."""
+    if seq is not None:
+        return scatter_seq(t, seq, summed=mesh is not None)
+    return t if mesh is None else reduce_from_model(t, mesh, what)
 
 
 def gather_weights(tree, prefix: str, cfg):

@@ -63,8 +63,6 @@ __all__ = [
     "local_template",
     "localize",
     "check_local_params",
-    "tensor_parallel_unsupported",
-    "check_tensor_parallel",
     "P",
     "SPEC_OPTIONS",
 ]
@@ -571,25 +569,3 @@ def check_local_params(params: Any, cfg, mesh) -> None:
                 f"{path}: shape {tuple(t.shape)} under a {dict(mesh.shape)} layout, where the "
                 f"rank's block is {want[path]}: build the rank's blocks "
                 "(training.init_params or bridge.params_from_jax under the mesh)")
-
-
-def tensor_parallel_unsupported(cfg) -> str | None:
-    """Why the port cannot shard ``cfg`` over ``model``, or None when every
-    layer of it shards: the dense decoder (attention, dense MLP, embedding
-    and unembedding, norms), the MoE's experts, attention and shared
-    expert, the Mamba and RG-LRU layers (their inner width), whisper's
-    encoder and cross-attention, and a vision prefix.  Only the layouts of
-    ``sequence_parallel`` and ``shard_grads`` are not run."""
-    if cfg.sequence_parallel or cfg.shard_grads:
-        return "sequence_parallel / shard_grads"
-    return None
-
-
-def check_tensor_parallel(cfg) -> None:
-    """Raise for a config the port cannot shard over ``model``: it must not
-    run with its unsharded layers quietly replicated."""
-    why = tensor_parallel_unsupported(cfg)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over a `model` axis of more than one process does "
-            f"not cover {why} yet (ROADMAP Queue 1, item 4)")

@@ -262,7 +262,13 @@ def make_step(
     flat buffer), and the clip link's norm sums each leaf's square over the
     axes it is split over.  Every rank draws
     the same uniforms (the same seeded generator, or ``tau_source``), so
-    taus, tables and histograms agree everywhere.
+    taus, tables and histograms agree everywhere.  The weights-stationary
+    MoE's expert stacks (never gathered) get their whole gradient on each
+    rank from the token gather's and the combine's backward
+    (:mod:`repro_torch.models.moe`), and the step is one process's on the
+    global batch.  ``cfg.shard_grads`` (the reference's pin of the
+    gradients to the params' sharding) changes nothing: the gradients
+    already come out in each weight's storage layout.
     """
     assert mode in MODES, f"mode must be one of {MODES}, got {mode!r}"
     assert isinstance(pipeline, T.GradientTransform), "make_step needs a GradientTransform"
@@ -285,9 +291,6 @@ def make_step(
     tp = C.sharded_mesh() if mode != "sharded_async" else None
     template = _template(cfg, tp)
     n_data = 1 if tp is None else C.data_size(tp)
-    if n_data > 1 and cfg.moe_weights_stationary:
-        raise NotImplementedError("data-parallel training of the weights-stationary MoE "
-                                  "(ROADMAP Queue 1, item 3)")
     split = tp is not None and any(C.data_layout(cfg, tp).axes)
     sq_norm = C.make_sq_norm(cfg, tp) if split else None
 

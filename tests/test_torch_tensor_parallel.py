@@ -40,11 +40,11 @@ Bounds, each with its reason:
 * the bytes every rank handed to all-reduce (``COLLECTIVE_BYTES``) equal
   ``launch.analysis.port_collective_bytes`` exactly, for the gradient step
   and for the serve (prefill + 8 decode steps);
-* under model 2 a ``sequence_parallel`` config (whose layout the port does
-  not run) raises at build time, reduced falcon-mamba-7b builds its blocks
-  (``in_proj`` as the rank's ``[u_r | z_r]``, half the whole leaf's
-  columns), and a ``CheckpointHook`` of the sharded state saves and
-  resumes it.
+* under model 2 reduced falcon-mamba-7b builds its blocks (``in_proj`` as
+  the rank's ``[u_r | z_r]``, half the whole leaf's columns), the same
+  with ``sequence_parallel`` (a layout of the activations alone,
+  ``tests/test_torch_sequence_parallel.py``), and a ``CheckpointHook`` of
+  the sharded state saves and resumes it.
 """
 
 import dataclasses
@@ -199,10 +199,9 @@ _WORKER = textwrap.dedent('''
                 ssm = reduced(get_config("falcon-mamba-7b"), d_model=64)
                 out["ssm_in_proj"] = np.array(
                     init_params(0, ssm, "cpu")["stack"]["pos0"]["ssm"]["in_proj"].shape)
-                try:
-                    init_params(0, dataclasses.replace(ssm, sequence_parallel=True), "cpu")
-                except NotImplementedError as e:
-                    out["ssm_error"] = str(e)
+                out["ssm_sp_in_proj"] = np.array(init_params(
+                    0, dataclasses.replace(ssm, sequence_parallel=True),
+                    "cpu")["stack"]["pos0"]["ssm"]["in_proj"].shape)
                 whole = run(clip_spec(cfg, local),
                             hooks=[CheckpointHook(f"{tmp}/ckpt", every=1)]).state
                 resumed = run(clip_spec(cfg, local), resume_from=f"{tmp}/ckpt",
@@ -456,14 +455,15 @@ def test_remat_recomputes_every_forward_all_reduce(runs, name):
 
 
 def test_unsharded_layouts_raise_and_sharded_checkpoints_resume(runs):
-    """A layout the port does not run (``sequence_parallel``) raises; the
-    Mamba layer, which the port shards, builds the rank's blocks; a
-    ``CheckpointHook`` of the sharded clip run saves the one-process
-    ``(N,)`` params, and a resume from step 1 ends bit for bit where the
-    run that was not interrupted did."""
+    """The Mamba layer, which the port shards, builds the rank's blocks,
+    the same under ``sequence_parallel``, which no longer raises (it lays
+    out the activations, not the params); a ``CheckpointHook`` of the
+    sharded clip run saves the one-process ``(N,)`` params, and a resume
+    from step 1 ends bit for bit where the run that was not interrupted
+    did."""
     r = runs["ranks"]["1x2"][0]
-    assert "sequence_parallel" in str(r["ssm_error"]) and "ROADMAP" in str(r["ssm_error"])
     assert tuple(r["ssm_in_proj"]) == (2, 64, 2 * 128 // 2)  # 2 layers, d 64, [u_r | z_r]
+    assert tuple(r["ssm_sp_in_proj"]) == tuple(r["ssm_in_proj"])
     n = sum(int(np.prod(s)) for s, _ in tree_leaves(param_template(config("mha"))))
     for r in runs["ranks"]["1x2"]:
         assert tuple(r["ckpt_params_shape"]) == (n,)

@@ -4,9 +4,10 @@ registered arch.
 ``repro_torch.launch.dryrun --cards 4`` (data 1 x model 4): a stablelm-1.6b
 record's and a falcon-mamba-7b record's ``layout`` reads as the port's and
 the collective term is ``port_collective_bytes`` (the all-reduces a port
-rank runs, no FSDP all-gather at data 1); only a ``sequence_parallel`` /
-``shard_grads`` config, whose layout the port does not run, raises, in the
-port and in the planner.  On ``--small_mesh`` (data 2 x model 2) a
+rank runs, no FSDP all-gather at data 1); a ``sequence_parallel`` config
+plans its gathers and reduce-scatters over ``model`` in place of the
+all-reduces they replace, with the params of the layout without it.  On
+``--small_mesh`` (data 2 x model 2) a
 stablelm-1.6b rank holds its FSDP block over ``data`` of a ``--cards 2``
 rank's params, and with ``--repl_params`` (every weight whole over
 ``data``) the params of a ``--cards 2`` rank.
@@ -22,11 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.analysis import port_collective_bytes
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.sharding.specs import (
-    check_tensor_parallel,
-    local_template,
-    tensor_parallel_unsupported,
-)
+from repro_torch.sharding.specs import local_template
 from repro_torch.training.steps import param_template
 from repro_torch.tree import tree_leaves
 from torch_tp_common import REPL, layout_of
@@ -83,9 +80,11 @@ _LAYER_LEAVES = {"SSM": ("stack/pos0/ssm/in_proj", True),
                                       ("internvl2-2b", "vision"),
                                       ("stablelm-1.6b", "sequence_parallel")])
 def test_which_archs_the_port_shards(arch, why):
-    """Every registered arch shards; ``why`` names the layer of the arch the
-    port shards since its later slice, whose leaf a model-2 rank then holds
-    as its block.  A ``sequence_parallel`` config raises."""
+    """Every registered arch shards: a model-2 rank holds blocks of its
+    params.  ``why`` names the layer of the arch the port shards since its
+    later slice, whose leaf a model-2 rank then holds as its block.  A
+    ``sequence_parallel`` config shards as the config without it: the
+    layout is the activations', not the params'."""
     from repro_torch.training.steps import param_template
     from repro_torch.tree import tree_paths
 
@@ -93,14 +92,12 @@ def test_which_archs_the_port_shards(arch, why):
         return {"/".join(p): tuple(s) for p, (s, _) in tree_paths(template)}
 
     cfg = get_config(arch)
+    two = make_mesh((1, 2), ("data", "model"))
     if why == "sequence_parallel":
-        cfg = dataclasses.replace(cfg, sequence_parallel=True)
-        assert "sequence_parallel" in tensor_parallel_unsupported(cfg)
-        with pytest.raises(NotImplementedError, match="sequence_parallel"):
-            check_tensor_parallel(cfg)
+        sp = dataclasses.replace(cfg, sequence_parallel=True)
+        assert shapes(local_template(sp, two)) == shapes(local_template(cfg, two))
         return
-    assert tensor_parallel_unsupported(cfg) is None
-    check_tensor_parallel(cfg)
+    assert shapes(local_template(cfg, two)) != shapes(param_template(cfg))
     if why is not None:
         path, split = _LAYER_LEAVES[why]
         whole = shapes(param_template(cfg))[path]
@@ -108,23 +105,38 @@ def test_which_archs_the_port_shards(arch, why):
         assert (rank != whole) == split
 
 
-def test_the_planner_refuses_a_layout_the_port_does_not_run(monkeypatch):
-    """A ``sequence_parallel`` config raises on a multi-card layout, in the
-    record of an input shape and in ``plan_run``, before anything is
-    planned: the port raises on it at ``init_model``."""
+def test_the_planner_refuses_a_layout_the_port_does_not_run():
+    """The layouts it refused before the port ran them now plan: a
+    ``sequence_parallel`` config (``--set sequence_parallel=true``) in the
+    record of an input shape on 4 cards and on the small mesh, and in
+    ``plan_run``; its collective term is the port's count, the sequence
+    gathered and reduce-scattered over ``model`` and no ``attn`` / ``mlp``
+    all-reduce, a decode step as without it; its params those of the config
+    without it."""
     from repro_torch.configs import reduced
+    from repro_torch.optim import transform as T
     from repro_torch.run import RunSpec
 
-    sp = dataclasses.replace(get_config("stablelm-1.6b"), sequence_parallel=True)
-    monkeypatch.setattr(D, "get_config", lambda arch: sp)
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        D.dryrun_extrapolated("stablelm-1.6b", "decode_32k", cards=4)
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        D.dryrun_extrapolated("stablelm-1.6b", "decode_32k", small_mesh=True)
-    spec = RunSpec(cfg=reduced(sp, d_model=64), mode="sync", num_steps=1, batch_size=2,
+    sp = {"sequence_parallel": True}
+    base = D.dryrun_extrapolated("stablelm-1.6b", "prefill_32k", cards=4)
+    for kw in ({"cards": 4}, {"small_mesh": True}):
+        rec = D.dryrun_extrapolated("stablelm-1.6b", "prefill_32k", overrides=sp, **kw)
+        mesh = make_mesh((2, 2) if kw.get("small_mesh") else (1, 4), ("data", "model"))
+        want = port_collective_bytes(dataclasses.replace(get_config("stablelm-1.6b"), **sp),
+                                     "prefill", 32, 32_768, mesh)["counted"]
+        assert rec["status"] == "ok" and rec["collectives"]["counted"] == want
+        assert want["sp_gather"] > 0 and want["sp_scatter"] > 0
+        assert want["attn"] == want["mlp"] == 0
+    assert rec["memory"]["argument_bytes"] == D.dryrun_extrapolated(
+        "stablelm-1.6b", "prefill_32k", small_mesh=True)["memory"]["argument_bytes"]
+    assert base["collectives"]["counted"]["sp_gather"] == 0
+    dec = D.dryrun_extrapolated("stablelm-1.6b", "decode_32k", cards=4, overrides=sp)
+    assert dec["collectives"]["counted"]["sp_gather"] == 0
+    spec = RunSpec(cfg=dataclasses.replace(reduced(get_config("stablelm-1.6b"), d_model=64), **sp),
+                   pipeline=T.chain(T.scale(-0.05)), mode="sync", num_steps=1, batch_size=2,
                    seq_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        D.plan_run(spec, mesh=make_mesh((1, 2), ("data", "model")))
+    rec = D.plan_run(spec, mesh=make_mesh((1, 2), ("data", "model")))
+    assert rec["collectives"]["counted"]["sp_scatter"] > 0
 
 
 @pytest.mark.parametrize("name", ["2x2-repl", "2x2"])
@@ -180,3 +192,29 @@ def test_plan_run_on_a_layout_holds_the_rank_state():
     assert 0 < small < 4 * whole // 100
     assert rank["memory"]["argument_bytes"] == 6 * 4 * n + small
     assert rank["layout"].startswith("the port's layout")
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
+                                  "gemma2-27b", "codeqwen1.5-7b", "gemma3-27b",
+                                  "falcon-mamba-7b", "recurrentgemma-9b", "whisper-large-v3",
+                                  "internvl2-2b"])
+def test_every_arch_plans_with_set_flags(arch, tmp_path):
+    """``--small_mesh --set sequence_parallel=true --set
+    moe_weights_stationary=true`` (the reference's ``--set``) plans every
+    arch, its record naming the overrides and its collective term the
+    port's count under them."""
+    from repro_torch.configs import ASSIGNED_ARCHS
+
+    assert arch in ASSIGNED_ARCHS
+    sets = ["--set", "sequence_parallel=true", "--set", "moe_weights_stationary=true"]
+    assert D.main(["--arch", arch, "--shape", "prefill_32k", "--small_mesh", *sets,
+                   "--out", str(tmp_path)]) == 0
+    tag = f"{arch}_prefill_32k_small_moe_weights_stationary_sequence_parallel"
+    rec = json.load(open(tmp_path / (tag.replace(".", "_") + ".json")))
+    flags = {"sequence_parallel": True, "moe_weights_stationary": True}
+    assert rec["status"] == "ok" and rec["overrides"] == flags
+    cfg = dataclasses.replace(get_config(arch), use_pallas=True, **flags)
+    want = port_collective_bytes(cfg, "prefill", 32, 32_768, make_mesh((2, 2), ("data", "model")))
+    assert rec["collectives"]["counted"] == want["counted"]
+    assert (want["counted"]["sp_gather"] > 0) == (not cfg.is_encoder_decoder)
+    assert (want["counted"]["gather"] > 0) == bool(cfg.num_experts)

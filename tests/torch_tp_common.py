@@ -294,3 +294,32 @@ def whole_over_data(t, cfg, mesh):
 
     runs = C.data_layout(cfg, mesh).whole_runs()
     return torch.cat([t[..., a:a + n] for a, n in runs], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism (tests/test_torch_sequence_parallel.py and its
+# spawned ranks)
+# ---------------------------------------------------------------------------
+
+SP_GEN = 4
+# The MoE cases of the sequence-parallel tests: reduced, with
+# ``router_aux_coef`` 0.5 as ``tests/test_torch_tp_moe.py``'s; expert-parallel
+# qwen2-moe-a2.7b, the same with a shared expert of 129 (its d_ff does not
+# split over model, so it is held whole), and qwen3-moe-235b-a22b (no shared
+# expert).
+SP_MOE = {"moe": ("qwen2-moe-a2.7b", {}),
+          "moe-whole-shared": ("qwen2-moe-a2.7b", {"shared_expert_ff": 129}),
+          "qwen3-moe": ("qwen3-moe-235b-a22b", {})}
+
+
+def sp_config(case, reduce=reduced, get=get_config):
+    """A case of the sequence-parallel tests: ``dense`` (:func:`config`'s
+    stablelm-1.6b), an MoE of :data:`SP_MOE` or an arch of :data:`ARCHS`
+    (:func:`arch_config`); ``reduce`` / ``get`` of the reference give its
+    twin."""
+    if case == "dense":
+        return reduce(get("stablelm-1.6b"), d_model=64)
+    if case in SP_MOE:
+        arch, upd = SP_MOE[case]
+        return dataclasses.replace(reduce(get(arch)), router_aux_coef=0.5, **upd)
+    return arch_config(case, reduce, get)
