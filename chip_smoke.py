@@ -270,7 +270,18 @@ Phases, each fatal on failure (each one's seconds printed as it ends, as
    vocab of 92,553 is odd, so its logits are whole on every rank).  Gates:
    logits within 1e-4 + 1e-4 |one process| (the rank's vocab block), ids
    equal, each rank's launches as listed and the one process's 0,
-   all-reduce bytes equal to ``port_collective_bytes``.  Then falcon-mamba-7b at full width,
+   all-reduce bytes equal to ``port_collective_bytes``.  Then the same
+   ranks serve recurrentgemma-9b (6 layers) again at batch 4, prompt 4096,
+   8 steps, without and then with the reference's ``seq_shard_cache``
+   decode layout (``SPEC_OPTIONS["seq_shard_cache"]``): its one kv head
+   does not split over model, so each local layer's ring of 2048 slots
+   does, 1024 a rank (every kv head), the query heads gathered over model
+   each step and each rank's partial softmax combined (``kv_gather`` /
+   ``kv_combine``); against one process on the plain versions, each with
+   the same gates (2 flash and 4 RG-LRU launches a serve), and every leaf
+   of each rank's decode cache of the shape the reference's
+   ``cache_spec_for`` gives it; prints each rank's k / v bytes, peak and
+   decode ms a step without and with.  Then falcon-mamba-7b at full width,
    depth 4 of 64: phase 3's run for 3 ticks (gates: 3 ``fused_tick``
    launches a rank and no other adaptive_update kernel, losses, taus,
    tables and histograms bitwise equal across ranks, state bytes equal to
@@ -330,7 +341,15 @@ Phases, each fatal on failure (each one's seconds printed as it ends, as
    equal to the plan.  (c) Depth 2 in f32 served on the flash kernel
    (batch 4, prompt 512, 4 greedy steps; each rank its 2 rows): 2 flash
    launches a rank, ids equal to one process's, logits within 1e-4 +
-   1e-4 |one process|, bytes equal to the plan.  Writes no checkpoint.
+   1e-4 |one process|, bytes equal to the plan.  (d) gemma2-27b at full
+   width and 2 of 46 layers (one local layer, window 4096, and one
+   global), f32, softcap 50, on the flash kernel, batch 1, prompt 8192, 8
+   steps, in the serving layout (params replicated over data: FSDP's
+   gathers would move its 9.25 GB through gloo every step), without and
+   then with ``seq_shard_cache``: batch 1 leaves the data axis idle, so
+   each cache's capacity splits over data (the global cache 4100 of 8200
+   positions a rank, the local ring 2048 of 4096); the gates of phase
+   15's serve, 2 flash launches a serve.  Writes no checkpoint.
    ``--fsdp`` builds the adaptive_update and flash kernels and runs phase
    17 alone, printing its row and the card, and no result line.
 
@@ -347,6 +366,7 @@ and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2189,18 +2209,38 @@ def bytes_by_key(saved) -> dict:
     return json.loads(str(saved))
 
 
-def serve_plan(cfg, batch, prompt, gen, shape) -> dict:
+def serve_plan(cfg, batch, prompt, gen, shape, **options) -> dict:
     """The all-reduce bytes a rank of the ``shape`` (data, model) layout
     hands over in one serve (a prefill and ``gen`` greedy steps), by
-    purpose: ``launch.analysis.port_collective_bytes``."""
+    purpose: ``launch.analysis.port_collective_bytes``, planned under the
+    ``SPEC_OPTIONS`` given in ``options`` (set for the call alone: call it
+    while no plan runs on a thread)."""
     from repro_torch.launch.analysis import port_collective_bytes
     from repro_torch.launch.mesh import make_mesh
 
     mesh = make_mesh(shape, ("data", "model"), device="meta")
-    pre = port_collective_bytes(cfg, "prefill", batch, prompt, mesh)["counted"]
-    dec = port_collective_bytes(cfg, "decode", batch, prompt, mesh)["counted"]
+    capacity = (cfg.num_prefix_embeddings if cfg.frontend == "vision" else 0) + prompt + gen
+    with spec_options(**options):
+        pre = port_collective_bytes(cfg, "prefill", batch, prompt, mesh)["counted"]
+        dec = port_collective_bytes(cfg, "decode", batch, prompt, mesh,
+                                    capacity=capacity)["counted"]
     out = {k: pre[k] + gen * dec[k] for k in pre}
     return {k: v for k, v in out.items() if v}
+
+
+@contextlib.contextmanager
+def spec_options(**options):
+    """``repro_torch.sharding.specs.SPEC_OPTIONS`` set to ``options`` inside,
+    restored after (in a spawned rank: before it builds anything the
+    options lay out)."""
+    from repro_torch.sharding.specs import SPEC_OPTIONS
+
+    old = dict(SPEC_OPTIONS)
+    SPEC_OPTIONS.update(options)
+    try:
+        yield
+    finally:
+        SPEC_OPTIONS.update(old)
 
 
 def train_plan(cfg, batch, seq, ticks, shape) -> dict:
@@ -2569,18 +2609,11 @@ def replicated_digest(t, cfg, mesh) -> str:
 
 def seeded_serve(cfg, prompt, gen, device, mesh=None):
     """Params from seed 0 (under the rules, the rank's blocks) and 4 prompts
-    of ``prompt`` tokens, then a warm serve (``launch/serve.py::serve``),
-    the kernels' launches and the all-reduce bytes counted from zero just
-    before it (after a barrier, with ``mesh``) and read just after; the
-    peak counts from before the params."""
+    of ``prompt`` tokens, then :func:`counted_serve`; the peak counts from
+    before the params."""
     import torch
 
     from repro_torch.data import make_batch_for
-    from repro_torch.kernels.flash_attention import cuda as FA
-    from repro_torch.kernels.rg_lru import cuda as RG
-    from repro_torch.kernels.selective_scan import cuda as SS
-    from repro_torch.launch.serve import serve
-    from repro_torch.sharding import collectives as COL
     from repro_torch.training import init_params
 
     free_cuda()
@@ -2589,27 +2622,66 @@ def seeded_serve(cfg, prompt, gen, device, mesh=None):
         params = init_params(0, cfg, device)
         free_cuda()
         batch = make_batch_for(cfg, batch=4, seq=prompt, seed=0, device=device)
-        serve_warm_up(cfg, params, batch)
-        for k in (FA, RG, SS):
-            k.reset_launches()
-        COL.reset_collective_bytes()
-        if mesh is not None:
-            import torch.distributed as dist
-
-            dist.barrier()
-        res = serve(cfg, params, batch, gen=gen)
-        torch.cuda.synchronize()
+        out = counted_serve(cfg, params, batch, gen, mesh)
         del params, batch
+    free_cuda()
+    return out
+
+
+def counted_serve(cfg, params, batch, gen, mesh=None) -> dict:
+    """A warm serve of ``batch`` (``launch/serve.py::serve``), the kernels'
+    launches and the collective bytes counted from zero just before it
+    (after a barrier, with ``mesh``) and read just after: its logits, ids,
+    times, launches, bytes, the peak so far and its decode cache's leaves
+    (each one's shape and bytes: the cache the prefill, or whisper's
+    ``init_decode_state``, built)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda as FA
+    from repro_torch.kernels.rg_lru import cuda as RG
+    from repro_torch.kernels.selective_scan import cuda as SS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as COL
+    from repro_torch.sharding.specs import leaf_paths
+
+    serve_warm_up(cfg, params, batch)
+    for k in (FA, RG, SS):
+        k.reset_launches()
+    COL.reset_collective_bytes()
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+    kept, inner = [], (M.prefill, M.init_decode_state)
+
+    def prefill(*args, **kwargs):
+        logits, cache = inner[0](*args, **kwargs)
+        kept.append(cache)
+        return logits, cache
+
+    def init_decode_state(*args, **kwargs):
+        kept.append(inner[1](*args, **kwargs))
+        return kept[-1]
+
+    M.prefill, M.init_decode_state = prefill, init_decode_state
+    try:
+        res = serve(cfg, params, batch, gen=gen)
+    finally:
+        M.prefill, M.init_decode_state = inner
+    torch.cuda.synchronize()
+    leaves = leaf_paths(kept.pop())
     launches = {"flash_attention": FA.LAUNCHES["flash_attention"], "rg_lru": RG.LAUNCHES["rg_lru"],
                 "selective_scan": SS.LAUNCHES["selective_scan"]}
     out = dict(logits=res["logits"].cpu().numpy(), tokens=res["tokens"].cpu().numpy(),
                prefill_s=res["prefill_s"], decode_ms_per_step=res["decode_s"] / gen * 1e3,
                launches=launches, bytes=counted_bytes(),
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               cache_shapes={p: list(t.shape) for p, t in leaves},
+               cache_bytes={p: t.numel() * t.element_size() for p, t in leaves})
     if res["prefill_logits"] is not None:  # whisper runs no decoder prefill
         out["prefill"] = res["prefill_logits"].cpu().numpy()
-    del res
-    free_cuda()
+    del res, leaves
     return out
 
 
@@ -2982,6 +3054,158 @@ def tensor_parallel(root, full, main_summary):
     return rows
 
 
+# Phases 15 and 17: the reference's seq_shard_cache decode layout
+# ---------------------------------------------------------------------------
+
+SSC_GEN = 8
+SSC_SERVES = {  # arch: (layers, batch, prompt, layout (data, model), launches a serve)
+    # branch (a): one kv head, so the local rings' capacity splits over model
+    "recurrentgemma-9b": (6, 4, 4096, (1, 2),
+                          {"flash_attention": 2, "rg_lru": 4, "selective_scan": 0}),
+    # branch (b): batch 1, so the capacity splits over data
+    "gemma2-27b": (2, 1, 8192, (2, 1),
+                   {"flash_attention": 2, "rg_lru": 0, "selective_scan": 0}),
+}
+
+
+def ssc_config(arch, use_pallas=True):
+    """``arch`` at full width cut to its ``SSC_SERVES`` depth, f32
+    activations, on the kernels or, with ``use_pallas`` off, on their plain
+    versions."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=SSC_SERVES[arch][0],
+                               activation_dtype="float32", use_pallas=use_pallas)
+
+
+def ssc_serves(arch, device, mesh=None, use_pallas=True) -> dict:
+    """``arch``'s ``SSC_SERVES`` serve (params from seed 0, under the rules
+    the rank's blocks; ``SSC_GEN`` greedy steps), through
+    :func:`counted_serve`: with ``mesh`` twice on the same params, without
+    and then with ``SPEC_OPTIONS["seq_shard_cache"]`` (``"off"`` / ``"on"``),
+    else once (one process's caches are whole either way); each serve's
+    peak counts from the resident params.  The seconds this costs the
+    phase: ``params_s`` (params and prompts, in ``"off"``) and each serve's
+    ``wall_s`` (its warm-up included)."""
+    import torch
+
+    from repro_torch.data import make_batch_for
+    from repro_torch.training import init_params
+
+    _, batch_size, prompt, _, _ = SSC_SERVES[arch]
+    cfg = ssc_config(arch, use_pallas)
+    free_cuda()
+    out = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = init_params(0, cfg, device)
+        batch = make_batch_for(cfg, batch=batch_size, seq=prompt, seed=0, device=device)
+        torch.cuda.synchronize()
+        params_s = time.perf_counter() - t0
+        for tag in ("off", "on") if mesh is not None else ("off",):
+            t0 = time.perf_counter()
+            free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            with spec_options(seq_shard_cache=tag == "on"):
+                out[tag] = counted_serve(cfg, params, batch, SSC_GEN, mesh)
+            out[tag]["wall_s"] = time.perf_counter() - t0
+        del params, batch
+    free_cuda()
+    out["off"]["params_s"] = params_s
+    return out
+
+
+def ssc_plans(arch, **options) -> dict:
+    """``arch``'s ``SSC_SERVES`` serve planned by :func:`serve_plan` without
+    and with ``seq_shard_cache``, under the other ``options``."""
+    _, batch, prompt, shape, _ = SSC_SERVES[arch]
+    return {tag: serve_plan(ssc_config(arch), batch, prompt, SSC_GEN, shape,
+                            seq_shard_cache=tag == "on", **options) for tag in ("off", "on")}
+
+
+def ssc_shapes(whole: dict, arch, on: bool) -> dict:
+    """The shape of every leaf a rank of ``arch``'s ``SSC_SERVES`` layout
+    holds of one process's decode cache (``whole``: path -> shape), by the
+    reference's rule (``specs.cache_spec_for`` and ``local_shape``), with
+    ``seq_shard_cache`` ``on`` or off."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.specs import cache_spec_for, local_shape
+
+    _, batch, _, shape, _ = SSC_SERVES[arch]
+    mesh = make_mesh(shape, ("data", "model"), device="meta")
+    with spec_options(seq_shard_cache=on):
+        return {p: list(local_shape(tuple(s), cache_spec_for(p, tuple(s), mesh, batch), mesh))
+                for p, s in whole.items()}
+
+
+def ssc_check(what, arch, ranks, one, plans) -> dict:
+    """Gates of the ranks' :func:`ssc_serves` (saved under ``ssc_off_`` /
+    ``ssc_on_``) against one process's plain serve ``one``: ids equal,
+    logits (the rank's rows and vocab block) within 1e-4 + 1e-4 |one
+    process|, the launches of ``SSC_SERVES``, every cache leaf of the
+    shape the spec gives it, collective bytes equal to ``plans``, and with
+    the option less cache than without.  Returns the row to print."""
+    import numpy as np
+
+    _, batch, prompt, (data, _), expect = SSC_SERVES[arch]
+    check(not any(one["launches"].values()), f"{what} seq_shard_cache {arch}: the plain "
+          f"one-process serve launched {one['launches']}")
+    rows = batch // data if batch % data == 0 else 0  # batch 1 is whole on every rank
+    row = {"arch": arch, "layers": SSC_SERVES[arch][0], "batch": batch, "prompt": prompt,
+           "gen": SSC_GEN, "one_process_plain": {k: one[k] for k in (
+               "prefill_s", "decode_ms_per_step", "peak_gb")}}
+    for tag in ("off", "on"):
+        key = f"ssc_{tag}_"
+        want_shapes = ssc_shapes(one["cache_shapes"], arch, tag == "on")
+        err = 0.0
+        for i, r in enumerate(ranks):
+            name = f"{what} seq_shard_cache {arch} ({tag}), rank {i}"
+            launches = json.loads(str(r[key + "launches"]))
+            check(launches == expect, f"{name}: launched {launches}, expected {expect}")
+            got_bytes = bytes_by_key(r[key + "bytes"])
+            check(got_bytes == plans[tag], f"{name}: collective bytes {got_bytes} != the plan "
+                  f"{plans[tag]}")
+            shapes = json.loads(str(r[key + "cache_shapes"]))
+            check(shapes == want_shapes, f"{name}: cache leaves {shapes}, the spec's "
+                  f"{want_shapes}")
+            first = int(r["data"]) * rows
+            sl = slice(first, first + rows) if rows else slice(None)
+            check(np.array_equal(r[key + "tokens"], one["tokens"][sl]),
+                  f"{name}: greedy ids differ from one process")
+            for part in ("prefill", "logits"):
+                got, ref = r[key + part], one[part][sl]
+                if got.shape[-1] != ref.shape[-1]:  # the rank's vocab block
+                    v = got.shape[-1]
+                    ref = ref[..., int(r["model"]) * v:(int(r["model"]) + 1) * v]
+                err = max(err, float(np.max(np.abs(got - ref) / (1e-4 + 1e-4 * np.abs(ref)))))
+        kv = {p: b for p, b in json.loads(str(ranks[0][key + "cache_bytes"])).items()
+              if p.rsplit("/", 1)[-1] in ("k", "v")}
+        row[tag] = dict(
+            prefill_s=[float(r[key + "prefill_s"]) for r in ranks],
+            decode_ms_per_step=[float(r[key + "decode_ms_per_step"]) for r in ranks],
+            peak_gb=[float(r[key + "peak_gb"]) for r in ranks],
+            launches=[json.loads(str(r[key + "launches"])) for r in ranks],
+            kv_cache_bytes=kv, collective_bytes=bytes_by_key(ranks[0][key + "bytes"]),
+            logits_err_over_bound=err)
+        check(err <= 1.0, f"{what} seq_shard_cache {arch} ({tag}): logits miss 1e-4 + "
+              f"1e-4|ref| ({err:.3f} of the bound)")
+    check(sum(row["on"]["kv_cache_bytes"].values()) < sum(row["off"]["kv_cache_bytes"].values()),
+          f"{what} seq_shard_cache {arch}: the option split no cache leaf")
+    # what these serves add to the phase: one process's, then the ranks'
+    # (side by side, so the slower rank's)
+    row["added_s"] = one["params_s"] + one["wall_s"] + max(
+        float(r["ssc_off_params_s"]) + float(r["ssc_off_wall_s"]) + float(r["ssc_on_wall_s"])
+        for r in ranks)
+    log(f"[{what}] seq_shard_cache {json.dumps(row)}")
+    return row
+
+
+def ssc_saved(got: dict) -> dict:
+    """:func:`ssc_serves`'s result as a rank saves it."""
+    return {f"ssc_{tag}_{k}": v for tag, r in got.items() for k, v in saved(r).items()}
+
+
+# ---------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
 # Phase 15: tensor parallelism of the other families on the card
 # ---------------------------------------------------------------------------
@@ -3044,6 +3268,9 @@ def of_rank(rank, world, data, model, what, store, out_dir):
         with use_sharding_rules(mesh):
             got = seeded_serve(of_serve_config(arch), prompt, OF_GEN, mesh.device, mesh)
         out.update({f"{arch}_{k}": v for k, v in saved(got).items()})
+    # recurrentgemma-9b again at 4 x 4096, without and with seq_shard_cache
+    with use_sharding_rules(mesh):
+        out.update(ssc_saved(ssc_serves("recurrentgemma-9b", mesh.device, mesh)))
     # full width, depth 4: phase 3's run for 3 ticks
     tcfg = of_train_config()
     spec = dataclasses.replace(main_spec(tcfg), num_steps=OF_TRAIN_TICKS, refresh_every=2)
@@ -3088,6 +3315,7 @@ def other_families(root):
     # shapes this path gives them), and the depth-2 gradient
     one = {arch: seeded_serve(of_serve_config(arch, use_pallas=False), prompt, OF_GEN, "cuda")
            for arch, (_, prompt, _) in OF_SERVES.items()}
+    one_ssc = ssc_serves("recurrentgemma-9b", "cuda", use_pallas=False)["off"]
     tcfg = of_train_config()
     acfg = tp_agree_config(dataclasses.replace(tcfg, num_layers=OF_AGREE_LAYERS))
     loss1, g1 = tp_gradient(acfg, "cuda")
@@ -3097,6 +3325,7 @@ def other_families(root):
     t_one = time.perf_counter() - t_phase
 
     # the plans: per-rank state bytes and all-reduce bytes
+    plan_ssc = ssc_plans("recurrentgemma-9b")  # before the plan on a thread: it sets options
     spec = dataclasses.replace(main_spec(tcfg, device="cpu"), num_steps=OF_TRAIN_TICKS,
                                refresh_every=2)
     planning = alongside(D.plan_run, spec,
@@ -3147,6 +3376,9 @@ def other_families(root):
             logits_err_over_bound=err)
         log(f"[families] serve {arch} {json.dumps(rows[arch])}")
         check(err <= 1.0, f"families {arch}: logits miss 1e-4 + 1e-4|ref| ({err:.3f} of the bound)")
+
+    rows["seq_shard_cache"] = ssc_check("families", "recurrentgemma-9b", ranks, one_ssc,
+                                        plan_ssc)
 
     # -- training, full width at depth 4 ---------------------------------------------
     for r in ranks:
@@ -3641,7 +3873,7 @@ def fs_rank(rank, world, data, model, what, store, out_dir):
     mesh = make_mesh((data, model), ("data", "model"), device="cuda")
     torch.cuda.set_device(mesh.device)
     full = get_config("stablelm-1.6b")
-    out = {"data": mesh.index("data")}
+    out = {"data": mesh.index("data"), "model": mesh.index("model")}
 
     # (a) the slice at full width and depth
     state = train_rank(fs_train_spec(full), "train", out, mesh, f"fsdp train rank {rank}")
@@ -3677,6 +3909,11 @@ def fs_rank(rank, world, data, model, what, store, out_dir):
         got = seeded_serve(fs_serve_config(full), EP_PROMPT, FS_GEN, mesh.device, mesh)
     out.update({f"serve_{k}": v for k, v in saved(got).items()})
     del got
+
+    # (d) gemma2-27b at batch 1, without and with seq_shard_cache, in the
+    # serving layout (params replicated over data: no per-step gathers)
+    with spec_options(replicate_params_over_data=True), use_sharding_rules(mesh):
+        out.update(ssc_saved(ssc_serves("gemma2-27b", mesh.device, mesh)))
     np.savez(f"{out_dir}/{what}_{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
@@ -3709,8 +3946,12 @@ def fsdp_storage(root, full, main_summary=None):
     free_cuda()
     scfg = fs_serve_config(full)
     one_serve = seeded_serve(scfg, EP_PROMPT, FS_GEN, "cuda")
+    one_ssc = ssc_serves("gemma2-27b", "cuda", use_pallas=False)["off"]
 
     # the plans: a rank's state bytes and peak, and its collective bytes
+    # (seq_shard_cache's first: they set options, which the plan on a
+    # thread reads)
+    plan_ssc = ssc_plans("gemma2-27b", replicate_params_over_data=True)
     mesh21 = make_mesh((2, 1), ("data", "model"), device="meta")
     planning = alongside(D.plan_run, fs_train_spec(full, device="cpu"), mesh=mesh21)
     plan_train = train_plan(full, 4, 512, FS_TICKS, (2, 1))
@@ -3812,6 +4053,9 @@ def fsdp_storage(root, full, main_summary=None):
     log(f"[fsdp] (c) serve {json.dumps(rows['serve'])}")
     check(max(d_pre, d_dec) <= 1.0, f"fsdp serve: logits miss 1e-4 + 1e-4|ref| "
           f"({max(d_pre, d_dec):.3f} of the bound)")
+
+    # -- (d) seq_shard_cache over data ----------------------------------------------
+    rows["seq_shard_cache"] = ssc_check("fsdp", "gemma2-27b", ranks, one_ssc, plan_ssc)
     rows["wall_s"] = wall
     shutil.rmtree(out_dir, ignore_errors=True)
     rows["phase_s"] = time.perf_counter() - t_phase
@@ -4137,6 +4381,14 @@ def main() -> int:
         where = (f"tensor-parallel serve, {arch} at {OF_SERVES[arch][0]} layers, data 1 x model 2 "
                  "(each of 2 ranks)")
         for name, count in families[arch]["launches"][0].items():
+            if count:
+                by_path[name][where] = count
+    for arch, row in (("recurrentgemma-9b", families["seq_shard_cache"]),
+                      ("gemma2-27b", fsdp["seq_shard_cache"])):
+        layers, batch, prompt, (data, model), _ = SSC_SERVES[arch]
+        where = (f"seq_shard_cache serve, {arch} at {layers} layers, {batch} x {prompt}, data "
+                 f"{data} x model {model} (each of 2 ranks)")
+        for name, count in row["on"]["launches"][0].items():
             if count:
                 by_path[name][where] = count
     flash_paths.update(by_path["flash_attention"])

@@ -177,8 +177,63 @@ def _data_bytes(cfg, mesh, dtype) -> dict:
     return out
 
 
+def _cache_combine_bytes(cfg, mesh, batch: int, b_loc: int, capacity: int, act_dt,
+                         cache_dt) -> tuple[int, int, float]:
+    """A decode step's ``kv_gather`` and ``kv_combine`` bytes, and the
+    bytes they send, for the attention caches whose capacity
+    :func:`~repro_torch.sharding.specs.capacity_split` splits (the
+    self-attention caches of ``capacity`` positions, a local layer's ring
+    of ``min(window, capacity)``; whisper's cross K/V of its encoder
+    positions).  Each such layer combines, over the axes that split it,
+    the row maximum (B_loc Nq' 4, a max) and the row sum with the weighted
+    values (B_loc Nq' (H + 1) 4, a sum), Nq' the query heads the rank
+    attends with: every one where the capacity is split over ``model``
+    (whose query heads, split over ``model``, are first gathered: B_loc Nq
+    H in the dtype the query has, the residual stream's promoted by the
+    layers before), else the rank's."""
+    import torch
+
+    from repro_torch.sharding.specs import capacity_split
+
+    n_model = dict(zip(mesh.axis_names, mesh.devices.shape)).get("model", 1)
+    H, nq = cfg.head_dim, cfg.num_heads
+    heads_split = n_model > 1 and nq % n_model == 0
+    gathered = combined = 0
+    sent = 0.0
+
+    def layer(slots: int, nkv: int, q_dtype) -> None:
+        nonlocal gathered, combined, sent
+        split = capacity_split((batch, slots, nkv, H), mesh, batch)
+        if split is None:
+            return
+        axes, _, n = split
+        every = axes == ("model",)
+        if every and heads_split:
+            g = b_loc * nq * H * q_dtype.itemsize
+            gathered += g
+            sent += _ring(n_model, "all-reduce") * g
+        heads = nq if every or not heads_split else nq // n_model
+        comb = b_loc * heads * 4 + b_loc * heads * (H + 1) * 4
+        combined += comb
+        sent += _ring(n, "all-reduce") * comb
+
+    xd = act_dt
+    if cfg.is_encoder_decoder:
+        for _ in range(cfg.num_layers):
+            for slots, nkv in ((capacity, cfg.num_kv_heads), (cfg.encoder_positions, nq)):
+                layer(slots, nkv, xd)
+                xd = torch.promote_types(xd, torch.promote_types(cache_dt, xd))
+    else:
+        for t in cfg.layer_types():
+            if t in ("global", "local"):
+                layer(min(cfg.window_size, capacity) if t == "local" else capacity,
+                      cfg.num_kv_heads, xd)
+                xd = torch.promote_types(xd, torch.promote_types(cache_dt, xd))
+    return gathered, combined, sent
+
+
 def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
-                          cache_dtype=None) -> dict:
+                          cache_dtype=None, capacity: int | None = None) -> dict:
     """The collectives ONE rank of the port runs per step under the layout
     ``mesh``, for every arch and every layout option.
 
@@ -265,6 +320,12 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
     and (n - 1) / n per byte over the group of n ranks); the other
     collectives are 0.  ``cfg.shard_grads`` changes nothing: the port's
     gradients already come out in each weight's storage layout.
+
+    A decode step under ``SPEC_OPTIONS["seq_shard_cache"]`` adds
+    ``kv_gather`` and ``kv_combine`` for every attention cache whose
+    capacity is split (:func:`_cache_combine_bytes`), its capacity
+    ``capacity`` positions (default ``seq``, the planner's decode cache;
+    a serve's is its prompt and its steps).
     """
     import torch
 
@@ -291,8 +352,12 @@ def port_collective_bytes(cfg, kind: str, batch: int, seq: int, mesh, *,
     fwd = 1 + (1 if train and cfg.remat else 0)
     c = {k: 0 for k in ("embed", "attn", "mlp", "combine", "gather", "aux", "logits", "argmax",
                         "ssm_proj", "ssm_out", "lru_gather", "lru_out", "loss", "grad",
-                        "fsdp_gather", "fsdp_grad", "backward", "sp_gather", "sp_scatter")}
+                        "fsdp_gather", "fsdp_grad", "backward", "sp_gather", "sp_scatter",
+                        "kv_gather", "kv_combine")}
     sent = 0.0
+    if decode:
+        c["kv_gather"], c["kv_combine"], sent = _cache_combine_bytes(
+            cfg, mesh, batch, b_loc, seq if capacity is None else capacity, act_dt, cd)
     tp = n_model > 1
     moe = moe_layout(cfg, mesh) if cfg.num_experts else None
     stationary = bool(moe is not None and moe.stationary)

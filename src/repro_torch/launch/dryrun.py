@@ -62,7 +62,13 @@ reference's flag, plans the serving layout instead, every weight whole over
 port rank runs
 (:func:`repro_torch.launch.analysis.port_collective_bytes`, the count its
 byte counter is held to); the step's temporaries are split evenly over the
-cards (an estimate).  ``--set KEY=VALUE`` overrides a config field, as the
+cards (an estimate).  ``--seq_shard_cache``, the reference's flag, plans its
+decode layout: an attention cache whose kv heads do not split over
+``model``, or of a batch of one row, splits its capacity over ``model`` or
+``data`` (:func:`~repro_torch.sharding.specs.capacity_split`), in the
+argument bytes per card and, as ``kv_gather`` / ``kv_combine``, in the
+collective term.  ``--tag`` appends ``_TAG`` to the record names, and every
+record carries the ``spec_options`` it was planned under.  ``--set KEY=VALUE`` overrides a config field, as the
 reference's flag does (``--set sequence_parallel=true``: Megatron sequence
 parallelism, whose gathers and reduce-scatters over ``model`` the
 collective term counts; ``--set moe_weights_stationary=true``: the MoE's
@@ -576,6 +582,10 @@ def main(argv=None) -> int:
     ap.add_argument("--small_mesh", action="store_true", help="data 2 x model 2 (the CI layout)")
     ap.add_argument("--repl_params", action="store_true",
                     help="serving layout: params replicated over data (no FSDP storage)")
+    ap.add_argument("--seq_shard_cache", action="store_true",
+                    help="decode caches whose kv heads do not split over model, or of a "
+                         "batch of one row, split their capacity instead (flash-decode)")
+    ap.add_argument("--tag", default="", help="suffix for output record names")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="config override, e.g. --set param_dtype=bfloat16 "
                          "--set sequence_parallel=true")
@@ -583,12 +593,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
-    old = SPEC_OPTIONS["replicate_params_over_data"]
-    SPEC_OPTIONS["replicate_params_over_data"] = args.repl_params
+    old = dict(SPEC_OPTIONS)
+    SPEC_OPTIONS.update(replicate_params_over_data=args.repl_params,
+                        seq_shard_cache=args.seq_shard_cache)
     try:
         return _plan_all(args)
     finally:
-        SPEC_OPTIONS["replicate_params_over_data"] = old
+        SPEC_OPTIONS.update(old)
 
 
 def _parse_overrides(pairs) -> dict:
@@ -623,6 +634,8 @@ def _plan_all(args) -> int:
     overrides = _parse_overrides(args.set)
     for key in sorted(overrides):
         mesh_tag += f"_{key}"
+    if args.tag:
+        mesh_tag += "_" + args.tag
 
     failures = 0
     for arch, shape in combos:
@@ -636,6 +649,7 @@ def _plan_all(args) -> int:
             try:
                 rec = dryrun_extrapolated(arch, shape, cards=args.cards,
                                           small_mesh=args.small_mesh, overrides=overrides)
+                rec["spec_options"] = dict(SPEC_OPTIONS)
                 if overrides:
                     rec["overrides"] = overrides
                 r, m = rec["roofline"], rec["memory"]

@@ -71,23 +71,51 @@ def serve(cfg, params, batch: dict, *, gen: int, cache_dtype=torch.float32) -> d
     state, the logits are its vocab block (``V / model``; whole on every
     rank where ``model`` does not divide the vocab, as internvl2-2b's) and
     the greedy ids are the global ones, the same on every model rank.
+
+    Under ``SPEC_OPTIONS["seq_shard_cache"]`` (the reference's flash-decode
+    layout; :func:`repro_torch.sharding.specs.capacity_split`) a rank's
+    attention caches may hold its block of the capacity instead: where a
+    layer's kv heads do not split over ``model``, every kv head and
+    ``C / model`` of the slots (a decode step gathers the query heads over
+    ``model``); else for a batch of one row at data > 1, its kv heads and
+    ``C / data`` of the slots (whisper's self and cross K/V alike), each
+    only where the axes divide C.  A decode step writes each token on the
+    rank that holds its slot, and every rank's partial softmax is combined
+    over those axes (``kv_gather`` / ``kv_combine`` in the byte counter).
+    The serve runs inside :func:`repro_torch.sharding.collectives.serving`
+    (the global batch, the capacity and the encoder frames), which the
+    layout reads.
     """
+    B_all, S = batch["tokens"].shape
+    if cfg.is_encoder_decoder:  # steps from position 0, a cache of S + gen
+        start, frames = 0, batch["enc_embeds"].shape[1]
+        capacity = S + gen
+    else:
+        pre = batch.get("prefix_embeds") if cfg.frontend == "vision" else None
+        start, frames = S + (0 if pre is None else pre.shape[1]), None
+        capacity = start + gen
+    with C.serving(B_all, capacity, frames):
+        return _serve(cfg, params, batch, gen=gen, start=start, capacity=capacity,
+                      cache_dtype=cache_dtype)
+
+
+def _serve(cfg, params, batch: dict, *, gen: int, start: int, capacity: int,
+           cache_dtype) -> dict:
     mesh = C.sharded_mesh()
     if mesh is not None:
         batch = C.local_rows(batch, mesh, strict=False)
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     dev = tokens.device
     _sync(dev)
     t0 = time.perf_counter()
     if cfg.is_encoder_decoder:
         prefill_logits = None
-        cache = M.init_decode_state(params, cfg, B, S + gen, cache_dtype=cache_dtype, batch=batch)
-        last, start = tokens[:, 0].to(torch.int32), 0
+        cache = M.init_decode_state(params, cfg, B, capacity, cache_dtype=cache_dtype,
+                                    batch=batch)
+        last = tokens[:, 0].to(torch.int32)
     else:
-        pre = batch.get("prefix_embeds") if cfg.frontend == "vision" else None
-        start = S + (0 if pre is None else pre.shape[1])
-        prefill_logits, cache = M.prefill(params, batch, cfg, start + gen, cache_dtype=cache_dtype)
+        prefill_logits, cache = M.prefill(params, batch, cfg, capacity, cache_dtype=cache_dtype)
         last = C.greedy_argmax(prefill_logits, C.vocab_mesh(cfg)).to(torch.int32)
     _sync(dev)
     t_prefill = time.perf_counter() - t0

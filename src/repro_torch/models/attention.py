@@ -31,12 +31,16 @@ heads of ``wk`` / ``wv`` too.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention.cuda import flash_attention
 from repro_torch.models.layers import LayerIO, Params, apply_rope, truncated_normal
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding.specs import SPEC_OPTIONS, capacity_split
 
 NEG_INF = -2.0e38
 f32 = torch.float32
@@ -165,6 +169,79 @@ def _banded_attention(q, k, v, qpos, kpos, bq, window, softcap, causal):
 
 
 # ---------------------------------------------------------------------------
+# A rank's block of a cache's slots (SPEC_OPTIONS["seq_shard_cache"])
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SlotBlock:
+    """A rank's block of a KV cache's capacity: the slots ``[start, start +
+    size)`` of the one-process cache's ``whole``, split over the layout's
+    ``axes`` (``("model",)``: the kv heads do not split over ``model``, so
+    the rank holds every kv head; or the batch axes: a batch of one row,
+    the same on every data rank, with the rank's kv heads), as
+    :func:`~repro_torch.sharding.specs.capacity_split` lays the leaf out.
+    ``mesh`` is the running layout whose groups combine the ranks'
+    partial softmaxes."""
+
+    whole: int
+    start: int
+    size: int
+    axes: tuple[str, ...]
+    mesh: Any
+
+    @property
+    def every_kv_head(self) -> bool:
+        """The capacity is split over ``model`` (the reference's branch for
+        kv heads that do not split): the rank's cache holds every kv head,
+        and a decode step attends with every query head."""
+        return self.axes == ("model",)
+
+
+def cache_block(capacity: int | None, nkv: int, hd: int, *, window: int | None = None,
+                memory: bool = False) -> SlotBlock | None:
+    """This rank's block of the slots of a ``k`` / ``v`` cache of
+    ``capacity`` slots (``min(window, capacity)`` with a ``window``: a
+    local layer's ring) over ``nkv`` kv heads of ``hd`` (the whole counts,
+    as the one-process leaf has them), or None where the rank holds every
+    slot.  ``capacity`` None (a decode step) reads the cache's positions
+    from the :func:`~repro_torch.sharding.collectives.serving` shape (or
+    with ``memory`` the encoder frames of whisper's cross K/V).  The
+    layout is the reference's ``cache_spec_for`` of the whole leaf
+    (:func:`~repro_torch.sharding.specs.capacity_split`), which reads the
+    global batch of the serving shape; without a running sharded mesh, or
+    with ``seq_shard_cache`` off, every slot is the rank's."""
+    mesh = C.sharded_mesh()
+    if mesh is None:
+        return None
+    shape = C.serve_shape()
+    if shape is None:
+        if SPEC_OPTIONS["seq_shard_cache"]:
+            raise ValueError("a decode cache under seq_shard_cache and a running sharded mesh is "
+                             "laid out by the global batch and the capacity: build and step it "
+                             "inside collectives.serving(batch, capacity) (launch.serve.serve "
+                             "does)")
+        return None
+    if capacity is None:
+        capacity = shape.memory if memory else shape.capacity
+    if window is not None:
+        capacity = min(window, capacity)
+    split = capacity_split((shape.batch, capacity, nkv, hd), mesh, shape.batch)
+    if split is None:
+        return None
+    axes, index, n = split
+    size = capacity // n
+    return SlotBlock(capacity, index * size, size, axes, mesh)
+
+
+def _slots(capacity: int, device, block: SlotBlock | None) -> torch.Tensor:
+    """The one-process slot numbers the cache holds: every slot, or the
+    rank's block."""
+    if block is None:
+        return torch.arange(capacity, device=device)
+    return torch.arange(block.start, block.start + block.size, device=device)
+
+
+# ---------------------------------------------------------------------------
 # Decode (single new token against a cache)
 # ---------------------------------------------------------------------------
 
@@ -177,13 +254,59 @@ def decode_attention(
     *,
     window: int | None = None,
     softcap: float | None = None,
+    block: SlotBlock | None = None,
 ) -> torch.Tensor:
+    """One token against a cache.  With ``block`` the cache is the rank's
+    block of the slots, and the softmax is combined over ``block.axes``
+    (:func:`_combined_softmax_pv`)."""
     B, _, Nq, H = q.shape
     Nkv = k_cache.shape[2]
     qg = q.reshape(B, 1, Nkv, Nq // Nkv, H)
     scores = _block_attend(qg, k_cache, qpos, cache_positions,
                            causal=True, window=window, softcap=softcap)
-    return _softmax_pv(scores, v_cache).reshape(B, 1, Nq, H).to(v_cache.dtype)
+    out = _softmax_pv(scores, v_cache) if block is None else \
+        _combined_softmax_pv(scores, v_cache, block)
+    return out.reshape(B, 1, Nq, H).to(v_cache.dtype)
+
+
+def _combined_softmax_pv(scores, v, block: SlotBlock):
+    """:func:`_softmax_pv` over the slots of every rank of ``block.axes``,
+    each holding ``scores`` (B, Nkv, G, 1, Kb) of its own slots.  The row
+    maximum is max-reduced over the axes first, so every rank's
+    exponentials are one process's ``exp(s - m)``, with the same guards (a
+    rank whose slots are all empty or outside the band contributes zeros);
+    then each rank's row sum and weighted values, in f32, are summed over
+    the axes in one all-reduce and divided once, with the same clamp."""
+    m = C.max_over(torch.amax(scores, dim=-1, keepdim=True), block.mesh, block.axes,
+                   "kv_combine")
+    m = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.exp(scores - m)
+    p = torch.where(scores <= NEG_INF / 2, 0.0, p)
+    l = torch.sum(p, dim=-1)
+    pv = torch.einsum("bngqk,bknh->bqngh", p, v.to(f32))
+    both = C.sum_over(torch.cat([pv, l.permute(0, 3, 1, 2)[..., None]], dim=-1), block.mesh,
+                      block.axes, "kv_combine")
+    return both[..., :-1] / torch.clamp(both[..., -1:], min=1e-30)
+
+
+def decode_heads(q, k_cache, v_cache, cache_positions, qpos, *, window, softcap,
+                 block: SlotBlock | None, mesh) -> torch.Tensor:
+    """:func:`decode_attention` of the rank's query heads ``q`` (B, 1, Nq_r,
+    H).  Where the rank's cache holds every kv head for its block of the
+    slots (:attr:`SlotBlock.every_kv_head`) and the query heads are split
+    over ``model`` (``mesh``, :func:`head_mesh`), every rank attends with
+    every query head under the whole GQA grouping (query head j to kv head
+    j // (Nq / Nkv)): the heads are gathered over ``model`` first
+    (``kv_gather``), and after the combine the rank keeps its own."""
+    gather = block is not None and block.every_kv_head and mesh is not None
+    if gather:
+        q = C.gather_over_model(q, mesh, "kv_gather", dim=-2)
+    out = decode_attention(q, k_cache, v_cache, cache_positions, qpos, window=window,
+                           softcap=softcap, block=block)
+    if gather:
+        n = out.shape[2] // mesh.shape["model"]
+        out = out.narrow(2, mesh.index("model") * n, n)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -197,50 +320,74 @@ def init_kv_cache(batch: int, capacity: int, nkv: int, hd: int, dtype, device) -
     }
 
 
-def cache_positions_full(capacity: int, length: torch.Tensor, batch: int) -> torch.Tensor:
-    """Positions of slots [0..capacity) when ``length`` tokens are stored."""
-    slots = torch.arange(capacity, device=length.device)
+def cache_positions_full(capacity: int, length: torch.Tensor, batch: int,
+                         block: SlotBlock | None = None) -> torch.Tensor:
+    """Positions of slots [0..capacity) when ``length`` tokens are stored
+    (with ``block``, of the rank's slots)."""
+    slots = _slots(capacity, length.device, block)
     pos = torch.where(slots < length, slots, -1)
-    return pos[None, :].expand(batch, capacity)
+    return pos[None, :].expand(batch, slots.shape[0])
 
 
-def cache_positions_ring(capacity: int, length: torch.Tensor, batch: int) -> torch.Tensor:
+def cache_positions_ring(capacity: int, length: torch.Tensor, batch: int,
+                         block: SlotBlock | None = None) -> torch.Tensor:
     """Ring buffer: slot j holds absolute position p ≡ j (mod capacity),
-    the largest such p < length; empty slots report -1."""
-    slots = torch.arange(capacity, device=length.device)
+    the largest such p < length; empty slots report -1 (with ``block``,
+    of the rank's slots)."""
+    slots = _slots(capacity, length.device, block)
     p = length - 1 - torch.remainder(length - 1 - slots, capacity)
     pos = torch.where((p >= 0) & (length > 0), p, -1)
-    return pos[None, :].expand(batch, capacity)
+    return pos[None, :].expand(batch, slots.shape[0])
 
 
-def update_cache_full(cache: Params, k_new, v_new, pos: torch.Tensor) -> Params:
-    """Write one token at absolute position ``pos`` (0-d int tensor), in place."""
-    slot = pos.reshape(1)
-    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+def update_cache_full(cache: Params, k_new, v_new, pos: torch.Tensor,
+                      block: SlotBlock | None = None) -> Params:
+    """Write one token at absolute position ``pos`` (0-d int tensor), in
+    place.  With ``block`` only the rank that holds slot ``pos`` writes it:
+    every rank writes its slot nearest ``pos`` with the new token where it
+    owns ``pos`` and with the slot's own value elsewhere (on the device,
+    so ``pos`` is never read on the host)."""
+    if block is None:
+        slot = pos.reshape(1)
+        cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+        return cache
+    local = pos.reshape(1) - block.start
+    owns = (local >= 0) & (local < block.size)
+    local = torch.clamp(local, 0, block.size - 1)
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        c.index_copy_(1, local, torch.where(owns, new.to(c.dtype), c.index_select(1, local)))
     return cache
 
 
-def update_cache_ring(cache: Params, k_new, v_new, pos: torch.Tensor) -> Params:
-    return update_cache_full(cache, k_new, v_new, torch.remainder(pos, cache["k"].shape[1]))
+def update_cache_ring(cache: Params, k_new, v_new, pos: torch.Tensor,
+                      block: SlotBlock | None = None) -> Params:
+    whole = cache["k"].shape[1] if block is None else block.whole
+    return update_cache_full(cache, k_new, v_new, torch.remainder(pos, whole), block)
 
 
-def fill_cache_from_prefill(k, v, capacity: int, ring: bool) -> Params:
-    """Build a decode cache from prefill K/V of length S."""
+def fill_cache_from_prefill(k, v, capacity: int, ring: bool,
+                            block: SlotBlock | None = None) -> Params:
+    """Build a decode cache from prefill K/V of length S (with ``block``,
+    the rank's slots alone: the whole cache is never built)."""
     B, S = k.shape[0], k.shape[1]
-    if not ring:
-        if capacity < S:
-            raise ValueError(f"cache capacity {capacity} < prefill length {S}")
-        pad = (0, 0, 0, 0, 0, capacity - S)
-        return {"k": torch.nn.functional.pad(k, pad), "v": torch.nn.functional.pad(v, pad)}
-    # ring: keep the last `capacity` positions at slot = pos % capacity
+    if not ring and capacity < S:
+        raise ValueError(f"cache capacity {capacity} < prefill length {S}")
+    start, size = (0, capacity) if block is None else (block.start, block.size)
+    # a full cache holds position p at slot p, a ring the last `capacity`
+    # positions at slot p % capacity
     n = min(S, capacity)
-    slots = torch.arange(S - n, S, device=k.device) % capacity
-    kc = torch.zeros((B, capacity) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
-    vc = torch.zeros((B, capacity) + tuple(v.shape[2:]), dtype=v.dtype, device=v.device)
-    kc[:, slots] = k[:, S - n:]
-    vc[:, slots] = v[:, S - n:]
-    return {"k": kc, "v": vc}
+    pos = torch.arange(S - n, S)
+    slots = pos % capacity
+    keep = (slots >= start) & (slots < start + size)
+    at, src = (slots[keep] - start).to(k.device), pos[keep].to(k.device)
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        c = torch.zeros((B, size) + tuple(t.shape[2:]), dtype=t.dtype, device=t.device)
+        c[:, at] = t[:, src]
+        out[name] = c
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +434,8 @@ def _kv_weights(p: Params, cfg, mesh):
 
 
 def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,
-                       kv_source: torch.Tensor | None = None, use_rope: bool = True, seq=None):
+                       kv_source: torch.Tensor | None = None, use_rope: bool = True, seq=None,
+                       every_kv_head: bool = False):
     """Projections + rope + attention + output projection -> (y, k, v), with
     ``k`` roped: prefill fills its decode cache from the same projections.
     ``kv_source`` (B, T, D): cross-attention memory, K and V projected from
@@ -304,12 +452,16 @@ def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: 
     is the rank's chunk, reduce-scattered in place of the all-reduce
     (:func:`~repro_torch.sharding.collectives.enter_linear` /
     :func:`~repro_torch.sharding.collectives.leave_model`); ``k`` and ``v``
-    cover the whole sequence."""
+    cover the whole sequence.  With ``every_kv_head`` (a self-attention
+    layer whose kv heads do not split over ``model``: its ``wk`` / ``wv``
+    are whole on the rank) ``k`` and ``v`` are every kv head's, for a cache
+    whose capacity is split over ``model`` (:class:`SlotBlock`); the
+    attention still runs on the rank's own."""
     dt = x.dtype
     cross = kv_source is not None
     mesh = head_mesh(cfg)
     # cross-attention is plain MHA: its kv heads split as the query heads
-    wk, wv = (p["wk"], p["wv"]) if cross else _kv_weights(p, cfg, mesh)
+    wk, wv = (p["wk"], p["wv"]) if cross or every_kv_head else _kv_weights(p, cfg, mesh)
     if cross:
         x, q = C.enter_linear(x, mesh, seq, [p["wq"].to(dt)])
         k = torch.einsum("btd,dnh->btnh", kv_source, wk.to(dt))
@@ -321,6 +473,11 @@ def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: 
         k = apply_rope(k, io.positions, cfg.rope_theta)
     scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim**-0.5
     q = q * torch.tensor(scale, dtype=dt)
+    k_all, v_all = k, v
+    if every_kv_head and mesh is not None:
+        first, count, _ = local_kv_heads(cfg, mesh)
+        if count < k.shape[2]:
+            k, v = (t.narrow(2, first, count).contiguous() for t in (k, v))
     if cfg.use_pallas and not cross:
         # the flash kernel (contiguous positions); q is pre-scaled above
         out = flash_attention(q, k, v, causal=io.causal, window=window,
@@ -335,7 +492,7 @@ def attention_layer_kv(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: 
             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
         )
     y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(dt))
-    return C.leave_model(y, mesh, "attn", seq), k, v
+    return C.leave_model(y, mesh, "attn", seq), k_all, v_all
 
 
 def attention_layer(p: Params, x: torch.Tensor, io: LayerIO, cfg, *, window: int | None,

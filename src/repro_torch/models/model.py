@@ -172,7 +172,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
         ll = torch.gather(logits, -1, safe[..., None])[..., 0]
     else:
         v_loc = logits.shape[-1]
-        m = C.max_over_model(torch.amax(logits, dim=-1), mesh, "logits")
+        m = C.max_over(torch.amax(logits, dim=-1), mesh, "model", "logits")
         se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
         lse = torch.log(C.reduce_from_model(se, mesh, "logits")) + m
         local = safe - mesh.index("model") * v_loc
@@ -233,19 +233,37 @@ def _data_parallel_aux(aux: torch.Tensor, cfg) -> torch.Tensor:
 # Decode
 # ---------------------------------------------------------------------------
 
+def _check_serving(capacity: int, frames: int | None = None) -> None:
+    """Under a running sharded mesh inside
+    :func:`~repro_torch.sharding.collectives.serving` the rank's caches are
+    laid out by its shape, and a decode step reads the capacity from it:
+    the cache built here must be the one it describes."""
+    shape = C.serve_shape()
+    if shape is None or C.sharded_mesh() is None:
+        return
+    if shape.capacity != capacity or (frames is not None and shape.memory != frames):
+        raise ValueError(f"a cache of {capacity} positions (encoder frames {frames}) built "
+                         f"inside serving({shape}), which describes another")
+
+
 @torch.no_grad()
 def init_decode_state(params: Params, cfg, batch_size: int, capacity: int, *,
                       cache_dtype=torch.bfloat16, batch: dict[str, Any] | None = None) -> Params:
     """Fresh decode cache sized for ``capacity`` positions, on the params'
     device.  Whisper's holds the encoder memory's cross K/V, so ``batch``
     with ``enc_embeds`` must be given for encoder-decoder configs.  Under a
-    running ``model`` axis the cache holds the rank's heads and channels."""
+    running ``model`` axis the cache holds the rank's heads and channels;
+    under ``SPEC_OPTIONS["seq_shard_cache"]`` an attention cache may hold
+    the rank's block of the capacity instead
+    (:func:`repro_torch.models.attention.cache_block`)."""
     _vocab_layout(params, cfg)  # the rank's blocks, checked
     if cfg.is_encoder_decoder:
         if batch is None or "enc_embeds" not in batch:
             raise ValueError("an encoder-decoder cache needs batch['enc_embeds']")
+        _check_serving(capacity, batch["enc_embeds"].shape[1])
         return W.init_whisper_cache(params, _encode(params, batch, cfg), cfg, capacity,
                                     cache_dtype)
+    _check_serving(capacity)
     device = params["embed"]["embedding"].device
     return T.init_stack_cache(cfg, batch_size, capacity, cache_dtype, device)
 
@@ -280,9 +298,11 @@ def prefill(params: Params, batch: dict[str, Any], cfg, capacity: int, *,
     vmesh = _vocab_layout(params, cfg)
     params = _outer(params, cfg)
     if cfg.is_encoder_decoder:
+        _check_serving(capacity, batch["enc_embeds"].shape[1])
         memory = _encode(params, batch, cfg)
         logits = W.decode_train(params, batch["tokens"], memory, cfg, vmesh=vmesh)
         return logits[:, -1], W.init_whisper_cache(params, memory, cfg, capacity, cache_dtype)
+    _check_serving(capacity)
     x, io, _ = _embed_with_prefix(params, batch, cfg, vmesh)
     seq = C.seq_mesh(cfg, x.shape[1])
     x, cache = T.prefill_stack(params["stack"], C.scatter_seq(x, seq, summed=False), io, cfg,

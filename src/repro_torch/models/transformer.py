@@ -182,6 +182,25 @@ def apply_block(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO, cfg):
 # Decode-step block (single token, threaded cache)
 # ---------------------------------------------------------------------------
 
+def _kv_block(layer_type: str, capacity: int | None, cfg):
+    """:func:`repro_torch.models.attention.cache_block` of an attention
+    layer's cache for ``capacity`` positions (a local layer's ring holds
+    ``min(window, capacity)`` slots); None in a decode step, which reads
+    them from the serving shape."""
+    return A.cache_block(capacity, cfg.num_kv_heads, cfg.head_dim,
+                         window=_window_for(layer_type, cfg))
+
+
+def _cache_kv_heads(cfg, block) -> int:
+    """The kv heads an attention layer's cache holds on this rank: every
+    one where its capacity is split over ``model`` instead, else the
+    rank's (:func:`repro_torch.models.attention.local_kv_heads`)."""
+    mesh = A.head_mesh(cfg)
+    if mesh is None or (block is not None and block.every_kv_head):
+        return cfg.num_kv_heads
+    return A.local_kv_heads(cfg, mesh)[1]
+
+
 def init_block_cache(layer_type: str, batch: int, capacity: int, cfg, dtype, device) -> Params:
     _check_supported(layer_type, cfg)
     if layer_type == "ssm":
@@ -189,19 +208,24 @@ def init_block_cache(layer_type: str, batch: int, capacity: int, cfg, dtype, dev
     if layer_type == "recurrent":
         return R.init_rglru_cache(batch, cfg, dtype, device)
     cap = min(cfg.window_size, capacity) if layer_type == "local" else capacity
-    mesh = A.head_mesh(cfg)
-    nkv = cfg.num_kv_heads if mesh is None else A.local_kv_heads(cfg, mesh)[1]
-    return A.init_kv_cache(batch, cap, nkv, cfg.head_dim, dtype, device)
+    block = _kv_block(layer_type, capacity, cfg)
+    return A.init_kv_cache(batch, cap if block is None else block.size,
+                           _cache_kv_heads(cfg, block), cfg.head_dim, dtype, device)
 
 
 def _attn_decode(p, x, cache, layer_type, pos, cfg):
-    """Project one token, write it into the cache, attend."""
+    """Project one token, write it into the cache, attend.  With the
+    cache's capacity split (:func:`_kv_block`) the rank writes the token
+    only where it holds its slot, and attends over its slots with a
+    combined softmax (:func:`repro_torch.models.attention.decode_heads`)."""
     dt = x.dtype
     B = x.shape[0]
     mesh = A.head_mesh(cfg)
+    block = _kv_block(layer_type, None, cfg)
     if mesh is not None:
         x = C.copy_to_model(x, mesh)
-    wk, wv = A._kv_weights(p, cfg, mesh)
+    every = block is not None and block.every_kv_head
+    wk, wv = (p["wk"], p["wv"]) if every else A._kv_weights(p, cfg, mesh)
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dnh->bsnh", x, wk.to(dt))
     v = torch.einsum("bsd,dnh->bsnh", x, wv.to(dt))
@@ -212,12 +236,12 @@ def _attn_decode(p, x, cache, layer_type, pos, cfg):
     scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim**-0.5
     q = q * torch.tensor(scale, dtype=dt)
     ring = layer_type == "local"
-    cache = (A.update_cache_ring if ring else A.update_cache_full)(cache, k, v, pos)
+    cache = (A.update_cache_ring if ring else A.update_cache_full)(cache, k, v, pos, block)
     cpos_fn = A.cache_positions_ring if ring else A.cache_positions_full
-    cpos = cpos_fn(cache["k"].shape[1], pos + 1, B)
-    out = A.decode_attention(q, cache["k"], cache["v"], cpos, qpos,
-                             window=_window_for(layer_type, cfg),
-                             softcap=cfg.attn_logit_softcap)
+    cpos = cpos_fn(cache["k"].shape[1] if block is None else block.whole, pos + 1, B, block)
+    out = A.decode_heads(q, cache["k"], cache["v"], cpos, qpos,
+                         window=_window_for(layer_type, cfg), softcap=cfg.attn_logit_softcap,
+                         block=block, mesh=mesh)
     # the reference's jnp promotion: an f32 cache gives an f32 output
     od = torch.promote_types(out.dtype, dt)
     y = torch.einsum("bsnh,nhd->bsd", out.to(od), p["wo"].to(dt).to(od))
@@ -256,12 +280,14 @@ def prefill_block_cache(p: Params, x: torch.Tensor, layer_type: str, io: LayerIO
     if layer_type == "recurrent":
         h, cache = R.rglru_prefill_cache(p["rglru"], pre, cfg, cache_dtype, seq)
     else:
+        block = _kv_block(layer_type, capacity, cfg)
         h, k, v = A.attention_layer_kv(p["attn"], pre, io, cfg,
                                        window=_window_for(layer_type, cfg), use_rope=cfg.use_rope,
-                                       seq=seq)
+                                       seq=seq, every_kv_head=block is not None
+                                       and block.every_kv_head)
         ring = layer_type == "local"
         cap = min(cfg.window_size, capacity) if ring else capacity
-        cache = A.fill_cache_from_prefill(k.to(cache_dtype), v.to(cache_dtype), cap, ring)
+        cache = A.fill_cache_from_prefill(k.to(cache_dtype), v.to(cache_dtype), cap, ring, block)
     return _mlp_residual(p, x, pre, h, cfg, seq)[0], cache
 
 

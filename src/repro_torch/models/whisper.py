@@ -166,12 +166,29 @@ def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor, cfg
 # Decode (one token) — cache = self-attention KV per layer + projected cross KV
 # ---------------------------------------------------------------------------
 
+def _cache_blocks(cfg, capacity: int | None = None, frames: int | None = None):
+    """:func:`repro_torch.models.attention.cache_block` of the
+    self-attention cache (``capacity`` slots over the config's kv heads)
+    and of the cross K/V (``frames`` encoder frames over its query heads:
+    plain MHA); both read from the serving shape when None (a decode
+    step)."""
+    return (A.cache_block(capacity, cfg.num_kv_heads, cfg.head_dim),
+            A.cache_block(frames, cfg.num_heads, cfg.head_dim, memory=True))
+
+
 def init_whisper_cache(params: Params, memory: torch.Tensor, cfg, capacity: int, dtype) -> Params:
     """An empty self-attention KV cache ``(L, B, capacity, N, H)`` and the
     cross-attention K/V ``(L, B, T_enc, N, H)``, projected once from the
     memory; N the heads the params hold (under a running ``model`` axis the
-    rank's)."""
+    rank's).  Where the capacity or the frames are split
+    (:func:`_cache_blocks`: batch 1 over ``data`` under
+    ``seq_shard_cache``) each holds the rank's block of them, the cross
+    K/V projected from the rank's frames alone."""
     B, T, _ = memory.shape
+    self_block, cross_block = _cache_blocks(cfg, capacity, T)
+    if cross_block is not None:
+        memory = memory.narrow(1, cross_block.start, cross_block.size)
+        T = cross_block.size
     cross = params["decoder"]["cross_attn"]
     L, N, H = cfg.num_layers, cross["wk"].shape[-2], cfg.head_dim
     kv = {name: torch.empty((L, B, T, N, H), dtype=dtype, device=memory.device)
@@ -182,7 +199,8 @@ def init_whisper_cache(params: Params, memory: torch.Tensor, cfg, capacity: int,
         for name, w in (("k", "wk"), ("v", "wv")):
             proj = torch.einsum("btd,dnh->btnh", memory, kv_w[w].to(memory.dtype))
             kv[name][i].copy_(proj)
-    self_kv = {name: torch.zeros((L, B, capacity, N, H), dtype=dtype, device=memory.device)
+    cap = capacity if self_block is None else self_block.size
+    self_kv = {name: torch.zeros((L, B, cap, N, H), dtype=dtype, device=memory.device)
                for name in ("k", "v")}
     return {"self": self_kv, "cross": kv}
 
@@ -210,13 +228,14 @@ def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos,
     x = apply_embedding(params["embed"], token[:, None], scale=False, act_dtype=act_dt,
                         mesh=vmesh)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
-    cap = cache["self"]["k"].shape[2]
+    self_block, cross_block = _cache_blocks(cfg)
+    cap = cache["self"]["k"].shape[2] if self_block is None else self_block.whole
     # the current token's sinusoidal row, read on the device
     pos_row = position_table(cap, cfg.d_model, x.device, act_dt).index_select(0, pos.reshape(1))
     x = x + pos_row[None]
     qpos = pos.reshape(1, 1).expand(B, 1)
-    T = cache["cross"]["k"].shape[2]
-    mpos = _positions(B, T, x.device)
+    T = cache["cross"]["k"].shape[2] if cross_block is None else cross_block.whole
+    mpos = A.cache_positions_full(T, torch.tensor(T, device=x.device), B, cross_block)
     mq = torch.full((B, 1), T, device=x.device)  # cross attention: every memory slot visible
     layers = zip(_unstack(params["decoder"], cfg.num_layers),
                  _unstack(cache["self"], cfg.num_layers),
@@ -234,9 +253,10 @@ def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos,
         k = torch.einsum("bsd,dnh->bsnh", h, sa["wk"].to(dt))
         v = torch.einsum("bsd,dnh->bsnh", h, sa["wv"].to(dt))
         q = q * torch.tensor(cfg.head_dim**-0.5, dtype=dt)
-        A.update_cache_full(self_kv, k, v, pos)
-        cpos = A.cache_positions_full(cap, pos + 1, B)
-        o = A.decode_attention(q, self_kv["k"], self_kv["v"], cpos, qpos)
+        A.update_cache_full(self_kv, k, v, pos, self_block)
+        cpos = A.cache_positions_full(cap, pos + 1, B, self_block)
+        o = A.decode_heads(q, self_kv["k"], self_kv["v"], cpos, qpos, window=None, softcap=None,
+                           block=self_block, mesh=hmesh)
         x = x + _attn_out(o, sa["wo"], dt, hmesh)
 
         dt = x.dtype
@@ -246,7 +266,8 @@ def whisper_decode_step(params: Params, cache: Params, token: torch.Tensor, pos,
             c = C.copy_to_model(c, hmesh)
         qc = torch.einsum("bsd,dnh->bsnh", c, ca["wq"].to(dt))
         qc = qc * torch.tensor(cfg.head_dim**-0.5, dtype=dt)
-        oc = A.decode_attention(qc, cross_kv["k"], cross_kv["v"], mpos, mq)
+        oc = A.decode_heads(qc, cross_kv["k"], cross_kv["v"], mpos, mq, window=None,
+                            softcap=None, block=cross_block, mesh=hmesh)
         x = x + _attn_out(oc, ca["wo"], dt, hmesh)
 
         m = apply_layernorm(p["mlp_norm"], x, cfg.norm_eps)

@@ -13,17 +13,21 @@ process groups of a running :class:`~repro_torch.launch.mesh.Mesh`
 * :func:`copy_to_model`: the column-parallel input.  The identity; the
   backward sums the cotangent over ``model`` (each rank's branch of the
   graph contributes its part);
-* :func:`max_over_model`: a max over ``model`` with no gradient (the
-  vocab-parallel softmax's shift);
+* :func:`max_over`: a max over ``model`` (or any of the layout's axes)
+  with no gradient (the vocab-parallel softmax's shift);
 * :func:`greedy_argmax`: the lowest global index of the largest logit of
   logits sharded over vocab, as one process's ``torch.argmax`` picks (an
   f32 max and an int64 min of ``(B,)``);
 * :func:`gather_over_model`: the ranks' blocks of the last dim put side by
-  side (the RG-LRU's conv output, whose gates read the whole width): each
+  side (the RG-LRU's conv output, whose gates read the whole width; a
+  decode step's query heads under ``seq_shard_cache``): each
   rank writes its block into a zero buffer of the whole width and the
   buffers are summed; the backward sums the cotangent over ``model`` and
   takes the rank's block (gloo gathers no CUDA tensor, and NCCL refuses
   two ranks on one card);
+* :func:`sum_over`: a sum over any of the layout's axes (with
+  :func:`max_over`, a decode step's partial softmax combined over the axes
+  its cache's capacity is split over, :func:`serving`);
 
 Whether a layer runs sharded is decided in one place, :func:`layout_mesh`,
 from the port's storage layout
@@ -82,6 +86,9 @@ copies its chunks to the host).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import math
 
 import torch
@@ -95,9 +102,13 @@ __all__ = [
     "vocab_mesh",
     "reduce_from_model",
     "copy_to_model",
-    "max_over_model",
     "greedy_argmax",
     "gather_over_model",
+    "max_over",
+    "sum_over",
+    "ServeShape",
+    "serving",
+    "serve_shape",
     "sum_over_data",
     "gather_weights",
     "seq_mesh",
@@ -130,11 +141,16 @@ __all__ = [
 # handed to all-gather and to reduce-scatter, not to all-reduce, in the
 # forward and the backward alike): "sp_gather" (a chunked sequence gathered
 # over model, the bytes of the gathered buffer) and "sp_scatter" (a
-# sequence reduce-scattered to the chunks, the bytes of the whole buffer).
+# sequence reduce-scattered to the chunks, the bytes of the whole buffer);
+# and a decode step's over a cache whose capacity is split
+# (``SPEC_OPTIONS["seq_shard_cache"]``): "kv_gather" (the query heads
+# gathered over model) and "kv_combine" (the partial softmax's row maximum,
+# and its sums and weighted values, reduced over the capacity's axes).
 COLLECTIVE_BYTES = {k: 0 for k in ("combine", "gather", "aux", "embed", "attn", "mlp", "logits",
                                    "argmax", "ssm_proj", "ssm_out", "lru_gather", "lru_out",
                                    "loss", "grad", "fsdp_gather", "fsdp_grad", "norm",
-                                   "backward", "sp_gather", "sp_scatter")}
+                                   "backward", "sp_gather", "sp_scatter", "kv_gather",
+                                   "kv_combine")}
 
 
 def reset_collective_bytes() -> None:
@@ -262,6 +278,44 @@ def local_rows(batch: dict, mesh, *, strict: bool = True) -> dict:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class ServeShape:
+    """What a rank's decode caches are laid out by beyond its own tensors
+    (:func:`~repro_torch.sharding.specs.capacity_split` reads the whole
+    leaf): ``batch`` the global batch, before :func:`local_rows` (batch 2 at
+    data 2 leaves each rank one row, as batch 1 does, but only batch 1 keeps
+    the same row on every data rank), ``capacity`` the positions a decode
+    cache holds and ``memory`` whisper's encoder frames (its cross K/V's
+    length; None for the other archs)."""
+
+    batch: int
+    capacity: int
+    memory: int | None = None
+
+
+_SERVE_SHAPE: contextvars.ContextVar[ServeShape | None] = contextvars.ContextVar(
+    "serve_shape", default=None)
+
+
+@contextlib.contextmanager
+def serving(batch: int, capacity: int, memory: int | None = None):
+    """The :class:`ServeShape` of the decode caches built and stepped inside
+    (``launch/serve.py::serve`` sets it).  Needed only where
+    ``SPEC_OPTIONS["seq_shard_cache"]`` may split a cache's capacity under a
+    running sharded mesh: without it a rank cannot tell the whole leaf from
+    its own block."""
+    token = _SERVE_SHAPE.set(ServeShape(batch, capacity, memory))
+    try:
+        yield
+    finally:
+        _SERVE_SHAPE.reset(token)
+
+
+def serve_shape() -> ServeShape | None:
+    """The :class:`ServeShape` of :func:`serving` in force, or None."""
+    return _SERVE_SHAPE.get()
+
+
 # ---------------------------------------------------------------------------
 # Tensor parallelism over `model`
 # ---------------------------------------------------------------------------
@@ -278,13 +332,18 @@ def copy_to_model(t: torch.Tensor, mesh) -> torch.Tensor:
     return _to_model(t, mesh)
 
 
-def max_over_model(t: torch.Tensor, mesh, what: str) -> torch.Tensor:
-    """The elementwise max over ``model`` of a tensor that carries no
+def max_over(t: torch.Tensor, mesh, axes, what: str) -> torch.Tensor:
+    """The elementwise max over ``axes`` of a tensor that carries no
     gradient (a copy; ``t`` is left as it is)."""
     import torch.distributed as dist
 
     return _all_reduce(t.detach().clone(memory_format=torch.contiguous_format),
-                       mesh.group("model"), what, op=dist.ReduceOp.MAX)
+                       mesh.group(axes), what, op=dist.ReduceOp.MAX)
+
+
+def sum_over(t: torch.Tensor, mesh, axes, what: str) -> torch.Tensor:
+    """The sum over ``axes``; the backward is the identity."""
+    return _sum_over(t, mesh.group(axes), what)
 
 
 def greedy_argmax(logits: torch.Tensor, mesh) -> torch.Tensor:
@@ -302,7 +361,7 @@ def greedy_argmax(logits: torch.Tensor, mesh) -> torch.Tensor:
     # f32 holds every bf16 / f16 value exactly, so the comparison below is
     # the logits' own
     local_max = torch.gather(logits, -1, local_idx[..., None])[..., 0].to(torch.float32)
-    top = max_over_model(local_max, mesh, "argmax")
+    top = max_over(local_max, mesh, "model", "argmax")
     big = torch.iinfo(torch.int64).max
     cand = torch.where(local_max == top, local_idx + mesh.index("model") * v_loc, big)
     return _all_reduce(cand.contiguous(), mesh.group("model"), "argmax", op=dist.ReduceOp.MIN)
@@ -320,10 +379,12 @@ def _gather(t: torch.Tensor, group, n: int, index: int, what: str, dim: int = -1
     return _sum_over(torch.nn.functional.pad(t, pad), group, what, back=group)
 
 
-def gather_over_model(t: torch.Tensor, mesh, what: str) -> torch.Tensor:
-    """The ranks' blocks of ``t``'s last dim, side by side in rank order:
-    ``(..., W / model)`` -> ``(..., W)`` (module docstring)."""
-    return _gather(t, mesh.group("model"), mesh.shape["model"], mesh.index("model"), what)
+def gather_over_model(t: torch.Tensor, mesh, what: str, dim: int = -1) -> torch.Tensor:
+    """The ranks' blocks of ``t``'s dim ``dim`` (the last by default), side
+    by side in rank order: ``(..., W / model)`` -> ``(..., W)`` (module
+    docstring)."""
+    return _gather(t, mesh.group("model"), mesh.shape["model"], mesh.index("model"), what,
+                   dim=dim)
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,7 @@ __all__ = [
     "worker_specs",
     "cache_spec_for",
     "cache_specs",
+    "capacity_split",
     "auto_spec_for",
     "auto_specs",
     "local_shape",
@@ -303,6 +304,24 @@ def cache_spec_for(path: str, shape: tuple[int, ...], mesh, batch: int) -> P:
 def cache_specs(tree: Any, mesh, batch: int) -> Any:
     return _map_with_path(lambda path, leaf: cache_spec_for(path, _shape(leaf), mesh, batch),
                           tree)
+
+
+def capacity_split(shape: tuple[int, ...], mesh,
+                   batch: int) -> tuple[tuple[str, ...], int, int] | None:
+    """Where :func:`cache_spec_for` puts the capacity axis of a ``k`` / ``v``
+    cache leaf of the whole ``shape`` (..., B, C, Nkv, H) with a global
+    ``batch``: ``(axes, index, n)``, the axes it splits C over (``("model",)``
+    or the batch axes; only under ``SPEC_OPTIONS["seq_shard_cache"]``), the
+    rank's index along them (``mesh.coords``) and their size; None where C
+    stays whole (the option off, or the axes do not divide C, or they have
+    one card).  The rank holds the slots ``[index C / n, (index + 1) C / n)``.
+    The one decision of the cache's layout: the decode caches' creation,
+    prefill and decode step and the planner's byte count all read it."""
+    axes = _axes_of(cache_spec_for("k", tuple(shape), mesh, batch)[-3])
+    n = math.prod(_axis_sizes(mesh)[a] for a in axes)
+    if n == 1:
+        return None
+    return axes, mesh.index(axes), n
 
 
 # ---------------------------------------------------------------------------

@@ -323,3 +323,75 @@ def sp_config(case, reduce=reduced, get=get_config):
         arch, upd = SP_MOE[case]
         return dataclasses.replace(reduce(get(arch)), router_aux_coef=0.5, **upd)
     return arch_config(case, reduce, get)
+
+
+# ---------------------------------------------------------------------------
+# The seq_shard_cache decode layout (tests/test_torch_seq_shard_cache.py and
+# its spawned ranks)
+# ---------------------------------------------------------------------------
+
+# name: (arch, (data, model), batch, prompt, greedy steps).  "kv1" is
+# :func:`config`'s stablelm-1.6b with one kv head; recurrentgemma-9b and
+# whisper-large-v3 are :func:`arch_config`'s, gemma2-27b is reduced at
+# d_model 64 (4 heads of 64, all kv heads; local layers of window 64, global
+# layers, softcap 50).  The recurrentgemma prompts run past its window of
+# 64 (the ring wraps); kv1's full cache of 6 + 10 puts slots 8-15 on rank
+# 1, empty for the first two steps; the "-odd" capacities (7 + 8 = 15,
+# 71 + 8 = 79) do not split over 2, so those leaves stay whole (gemma2's
+# local rings of 64 still split).
+SSC_CASES = {
+    "rg-1x2": ("recurrentgemma-9b", (1, 2), 2, 80, 8),
+    "rg-1x4": ("recurrentgemma-9b", (1, 4), 2, 80, 8),
+    "kv1-1x2": ("kv1", (1, 2), 2, 6, 10),
+    "kv1-odd-1x2": ("kv1", (1, 2), 2, 7, 8),
+    "gemma2-2x1": ("gemma2-27b", (2, 1), 1, 72, 8),
+    "gemma2-odd-2x1": ("gemma2-27b", (2, 1), 1, 71, 8),
+    "gemma2-2x2": ("gemma2-27b", (2, 2), 1, 72, 8),
+    "whisper-2x1": ("whisper-large-v3", (2, 1), 1, 16, 8),
+}
+
+
+def ssc_config(arch, reduce=reduced, get=get_config):
+    """A :data:`SSC_CASES` arch; ``reduce`` / ``get`` of the reference give
+    its twin."""
+    if arch == "kv1":
+        return dataclasses.replace(reduce(get("stablelm-1.6b"), d_model=64), num_kv_heads=1)
+    if arch in ARCH_UPDATES:
+        return arch_config(arch, reduce, get)
+    return reduce(get(arch), d_model=64)
+
+
+def ssc_capacity(cfg, prompt, gen):
+    """The positions ``launch.serve.serve``'s cache holds: the prompt (a
+    vlm's prefix and tokens) and the steps."""
+    n_pre = cfg.num_prefix_embeddings if cfg.frontend == "vision" else 0
+    return n_pre + prompt + gen
+
+
+def serve_cache(cfg, params, batch, gen):
+    """``launch.serve.serve``'s prefill (whisper: its cache from the
+    encoder) and ``gen`` greedy steps, through the model's entry points
+    inside ``collectives.serving`` -> the decode cache after them (under a
+    running mesh, the rank's)."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    from repro_torch.training import make_serve_step
+
+    B, S = batch["tokens"].shape
+    cap = ssc_capacity(cfg, S, gen)
+    frames = batch["enc_embeds"].shape[1] if cfg.is_encoder_decoder else None
+    with C.serving(B, cap, frames), torch.no_grad():
+        mesh = C.sharded_mesh()
+        rows = batch if mesh is None else C.local_rows(batch, mesh, strict=False)
+        if cfg.is_encoder_decoder:
+            cache = M.init_decode_state(params, cfg, rows["tokens"].shape[0], cap,
+                                        cache_dtype=torch.float32, batch=rows)
+            last, start = rows["tokens"][:, 0].to(torch.int32), 0
+        else:
+            logits, cache = M.prefill(params, rows, cfg, cap, cache_dtype=torch.float32)
+            last = C.greedy_argmax(logits, C.vocab_mesh(cfg)).to(torch.int32)
+            start = cap - gen
+        step = make_serve_step(cfg)
+        for i in range(gen):
+            last = step(params, cache, last, torch.tensor(start + i))["next_token"]
+    return cache
